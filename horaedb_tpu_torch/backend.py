@@ -1,0 +1,67 @@
+"""Device choice and the numpy -> torch boundary of the port.
+
+Every entry point takes `device=` and defaults to "cuda". Without a card,
+the default raises instead of quietly running on the host; `device="cpu"`
+is an explicit request for the plain PyTorch versions of the kernels.
+
+Unsigned 64-bit lanes (tsid, metric_id, the packed-key sentinel) cross the
+boundary through an order-preserving map to int64: flipping bit 63 sends
+0 to the int64 minimum and 2^64-1 to the int64 maximum, so signed order on
+the mapped lane equals unsigned order on the original. torch's uint64
+tensors lack `<`, `>>`, `searchsorted` and `max` on the CPU, so no uint64
+tensor is ever made.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from horaedb_tpu_torch.common.error import HoraeError
+
+DEFAULT_DEVICE = "cuda"
+_SIGN = np.uint64(1 << 63)
+
+
+def resolve_device(device: str | torch.device = DEFAULT_DEVICE) -> torch.device:
+    """The torch device for `device`; raises when a CUDA device is asked
+    for and none is present (no silent fallback to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise HoraeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch versions of the kernels on the host"
+            )
+    elif dev.type != "cpu":
+        raise HoraeError(f"unsupported device {dev} (cuda or cpu)")
+    return dev
+
+
+def u64_to_i64(a: np.ndarray) -> np.ndarray:
+    """Order-preserving u64 -> i64 (flip bit 63)."""
+    return (np.asarray(a, dtype=np.uint64) ^ _SIGN).view(np.int64)
+
+
+def i64_to_u64(a: np.ndarray) -> np.ndarray:
+    """Inverse of `u64_to_i64`."""
+    return np.asarray(a, dtype=np.int64).view(np.uint64) ^ _SIGN
+
+
+def order_key(a: np.ndarray) -> np.ndarray:
+    """An integer lane as int64 whose signed order is the lane's own order:
+    u64 goes through `u64_to_i64`, narrower integers widen."""
+    a = np.asarray(a)
+    if a.dtype == np.uint64:
+        return u64_to_i64(a)
+    if not np.issubdtype(a.dtype, np.integer):
+        raise HoraeError(f"sort keys must be integers, got {a.dtype}")
+    return a.astype(np.int64, copy=False)
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host lane -> tensor on `device`. u64 lanes must be mapped first."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint64:
+        raise HoraeError("map u64 lanes through order_key before the device")
+    return torch.from_numpy(a).to(device)

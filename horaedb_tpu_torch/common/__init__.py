@@ -1,0 +1,1 @@
+"""Host-side helpers of the port (copies of the JAX package's jax-free ones)."""

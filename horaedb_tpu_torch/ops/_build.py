@@ -1,0 +1,135 @@
+"""Build and load the port's CUDA kernels, and count their launches.
+
+Each kernel is one source under `ops/csrc/`, compiled at first use with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC
+
+into `horaedb_tpu_torch/_build/` (listed in .gitignore) and loaded with
+ctypes. There is no `--use_fast_math`: the kernels must keep NaN
+propagation and subnormals. The library name carries a hash of the sources
+and flags, so an edited kernel never loads a stale build. Nothing here
+runs at import: a CPU-only box imports every module.
+
+`LAUNCHES` counts, per catalog name, the wrapper calls that launched the
+kernel on the card (the plain CPU versions do not count).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+from horaedb_tpu_torch.common.error import HoraeError
+
+# catalog names are the JAX package's (`common/xprof.py` kernel names)
+KERNELS = ("sort_perm", "block_sum_count", "block_min_max")
+SOURCES = {
+    "sort_perm": ("sort_perm.cu",),
+    "block_sum_count": ("block_sum_count.cu", "segreduce.cuh"),
+    "block_min_max": ("block_min_max.cu", "segreduce.cuh"),
+}
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+
+LAUNCHES = {name: 0 for name in KERNELS}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launch_counts() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    found = str(cand) if cand.exists() else shutil.which("nvcc")
+    if not found:
+        raise HoraeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES[name]:
+        h.update((CSRC / src).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _nvcc_cmd(name: str, out: Path) -> list[str]:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC / SOURCES[name][0])]
+
+
+def build_all(names=KERNELS) -> dict[str, float]:
+    """Compile every kernel in `names` that has no current build, one
+    nvcc process per source, all started together. Returns seconds per
+    built kernel (0.0 for one already built)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    started = time.perf_counter()
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            _nvcc_cmd(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+        ), tmp, out)
+    took = {name: 0.0 for name in names}
+    errors = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        took[name] = time.perf_counter() - started
+        if proc.returncode != 0:
+            errors.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    if errors:
+        raise HoraeError("kernel build failed:\n" + "\n".join(errors))
+    return took
+
+
+def kernel(name: str, fn_name: str, argtypes: list, restype=ctypes.c_int) -> ctypes._CFuncPtr:
+    """The C entry point `fn_name` of kernel `name`, built on first use.
+    Every launch entry point returns cudaGetLastError() as an int; each
+    library also exports the size of the scratch its launch needs."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build_all((name,))
+            lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = restype
+    return fn
+
+
+def scratch_bytes(name: str, fn_name: str, n: int) -> int:
+    """Bytes of scratch kernel `name` needs for `n` rows, as its library
+    computes them from its own tile size."""
+    return kernel(name, fn_name, [ctypes.c_int64], ctypes.c_int64)(n)
+
+
+def check(name: str, rc: int) -> None:
+    """Raise on a failed launch, else count it."""
+    if rc != 0:
+        raise HoraeError(f"{name}: CUDA launch failed with cudaError {rc}")
+    LAUNCHES[name] += 1

@@ -1,0 +1,44 @@
+// block_sum_count: per-cell weighted (sum, count) over rows sorted by flat
+// cell id (sid * num_buckets + bucket), in f64.
+//
+// Replaces the JAX package's ops/blockagg.py::_block_sum_count_xla
+// (catalog name block_sum_count) and the f64 route it dispatches to,
+// ops/blockagg.py::_scatter_sum_count (scatter_fused is the same function).
+//
+// Bound on an H100: memory. Per row it reads the id (4 B), the pre-masked
+// value (8 B) and the weight (8 B), and per cell it writes sum and count
+// (16 B); the work is one add per row per lane, far below the FP64 rate.
+// Design: the segmented reduction of segreduce.cuh. Each row is read once,
+// each cell written once, no atomics (the grid is bitwise repeatable, as
+// the partial-grid fold and stacked==solo depend on), and no density limit:
+// the TPU form's one-hot rank budget and its scatter fallback do not carry
+// over.
+#include "segreduce.cuh"
+
+namespace {
+
+struct SumCount {
+    using Aux = double;
+    __host__ __device__ static seg::Pair identity() { return {0.0, 0.0}; }
+    __device__ static seg::Pair load(double v, double w) { return {v, w}; }
+    __device__ static seg::Pair combine(seg::Pair x, seg::Pair y) {
+        return {x.a + y.a, x.b + y.b};
+    }
+};
+
+}  // namespace
+
+// k: int32[n] sorted; v: f64[n] (0 on excluded rows); w: f64[n] count
+// weight (0 on excluded rows); out_sum, out_count: f64[num_cells];
+// scratch: block_sum_count_scratch_bytes(n) bytes.
+extern "C" int block_sum_count_launch(const void* k, const void* v, const void* w,
+                                      int64_t n, int32_t num_cells, void* out_sum,
+                                      void* out_count, void* scratch, void* stream) {
+    return seg::launch<SumCount>(
+        static_cast<const int32_t*>(k), static_cast<const double*>(v),
+        static_cast<const double*>(w), n, num_cells, static_cast<double*>(out_sum),
+        static_cast<double*>(out_count), static_cast<seg::Pair*>(scratch),
+        static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int64_t block_sum_count_scratch_bytes(int64_t n) { return seg::scratch_bytes(n); }

@@ -54,3 +54,9 @@ def local_store(tmp_path):
     from horaedb_tpu.objstore import LocalStore
 
     return LocalStore(str(tmp_path / "store"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips where there is none"
+    )

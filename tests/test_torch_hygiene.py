@@ -1,0 +1,125 @@
+"""Boundaries of the PyTorch/CUDA port (horaedb_tpu_torch).
+
+- Nothing in the port or in chip_smoke.py imports jax, the JAX package,
+  pyarrow or protobuf (the card's machine has none of them).
+- Entry points default to the card and raise where there is none, instead
+  of running on the CPU; the plain versions run only when asked for.
+- The host copies (time_ext, size_ext) parse as the JAX package's do.
+- The kernel build keeps the sm_90a target and no fast math.
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from horaedb_tpu.common.size_ext import ReadableSize as JaxSize
+from horaedb_tpu.common.time_ext import ReadableDuration as JaxDuration
+from horaedb_tpu_torch import KERNELS, launch_counts
+from horaedb_tpu_torch.common.error import HoraeError
+from horaedb_tpu_torch.common.size_ext import ReadableSize
+from horaedb_tpu_torch.common.time_ext import ReadableDuration
+from horaedb_tpu_torch.ops import _build
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "horaedb_tpu_torch").rglob("*.py"))
+FORBIDDEN = ("jax", "jaxlib", "horaedb_tpu", "pyarrow", "google.protobuf")
+SCHEMA = [("metric_id", np.uint64), ("tsid", np.uint64), ("field_id", np.uint64),
+          ("ts", np.int64), ("value", np.float64)]
+
+
+def _imported_modules(path: Path) -> list[str]:
+    out = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            out.extend(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            out.append(node.module)
+    return out
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+@pytest.mark.parametrize("rel", PORT_FILES + ["chip_smoke.py"])
+def test_no_forbidden_imports(rel):
+    bad = [m for m in _imported_modules(ROOT / rel) if _forbidden(m)]
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_forbidden_rule_catches_the_reference_but_not_the_port():
+    assert _forbidden("horaedb_tpu.ops.sort") and _forbidden("jax.numpy")
+    assert _forbidden("google.protobuf.message") and _forbidden("pyarrow")
+    assert not _forbidden("horaedb_tpu_torch.ops.sort") and not _forbidden("jaxtyping_like")
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a box without a CUDA device")
+
+
+def _entry_points():
+    from horaedb_tpu_torch.engine_query import query_downsample
+    from horaedb_tpu_torch.ops.aggregate import downsample_sorted
+    from horaedb_tpu_torch.ops.sort import sort_permutation
+    from horaedb_tpu_torch.storage import ObjectBasedStorage, TimeRange
+
+    cpu_store = ObjectBasedStorage.try_new(SCHEMA, 4, "2h", device="cpu")
+    z = np.zeros(4, np.int64)
+    return {
+        "try_new": lambda: ObjectBasedStorage.try_new(SCHEMA, 4, "2h"),
+        "query_downsample": lambda: query_downsample(
+            cpu_store, np.arange(3, dtype=np.uint64), TimeRange(0, 600), 60, None),
+        "sort_permutation": lambda: sort_permutation([np.arange(4, dtype=np.uint64)]),
+        "downsample_sorted": lambda: downsample_sorted(z, z.astype(np.int32), z * 1.0, 0, 10,
+                                                       num_series=1, num_buckets=1),
+    }
+
+
+@pytest.mark.parametrize("name", ["try_new", "query_downsample", "sort_permutation",
+                                  "downsample_sorted"])
+def test_entry_point_without_device_raises_on_cpu_box(no_card, name):
+    with pytest.raises(HoraeError, match="no CUDA device"):
+        _entry_points()[name]()
+
+
+def test_plain_versions_do_not_count_launches():
+    from horaedb_tpu_torch.ops.blockagg import sorted_segment_min_max, sorted_segment_sum_count
+    from horaedb_tpu_torch.ops.sort import sort_permutation
+
+    before = launch_counts()
+    k = torch.zeros(3, dtype=torch.int32)
+    v = torch.ones(3, dtype=torch.float64)
+    sorted_segment_sum_count(k, v, 1)
+    sorted_segment_min_max(k, v, 1)
+    sort_permutation([np.array([3, 1, 2], np.uint64)], device="cpu")
+    assert launch_counts() == before
+    assert set(before) == set(KERNELS) == {"sort_perm", "block_sum_count", "block_min_max"}
+
+
+@pytest.mark.parametrize("text", ["0", "1500", "2h", "1d2h3m4s5ms", "1.5h", "90s", "250ms"])
+def test_duration_copy_parses_as_reference(text):
+    ours, ref = ReadableDuration.parse(text), JaxDuration.parse(text)
+    assert ours.ms == ref.ms and str(ours) == str(ref)
+
+
+@pytest.mark.parametrize("text", ["2GiB", "512MiB", "0.5e6 B", "4KB", "123"])
+def test_size_copy_parses_as_reference(text):
+    ours, ref = ReadableSize.parse(text), JaxSize.parse(text)
+    assert ours.bytes == ref.bytes and str(ours) == str(ref)
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_build_command_targets_sm90a_without_fast_math(name, monkeypatch):
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    cmd = _build._nvcc_cmd(name, Path("/dev/null"))
+    joined = " ".join(cmd)
+    assert "-gencode arch=compute_90a,code=sm_90a" in joined
+    assert "fast_math" not in joined and "fast-math" not in joined
+    for src in _build.SOURCES[name]:
+        assert (_build.CSRC / src).exists()
+    assert _build._lib_path(name).parent == ROOT / "horaedb_tpu_torch" / "_build"
