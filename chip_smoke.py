@@ -5,17 +5,38 @@
 
 Phases, each of which exits non-zero on failure:
 1. print the card's name and power limit, build the kernels from
-   horaedb_tpu_torch/ops/csrc (one nvcc per source, in parallel);
-2. hold each kernel (sort_perm, block_sum_count, block_min_max) against its
-   plain PyTorch version on the card, on edge cases and at the main path's
-   shapes, and time kernel, plain version and one PyTorch library call;
-3. the main path at TSBS cpu-only scale (10,000 series, one field, 10 s
-   interval, 4 h = two 2 h segments = 14.4M samples): shuffled writes plus a
-   5 % re-send through ObjectBasedStorage.write, then the 5-minute
-   downsample query over all series and over a 1,000-series subset, held
-   against a numpy oracle (last write wins, then bincount) and run twice
-   for bitwise-identical grids; every kernel must have launched; one more
-   query runs under torch.profiler and cProfile for where its time goes.
+   horaedb_tpu_torch/ops/csrc (one nvcc per library, in parallel);
+2. hold each kernel against its plain PyTorch version on the card, on edge
+   cases and at the main path's shapes, and time kernel, plain version and
+   a PyTorch library call where one computes the same function:
+   sort_perm (A), block_sum_count (B), block_min_max (C), and the merges
+   of a segment scan: packed_merge (D), the predicate kernel (E) and
+   index_merge_mask / index_merge_filter (F) - edge cases n = 0 and 1,
+   all rejected, one group, keys >= 2^63, NaN and -0.0 lanes, InSet of 0,
+   1, 128, 129 and 65,536 members, presorted and shuffled rows, and one
+   segment of about 7.56M rows;
+3. the main paths at TSBS cpu-only scale (10,000 series, one field, 10 s
+   interval, 4 h = two 2 h segments = 14.4M samples), stored as parquet
+   SSTs and a manifest in a LocalStore under a temporary directory; the
+   launch counts are set to 0 before each path and read after it:
+   a. write: 48 shuffled batches plus a 5 % re-send through
+      `await ObjectBasedStorage.write` (kernel A);
+   b. the 5-minute downsample query over all series (twice, bitwise
+      identical) and over 1,000 series, held against a numpy oracle (last
+      write wins, then bincount) on the packed route (kernels B, C);
+   c. the same query with `scan_block_rows` below a segment's rows, so the
+      chunked route runs: grids equal to the packed route's;
+   d. raw scans through `ObjectBasedStorage.scan`, each held bitwise on
+      every lane against a numpy last-write-wins oracle and against the
+      same scan with HORAEDB_SCAN_PATH=host: one 2 h segment with a
+      metric_id predicate on the planner's own route (index_merge_mask on a
+      fast link); HORAEDB_SCAN_PATH=device with an InSet of 1,000 tsids and
+      a ts range (index_merge_filter); a table with a dense int64 series id
+      under HORAEDB_SCAN_PATH=device and HORAEDB_LINK_PROFILE=skip, no
+      predicate (packed_merge);
+   every kernel must have launched on one of these paths; one query and
+   one scan run under torch.profiler (and the query under cProfile) for
+   where the time goes.
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result.
@@ -25,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -281,7 +303,205 @@ def check_kernels(torch, rng, dev) -> list[dict]:
     return records
 
 
-# -- phase 3: the main path ---------------------------------------------------
+# -- phase 2, continued: the merges of a segment scan (D, E, F) ---------------
+
+SORT_KEYS = ("metric_id", "tsid", "field_id", "ts", "__seq__")
+U64_MAX = np.uint64(2**64 - 1)
+
+
+def same_survivors(torch, got, want) -> bool:
+    (out, k), (pout, pk) = got, want
+    k, pk = int(k.item()), int(pk.item())
+    return k == pk and torch.equal(out[:k], pout[:pk])
+
+
+def merge_edge_cases(rng):
+    """(name, sort-key lanes, mask, presorted) for kernels D and F."""
+    def lanes(n, pk_lo=0, pk_hi=50):
+        return {"metric_id": np.ones(n, np.uint64),
+                "tsid": rng.integers(2**63, 2**63 + pk_hi - pk_lo, n, dtype=np.uint64),
+                "field_id": np.zeros(n, np.uint64),
+                "ts": T0 + rng.integers(0, 40, n).astype(np.int64),
+                "__seq__": rng.integers(10**18, 10**18 + 5, n).astype(np.uint64)}
+
+    def sort(c):
+        order = np.lexsort(tuple(c[k] for k in reversed(SORT_KEYS)))
+        return {k: v[order] for k, v in c.items()}
+
+    yield "no rows", lanes(0), np.zeros(0, bool), False
+    yield "one row", lanes(1), np.ones(1, bool), False
+    c = lanes(5000)
+    yield "all rejected", c, np.zeros(5000, bool), False
+    c = lanes(9000)
+    c["tsid"][:] = U64_MAX
+    c["ts"][:] = T0
+    yield "all one group, key 2^64-1", c, rng.random(9000) < 0.9, False
+    c = lanes(70_001, 0, 4000)
+    yield "shuffled, keys >= 2^63", c, rng.random(70_001) < 0.7, False
+    yield "presorted", sort(c), rng.random(70_001) < 0.7, True
+
+
+def predicate_edge_cases(F):
+    members = tuple(int(v) for v in np.arange(2**63, 2**63 + 70_000, dtype=np.uint64))
+    return {
+        "NaN and -0.0": F.Or(F.Compare("value", "eq", 0.0), F.Compare("value", "ne",
+                                                                      float("nan"))),
+        "NaN literal": F.Compare("value", "lt", float("nan")),
+        "u64 >= 2^63": F.And(F.Compare("tsid", "ge", 2**63 + 7), F.Compare("ts", "lt", T0 + 30)),
+        "InSet 0": F.InSet("tsid", (-1, 2**64)),
+        "InSet 1": F.InSet("tsid", members[:1]),
+        "InSet 128": F.InSet("tsid", members[:128]),
+        "InSet 129": F.InSet("tsid", members[:129]),
+        "InSet 65536": F.InSet("tsid", members[:65_536]),
+        "float InSet": F.Not(F.InSet("value", (float("nan"), -0.0, 0.5))),
+    }
+
+
+def segment_runs(rng, data, seg: int):
+    """One segment as the merge sees it: the rows of the segment's 24
+    shuffled writes and its re-send, each write pk-sorted with its own
+    sequence, concatenated in first-key order."""
+    tsids, ts, _values, resend, _new, _final = data
+    per_series = len(ts)
+    seg_of = (ts - T0) // SEGMENT_MS
+    rows = np.flatnonzero(seg_of[np.arange(NUM_SERIES * per_series) % per_series] == seg)
+    parts = np.array_split(rng.permutation(rows), BATCHES_PER_SEGMENT)
+    parts.append(resend[seg_of[resend % per_series] == seg])
+    runs = []
+    for w, part in enumerate(parts):
+        part = np.sort(part)  # (series, ts) order is pk order
+        runs.append({"metric_id": np.full(len(part), METRIC_ID, np.uint64),
+                     "tsid": tsids[part // per_series],
+                     "field_id": np.zeros(len(part), np.uint64),
+                     "ts": ts[part % per_series],
+                     "__seq__": np.full(len(part), 1_700_000_000_000_000_000 + w, np.uint64),
+                     "series_id": (part // per_series).astype(np.int64)})
+    runs.sort(key=lambda r: (int(r["tsid"][0]), int(r["ts"][0])))
+    return {k: np.concatenate([r[k] for r in runs]) for k in runs[0]}
+
+
+def check_merge_kernels(torch, rng, dev, data) -> list[dict]:
+    from horaedb_tpu_torch.backend import device_lane, order_key
+    from horaedb_tpu_torch.ops import filter as F
+    from horaedb_tpu_torch.ops import merge
+    from horaedb_tpu_torch.storage.read import _pack_sort_keys, sort_key_lanes
+
+    # edge cases: D and F against their plain versions
+    for name, cols, mask, presorted in merge_edge_cases(rng):
+        n = len(mask)
+        keys, bounds, num_pk = sort_key_lanes(cols.__getitem__, SORT_KEYS, dev)
+        mask_t = torch.from_numpy(mask.astype(np.uint8)).to(dev)
+        for dedup in (True, False):
+            require(same_survivors(torch, merge.index_merge_mask(keys, bounds, num_pk, mask_t,
+                                                                 dedup, presorted),
+                                   merge.index_merge_plain(keys, num_pk, mask_t, dedup,
+                                                           presorted)),
+                    f"index_merge_mask != plain on {name!r} (dedup={dedup})")
+        packres = _pack_sort_keys(cols.__getitem__, ("tsid", "ts", "__seq__"), n)
+        packed, width, bits = packres if packres else (np.zeros(n, np.uint64), 1, 8)
+        key = torch.from_numpy(order_key(np.where(mask, packed, U64_MAX))).to(dev)
+        for dedup in (True, False):
+            require(same_survivors(torch, merge.packed_merge(key, bits, width, dedup),
+                                   merge.packed_merge_plain(key, width, dedup)),
+                    f"packed_merge != plain on {name!r} (dedup={dedup})")
+    # E and E + F: NaN / -0.0 float lanes, u64 literals, InSet sizes
+    cols = dict(next(c for nm, c, _m, _p in merge_edge_cases(rng) if nm.startswith("shuffled")))
+    n = len(cols["ts"])
+    cols["value"] = rng.choice(np.array([np.nan, -0.0, 0.0, 0.5, np.inf, -1.0]), n)
+    dtypes = {k: a.dtype for k, a in cols.items()}
+    lanes = {k: torch.from_numpy(device_lane(a)).to(dev) for k, a in cols.items()}
+    keys, bounds, num_pk = sort_key_lanes(cols.__getitem__, SORT_KEYS, dev)
+    for name, pred in predicate_edge_cases(F).items():
+        prog = F.compile_program(pred, dtypes)
+        plain = F.eval_program_plain(prog, lanes, n)
+        require(torch.equal(F.eval_predicate(pred, lanes, dtypes), plain),
+                f"predicate kernel != plain on {name!r}")
+        require(same_survivors(torch, merge.index_merge_filter(keys, bounds, num_pk, prog, lanes,
+                                                               n, True, False, dev),
+                               merge.index_merge_plain(keys, num_pk, plain, True, False)),
+                f"index_merge_filter != plain on {name!r}")
+
+    # the main path's shape: one segment of the TSBS data
+    seg = segment_runs(rng, data, 0)
+    n = len(seg["ts"])
+    records = []
+    # D: the dense-series table (series_id, ts, seq) packed into one key
+    dense_keys = ("series_id", "ts", "__seq__")
+    packed, width, bits = _pack_sort_keys(seg.__getitem__, dense_keys, n)
+    key = torch.from_numpy(order_key(packed)).to(dev)
+    got = merge.packed_merge(key, bits, width, True)
+    want = merge.packed_merge_plain(key, width, True)
+    require(same_survivors(torch, got, want), "packed_merge != plain at the main path shape")
+    k = int(got[1].item())
+    nb, kind = bound(n * 8 + k * 4, 0)
+    records.append({
+        "name": "packed_merge", "route": "cuda",
+        "source": "horaedb_tpu_torch/ops/csrc/packed_merge.cu",
+        "replaces": "horaedb_tpu/storage/read.py:405",
+        "shape": f"{n} rows, {bits}-bit packed key (series_id, ts, seq rank), {k} survivors",
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(torch, lambda: merge.packed_merge(key, bits, width, True)),
+        "plain_ms": cuda_ms(torch, lambda: merge.packed_merge_plain(key, width, True)),
+        "bound_ms": nb, "bound_by": kind, "library_ms": None,
+        "one_key_sort_ms": cuda_ms(torch, lambda: torch.sort(key, stable=True)),
+    })
+    # F with a host mask: metric_id eq keeps every row of this data
+    keys, bounds, num_pk = sort_key_lanes(seg.__getitem__, SORT_KEYS, dev)
+    mask_t = torch.from_numpy((seg["metric_id"] == METRIC_ID).astype(np.uint8)).to(dev)
+    got = merge.index_merge_mask(keys, bounds, num_pk, mask_t, True, False)
+    want = merge.index_merge_plain(keys, num_pk, mask_t, True, False)
+    require(same_survivors(torch, got, want), "index_merge_mask != plain at the main path shape")
+    k = int(got[1].item())
+    nb, kind = bound(n * (8 * len(keys) + 1) + k * 4, 0)
+    records.append({
+        "name": "index_merge_mask", "route": "cuda",
+        "source": "horaedb_tpu_torch/ops/csrc/index_merge.cu",
+        "replaces": "horaedb_tpu/storage/read.py:580",
+        "shape": f"{n} rows x {len(keys)} key lanes (tsid, ts, seq rank) + mask, {k} survivors",
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(torch, lambda: merge.index_merge_mask(keys, bounds, num_pk, mask_t, True,
+                                                            False)),
+        "plain_ms": cuda_ms(torch, lambda: merge.index_merge_plain(keys, num_pk, mask_t, True,
+                                                                   False), iters=5),
+        "bound_ms": nb, "bound_by": kind, "library_ms": None,
+        "one_key_sort_ms": cuda_ms(torch, lambda: torch.sort(keys[0], stable=True)),
+    })
+    # E + F: InSet of 1,000 tsids and a ts range, evaluated on the device
+    subset = np.sort(rng.choice(data[0], SUBSET, replace=False))
+    pred = F.And(F.InSet("tsid", tuple(int(t) for t in subset)),
+                 F.time_range_pred("ts", T0 + 600_000, T0 + SEGMENT_MS - 600_000))
+    pcols = {c: seg[c] for c in ("tsid", "ts")}
+    prog = F.compile_program(pred, {c: a.dtype for c, a in pcols.items()})
+    plane = {c: torch.from_numpy(device_lane(a)).to(dev) for c, a in pcols.items()}
+    got = merge.index_merge_filter(keys, bounds, num_pk, prog, plane, n, True, False, dev)
+    plain_mask = F.eval_program_plain(prog, plane, n)
+    want = merge.index_merge_plain(keys, num_pk, plain_mask, True, False)
+    require(same_survivors(torch, got, want), "index_merge_filter != plain at the main shape")
+    require(torch.equal(F.eval_predicate(pred, plane, {c: a.dtype for c, a in pcols.items()}),
+                        plain_mask), "predicate kernel != plain at the main path shape")
+    k = int(got[1].item())
+    nb, kind = bound(n * (8 * len(keys) + 16) + k * 4, 0)
+    records.append({
+        "name": "index_merge_filter", "route": "cuda",
+        "source": "horaedb_tpu_torch/ops/csrc/index_merge.cu + predicate.cu",
+        "replaces": "horaedb_tpu/storage/read.py:586",
+        "shape": f"{n} rows x {len(keys)} key lanes + (tsid, ts) predicate lanes, InSet of "
+                 f"{SUBSET} + ts range, {k} survivors",
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(torch, lambda: merge.index_merge_filter(keys, bounds, num_pk, prog, plane,
+                                                              n, True, False, dev)),
+        "plain_ms": cuda_ms(torch, lambda: merge.index_merge_plain(
+            keys, num_pk, F.eval_program_plain(prog, plane, n), True, False), iters=5),
+        "bound_ms": nb, "bound_by": kind, "library_ms": None,
+        "predicate_ms": cuda_ms(torch, lambda: F.launch_program(
+            prog, plane, n, torch.empty(n, dtype=torch.uint8, device=dev))),
+        "predicate_plain_ms": cuda_ms(torch, lambda: F.eval_program_plain(prog, plane, n),
+                                      iters=5),
+    })
+    return records
+
+
+# -- phase 3: the main paths ----------------------------------------------------
 
 def make_data(rng):
     """The TSBS grid in (series, ts) order, the re-sent rows and the final
@@ -300,30 +520,46 @@ def make_data(rng):
     return tsids, ts, values, resend, new_values, final
 
 
-def write_all(storage, rng, tsids, ts, values, resend, new_values):
+def arrow_schema(dense: bool):
+    import pyarrow as pa
+
+    if dense:
+        return pa.schema([("series_id", pa.int64()), ("ts", pa.int64()),
+                          ("value", pa.float64())])
+    return pa.schema([(n, pa.from_numpy_dtype(dt)) for n, dt in SCHEMA])
+
+
+async def write_all(storage, rng, data, dense: bool = False, segments=(0, 1)):
+    """The shuffled writes plus the re-send, segment by segment."""
+    import pyarrow as pa
+
     from horaedb_tpu_torch.storage import TimeRange, WriteRequest
 
+    tsids, ts, values, resend, new_values, _final = data
     per_series = len(ts)
-    n_total = len(values)
+    schema = arrow_schema(dense)
 
     def batch(rows, vals):
         s, t = rows // per_series, rows % per_series
-        return {"metric_id": np.full(len(rows), METRIC_ID, np.uint64), "tsid": tsids[s],
-                "field_id": np.zeros(len(rows), np.uint64), "ts": ts[t], "value": vals}
+        if dense:
+            arrays = [s.astype(np.int64), ts[t], vals]
+        else:
+            arrays = [np.full(len(rows), METRIC_ID, np.uint64), tsids[s],
+                      np.zeros(len(rows), np.uint64), ts[t], vals]
+        return pa.RecordBatch.from_arrays([pa.array(a) for a in arrays], schema=schema)
 
     seg_of = (ts - T0) // SEGMENT_MS
     rows_written = 0
     t_start = time.perf_counter()
-    for seg in range(WINDOW_MS // SEGMENT_MS):
+    for seg in segments:
         rng_seg = TimeRange(T0 + seg * SEGMENT_MS, T0 + (seg + 1) * SEGMENT_MS)
-        rows = np.flatnonzero(seg_of[np.arange(n_total) % per_series] == seg)
+        rows = np.flatnonzero(seg_of[np.arange(len(values)) % per_series] == seg)
         rows = rng.permutation(rows)
         for part in np.array_split(rows, BATCHES_PER_SEGMENT):
-            storage.write(WriteRequest(batch(part, values[part]), rng_seg))
+            await storage.write(WriteRequest(batch(part, values[part]), rng_seg))
             rows_written += len(part)
-        rs = np.flatnonzero(seg_of[resend % per_series] == seg)
-        rs = rng.permutation(rs)
-        storage.write(WriteRequest(batch(resend[rs], new_values[rs]), rng_seg))
+        rs = rng.permutation(np.flatnonzero(seg_of[resend % per_series] == seg))
+        await storage.write(WriteRequest(batch(resend[rs], new_values[rs]), rng_seg))
         rows_written += len(rs)
     return rows_written, time.perf_counter() - t_start
 
@@ -349,61 +585,195 @@ def oracle(tsids, ts, final):
 
 
 def check_grids(got, want, what: str) -> None:
-    require(np.array_equal(got["count"], want["count"]), f"{what}: counts differ from oracle")
-    require(np.array_equal(got["min"], want["min"]), f"{what}: min differs from oracle")
-    require(np.array_equal(got["max"], want["max"]), f"{what}: max differs from oracle")
+    require(np.array_equal(got["count"], want["count"]), f"{what}: counts differ")
+    require(np.array_equal(got["min"], want["min"]), f"{what}: min differs")
+    require(np.array_equal(got["max"], want["max"]), f"{what}: max differs")
     np.testing.assert_allclose(got["sum"], want["sum"], rtol=1e-12, atol=0,
-                               err_msg=f"{what}: sums differ from oracle")
+                               err_msg=f"{what}: sums differ")
     with np.errstate(invalid="ignore", divide="ignore"):
         mean = want["sum"] / want["count"]
     np.testing.assert_allclose(got["mean"], mean, rtol=1e-12, atol=0, equal_nan=True,
-                               err_msg=f"{what}: means differ from oracle")
+                               err_msg=f"{what}: means differ")
 
 
 def bitwise_equal(a: dict, b: dict) -> bool:
     return all(np.array_equal(a[k].view(np.uint64), b[k].view(np.uint64)) for k in a)
 
 
-def main_path(torch, rng, dev) -> dict:
+def scan_oracle(data, series: np.ndarray, t_lo: int, t_hi: int, dense: bool) -> dict:
+    """Last-write-wins rows of `series` (sorted indices) with ts in
+    [t_lo, t_hi), in primary-key order, as the scan must return them."""
+    tsids, ts, _v, _r, _n, final = data
+    t_idx = np.flatnonzero((ts >= t_lo) & (ts < t_hi))
+    s = np.repeat(series, len(t_idx))
+    t = np.tile(t_idx, len(series))
+    value = final[s * len(ts) + t]
+    if dense:
+        return {"series_id": s.astype(np.int64), "ts": ts[t], "value": value}
+    return {"metric_id": np.full(len(s), METRIC_ID, np.uint64), "tsid": tsids[s],
+            "field_id": np.zeros(len(s), np.uint64), "ts": ts[t], "value": value}
+
+
+def table_lanes(table) -> dict:
+    return {name: table.column(name).to_numpy() for name in table.schema.names}
+
+
+def lanes_equal(a: dict, b: dict) -> bool:
+    def bits(x):
+        return x.view(np.uint64) if x.dtype == np.float64 else x
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and np.array_equal(bits(a[k]), bits(b[k])) for k in a)
+
+
+class EnvPin:
+    """Set environment variables for one block, restoring them after."""
+
+    def __init__(self, **env):
+        self.env = env
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+async def timed_scan(storage, req):
+    import pyarrow as pa
+
+    t = time.perf_counter()
+    batches = [b async for b in storage.scan(req)]
+    secs = time.perf_counter() - t
+    return (pa.Table.from_batches(batches) if batches else None), secs
+
+
+async def main_paths(torch, rng, dev, data, workdir) -> dict:
     import horaedb_tpu_torch as port
     from horaedb_tpu_torch.engine_query import query_downsample
+    from horaedb_tpu_torch.objstore import LocalStore
     from horaedb_tpu_torch.ops import filter as F
-    from horaedb_tpu_torch.storage import ObjectBasedStorage, TimeRange
+    from horaedb_tpu_torch.storage import (
+        ObjectBasedStorage,
+        ScanRequest,
+        StorageConfig,
+        TimeRange,
+    )
 
-    tsids, ts, values, resend, new_values, final = make_data(rng)
+    tsids, ts, values, resend, new_values, final = data
     want = oracle(tsids, ts, final)
     subset = np.sort(rng.choice(NUM_SERIES, SUBSET, replace=False))
     window = TimeRange(T0, T0 + WINDOW_MS)
-    pred = F.And(F.Compare("metric_id", "eq", METRIC_ID),
-                 F.time_range_pred("ts", window.start, window.end))
+    query_pred = F.And(F.Compare("metric_id", "eq", METRIC_ID),
+                       F.time_range_pred("ts", window.start, window.end))
+    store = LocalStore(f"{workdir}/store")
+    out: dict = {"launches": {}}
+    launches = {name: 0 for name in port.KERNELS}
 
+    def counted(path: str, counts: dict) -> None:
+        out["launches"][path] = {k: v for k, v in counts.items() if v}
+        for k, v in counts.items():
+            launches[k] += v
+
+    async def open_table(root, dense=False, config=None):
+        return await ObjectBasedStorage.try_new(
+            root, store, arrow_schema(dense), 2 if dense else 4, SEGMENT_MS, config=config,
+            enable_compaction_scheduler=False, start_background_merger=False, device=dev)
+
+    # a. write
+    storage = await open_table("tsbs")
     port.reset_launch_counts()
-    storage = ObjectBasedStorage.try_new(SCHEMA, 4, SEGMENT_MS, device=dev)
-    rows, write_s = write_all(storage, rng, tsids, ts, values, resend, new_values)
+    rows, write_s = await write_all(storage, rng, data)
     torch.cuda.synchronize()
-    query_s = []
-    grids = []
+    counted("write", port.launch_counts())
+    out["rows_written"] = rows
+    out["write_rows_per_s"] = rows / write_s
+    out["write_s_incl_parquet_encode"] = write_s
+    out["sst_bytes"] = sum(s.meta.size for s in storage.manifest.all_ssts())
+
+    # b. the downsample query, packed route
+    port.reset_launch_counts()
+    grids, query_s = [], []
     for ids in (tsids, tsids, tsids[subset]):
         t = time.perf_counter()
-        grids.append(query_downsample(storage, ids, window, BUCKET_MS, pred, device=dev))
+        grids.append(await query_downsample(storage, ids, window, BUCKET_MS, query_pred))
         query_s.append(time.perf_counter() - t)
-    launches = port.launch_counts()
-    profiled = profile_query(torch, storage, tsids, window, pred, dev)
-
+    counted("downsample_packed", port.launch_counts())
     check_grids(grids[0], want, "all series")
     require(bitwise_equal(grids[0], grids[1]), "repeat query is not bitwise identical")
     check_grids(grids[2], {k: v[subset] for k, v in want.items()}, "1000-series subset")
+    out.update(query_s_all_series=query_s[0], query_s_repeat=query_s[1],
+               query_s_subset=query_s[2])
+
+    # c. the chunked route: scan_block_rows at a quarter of a segment's rows
+    seg_rows = rows // (WINDOW_MS // SEGMENT_MS)
+    chunked = await open_table("tsbs", config=StorageConfig(scan_block_rows=seg_rows // 4))
+    port.reset_launch_counts()
+    t = time.perf_counter()
+    got = await query_downsample(chunked, tsids, window, BUCKET_MS, query_pred)
+    out["query_s_chunked"] = time.perf_counter() - t
+    counted("downsample_chunked", port.launch_counts())
+    for key in ("count", "min", "max"):
+        require(np.array_equal(got[key], grids[0][key]), f"chunked route: {key} differs")
+    np.testing.assert_allclose(got["sum"], grids[0]["sum"], rtol=1e-12, atol=0,
+                               err_msg="chunked route: sums differ")
+    await chunked.close()
+
+    # d. raw scans
+    seg0 = TimeRange(T0, T0 + SEGMENT_MS)
+    scans = {}
+
+    async def raw_scan(name, st, req, expect, env):
+        port.reset_launch_counts()
+        with EnvPin(**env):
+            table, secs = await timed_scan(st, req)
+        counts = port.launch_counts()
+        counted(f"scan_{name}", counts)
+        require(table is not None, f"scan {name}: no rows")
+        got = table_lanes(table)
+        require(lanes_equal(got, expect), f"scan {name}: differs from the oracle")
+        with EnvPin(HORAEDB_SCAN_PATH="host"):
+            host, host_secs = await timed_scan(st, req)
+        require(lanes_equal(table_lanes(host), got), f"scan {name}: differs from the host route")
+        scans[name] = {"rows": table.num_rows, "s": secs, "rows_per_s": table.num_rows / secs,
+                       "host_route_s": host_secs,
+                       "route": sorted(k for k in counts if counts[k])}
+
+    await raw_scan("auto_metric_eq", storage,
+                   ScanRequest(seg0, predicate=F.Compare("metric_id", "eq", METRIC_ID)),
+                   scan_oracle(data, np.arange(NUM_SERIES), seg0.start, seg0.end, False), {})
+    lo, hi = T0 + 600_000, T0 + SEGMENT_MS - 600_000
+    inset = F.And(F.InSet("tsid", tuple(int(v) for v in tsids[subset])),
+                  F.time_range_pred("ts", lo, hi))
+    await raw_scan("device_inset_1000", storage, ScanRequest(seg0, predicate=inset),
+                   scan_oracle(data, subset, lo, hi, False), {"HORAEDB_SCAN_PATH": "device"})
+    dense = await open_table("dense", dense=True)
+    await write_all(dense, rng, data, dense=True, segments=(0,))
+    await raw_scan("device_packed_dense", dense, ScanRequest(seg0),
+                   scan_oracle(data, np.arange(NUM_SERIES), seg0.start, seg0.end, True),
+                   {"HORAEDB_SCAN_PATH": "device", "HORAEDB_LINK_PROFILE": "skip"})
+    out["scans"] = scans
     for name, count in launches.items():
-        require(count > 0, f"kernel {name} never launched on the main path")
-    return {"rows_written": rows, "write_rows_per_s": rows / write_s,
-            "query_s_all_series": query_s[0], "query_s_repeat": query_s[1],
-            "query_s_subset": query_s[2], "launches": launches, "profile": profiled}
+        require(count > 0, f"kernel {name} never launched on a main path")
+    out["kernel_launches"] = launches
+    out["profile"] = await profile_paths(torch, storage, tsids, window, query_pred, seg0)
+    from horaedb_tpu_torch.storage.read import _LinkProfile
+
+    out["link_profile"] = _LinkProfile.get(dev)
+    await dense.close()
+    await storage.close()
+    return out
 
 
-def profile_query(torch, storage, ids, window, pred, dev) -> dict:
-    """One more query under torch.profiler (device kernels and copies) and
-    cProfile (host): wall time, device busy time and share, and the host
-    functions with the most own time."""
+async def profile_paths(torch, storage, ids, window, pred, seg0) -> dict:
+    """One query under torch.profiler and cProfile, and one raw scan under
+    torch.profiler with its host decode timed apart: wall time, device busy
+    time and share, H2D copy time, the largest device kernels and host
+    functions."""
     import cProfile
     import pstats
 
@@ -411,30 +781,56 @@ def profile_query(torch, storage, ids, window, pred, dev) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from horaedb_tpu_torch.engine_query import query_downsample
+    from horaedb_tpu_torch.ops import filter as F
+    from horaedb_tpu_torch.storage import ScanRequest
+
+    def host_top(host):
+        stats = pstats.Stats(host)
+        return sorted(((f"{fn[0].rsplit('/', 1)[-1]}:{fn[2]}", st[2])
+                       for fn, st in stats.stats.items()), key=lambda kv: -kv[1])[:8]
+
+    def device_summary(prof, wall):
+        ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in ev) / 1e6
+        h2d = sum(e.self_device_time_total for e in ev if "HtoD" in e.key) / 1e6
+        top = sorted(((e.key[:60], e.self_device_time_total / 1e6) for e in ev),
+                     key=lambda kv: -kv[1])[:6]
+        return {"wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
+                "h2d_s": h2d, "kernels_s": busy - h2d, "device_top": top}
 
     host = cProfile.Profile()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         host.enable()
-        query_downsample(storage, ids, window, BUCKET_MS, pred, device=dev)
+        await query_downsample(storage, ids, window, BUCKET_MS, pred)
         host.disable()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    device_us = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA)
-    by_kernel = sorted(((e.key[:60], e.self_device_time_total / 1e6)
-                        for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                       key=lambda kv: -kv[1])[:6]
-    stats = pstats.Stats(host)
-    top = sorted(((f"{fn[0].rsplit('/', 1)[-1]}:{fn[2]}", st[2])
-                  for fn, st in stats.stats.items()), key=lambda kv: -kv[1])[:8]
-    return {"wall_s": wall, "device_busy_s": device_us / 1e6,
-            "device_busy_share": device_us / 1e6 / wall, "device_top": by_kernel,
-            "host_top_self_s": top}
+    query = device_summary(prof, wall)
+    query["host_top_self_s"] = host_top(host)
+    reader = storage.parquet_reader
+    ssts = storage.select_ssts(seg0)
+    t = time.perf_counter()
+    await reader._read_tables(ssts, reader._resolve_read_names(None, False), None)
+    decode_s = time.perf_counter() - t
+    host = cProfile.Profile()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        host.enable()
+        async for _b in storage.scan(ScanRequest(seg0, predicate=F.Compare("metric_id", "eq",
+                                                                            METRIC_ID))):
+            pass
+        host.disable()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    scan = device_summary(prof, wall)
+    scan["host_read_decode_s"] = decode_s
+    scan["host_top_self_s"] = host_top(host)
+    return {"query": query, "scan_auto_metric_eq": scan}
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     import torch
@@ -442,12 +838,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    import asyncio
+    import tempfile
+
     from horaedb_tpu_torch.ops import _build
 
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip()
     print(card, flush=True)
+    t_all = time.perf_counter()
     t = time.perf_counter()
     built = _build.build_all()
     print(f"build: {time.perf_counter() - t:.1f} s wall, per kernel "
@@ -455,19 +855,21 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
-    records = check_kernels(torch, rng, dev)
+    data = make_data(rng)
+    records = check_kernels(torch, rng, dev) + check_merge_kernels(torch, rng, dev, data)
     for r in records:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"{r['name']}: {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms,"
               f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib} [{card}]",
               flush=True)
-    result = main_path(torch, rng, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        result = asyncio.run(main_paths(torch, rng, dev, data, workdir))
     for r in records:
-        r["launches"] = result["launches"][r["name"]]
+        r["launches"] = result["kernel_launches"][r["name"]]
     profiled = result.pop("profile")
-    print(json.dumps({"main_path": {k: v for k, v in result.items() if k != "launches"},
-                      "card": card}), flush=True)
-    print(json.dumps({"query_profile": profiled, "card": card}), flush=True)
+    result["smoke_s"] = time.perf_counter() - t_all
+    print(json.dumps({"main_paths": result, "card": card}), flush=True)
+    print(json.dumps({"profile": profiled, "card": card}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -59,9 +59,36 @@ def order_key(a: np.ndarray) -> np.ndarray:
     return a.astype(np.int64, copy=False)
 
 
+def device_lane(a: np.ndarray) -> np.ndarray:
+    """A host column as the lane the predicate kernel reads: u64 through
+    `u64_to_i64` and uint32 widened (both int64), narrower integers as
+    int32, bool and uint8 as uint8, floats as float64 (exact)."""
+    a = np.asarray(a)
+    dt = a.dtype
+    if dt == np.uint64:
+        return u64_to_i64(a)
+    if np.issubdtype(dt, np.floating):
+        return a.astype(np.float64, copy=False)
+    if dt in (np.bool_, np.uint8):
+        return a.astype(np.uint8, copy=False)
+    if dt in (np.int8, np.int16, np.uint16, np.int32):
+        return a.astype(np.int32, copy=False)
+    if dt in (np.int64, np.uint32):
+        return a.astype(np.int64, copy=False)
+    raise HoraeError(f"no device lane for dtype {dt}")
+
+
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host lane -> tensor on `device`. u64 lanes must be mapped first."""
+    """Host lane -> tensor on `device` (a CUDA copy through pinned memory,
+    queued on the current stream). u64 lanes must be mapped first."""
     a = np.ascontiguousarray(a)
     if a.dtype == np.uint64:
         raise HoraeError("map u64 lanes through order_key before the device")
-    return torch.from_numpy(a).to(device)
+    if device.type == "cpu":
+        return torch.from_numpy(a if a.flags.writeable else a.copy())
+    # one copy into pinned staging (PyTorch's caching host allocator keeps
+    # it alive until the copy on the current stream is done), then a DMA
+    dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+    staged = torch.empty(a.shape, dtype=dtype, pin_memory=True)
+    staged.numpy()[...] = a
+    return staged.to(device, non_blocking=True)

@@ -1,10 +1,14 @@
-"""Error type of the port: one exception class plus the `ensure!` helper.
+"""Error types of the port: one exception class, the `ensure!` helper and
+the `.context()` wrapper.
 
 A copy of the JAX package's `common/error.py` core (the retry taxonomy is
-left out until a slice with an object store needs it).
+left out until a slice with a remote object store needs it), plus
+`NotPortedError` for the routes this port does not have yet.
 """
 
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 
 class HoraeError(Exception):
@@ -23,7 +27,28 @@ class HoraeError(Exception):
         return ": ".join(parts)
 
 
+class NotPortedError(HoraeError):
+    """A route or option of the JAX package that the port lacks so far. It
+    raises instead of quietly running something else in its place."""
+
+
 def ensure(cond: bool, msg: str) -> None:
     """`ensure!` analog: raise HoraeError(msg) unless `cond` holds."""
     if not cond:
         raise HoraeError(msg)
+
+
+@contextmanager
+def context(msg: str):
+    """`.context(msg)` analog: wrap any raised exception in HoraeError(msg),
+    keeping the class of a HoraeError subclass (NotFound stays NotFound)."""
+    try:
+        yield
+    except HoraeError as e:
+        try:
+            wrapped = type(e)(msg, cause=e)
+        except TypeError:
+            wrapped = HoraeError(msg, cause=e)
+        raise wrapped from e
+    except Exception as e:  # noqa: BLE001 - deliberate funnel
+        raise HoraeError(msg, cause=e) from e

@@ -2,23 +2,22 @@
 
 A port of the engine's solo pushdown
 (`horaedb_tpu/engine/data.py::_query_downsample_pushdown`): each segment
-of the selected runs reduces to grids on the device
-(storage/read.py::scan_segment_downsample), and the host folds the grids
-in SEGMENT order, never completion order, so the result is bitwise
-repeatable (float addition does not reassociate).
+of the selected SSTs reduces to grids
+(`ParquetReader.scan_segment_downsample`, packed route, or the chunked
+route above `scan_block_rows`), and the host folds the grids in SEGMENT
+order, never completion order, so the result is bitwise repeatable (float
+addition does not reassociate).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from horaedb_tpu_torch.backend import DEFAULT_DEVICE, resolve_device
 from horaedb_tpu_torch.common.error import ensure
-from horaedb_tpu_torch.storage.read import scan_segment_downsample
 from horaedb_tpu_torch.storage.types import TimeRange
 
 
-def query_downsample(
+async def query_downsample(
     storage,
     series_ids: np.ndarray,
     time_range: TimeRange,
@@ -27,15 +26,14 @@ def query_downsample(
     ts_column: str = "ts",
     value_column: str = "value",
     series_column: str = "tsid",
-    device=DEFAULT_DEVICE,
 ) -> dict[str, np.ndarray]:
     """[len(series_ids), num_buckets] host grids of sum, count, min, max and
     mean over `time_range` in `bucket_ms` buckets (bucket 0 starts at
-    time_range.start). `series_ids` must be sorted and unique. `predicate`
-    must pin every primary-key column other than the series and time (the
-    engine pins metric_id), since the packed pass dedups by (series, ts).
-    Empty cells: sum and count 0, min +inf, max -inf, mean NaN."""
-    dev = resolve_device(device)
+    time_range.start), computed on the storage's device. `series_ids` must
+    be sorted and unique. `predicate` must pin every primary-key column
+    other than the series and time (the engine pins metric_id), since the
+    packed pass dedups by (series, ts). Empty cells: sum and count 0, min
+    +inf, max -inf, mean NaN."""
     ensure(bucket_ms > 0, f"bucket_ms must be positive, got {bucket_ms}")
     series_ids = np.asarray(series_ids)
     ensure(series_ids.ndim == 1 and len(series_ids) > 0, "series_ids must be a non-empty 1-D array")
@@ -45,11 +43,11 @@ def query_downsample(
     shape = (len(series_ids), num_buckets)
     acc = {"sum": np.zeros(shape), "count": np.zeros(shape),
            "min": np.full(shape, np.inf), "max": np.full(shape, -np.inf)}
-    ssts = storage.select_ssts(time_range)
-    for seg in storage.group_by_segment(ssts):
-        part = scan_segment_downsample(
-            storage, seg, predicate, ts_column, value_column, series_column,
-            series_ids, time_range.start, bucket_ms, num_buckets, device=dev,
+    reader = storage.parquet_reader
+    for seg in storage.group_by_segment(storage.select_ssts(time_range)):
+        part = await reader.scan_segment_downsample(
+            seg, predicate, ts_column, value_column, series_column, series_ids,
+            time_range.start, bucket_ms, num_buckets, packed_ok=True,
         )
         acc["sum"] = acc["sum"] + part["sum"]
         acc["count"] = acc["count"] + part["count"]

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels, and count their launches.
 
-Each kernel is one source under `ops/csrc/`, compiled at first use with
+Each kernel is one library built from its sources under `ops/csrc/`,
+compiled at first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC
@@ -28,12 +29,19 @@ from pathlib import Path
 
 from horaedb_tpu_torch.common.error import HoraeError
 
-# catalog names are the JAX package's (`common/xprof.py` kernel names)
-KERNELS = ("sort_perm", "block_sum_count", "block_min_max")
+# catalog names are the JAX package's (`common/xprof.py` kernel names);
+# each maps to its sources: every `.cu` is compiled into one library, the
+# headers are hashed into its name. predicate.cu is kernel E, which runs
+# inside index_merge_filter and is not a catalog kernel of its own.
+KERNELS = ("sort_perm", "block_sum_count", "block_min_max", "packed_merge",
+           "index_merge_mask", "index_merge_filter")
 SOURCES = {
-    "sort_perm": ("sort_perm.cu",),
+    "sort_perm": ("sort_perm.cu", "radix.cuh"),
     "block_sum_count": ("block_sum_count.cu", "segreduce.cuh"),
     "block_min_max": ("block_min_max.cu", "segreduce.cuh"),
+    "packed_merge": ("packed_merge.cu", "compact.cuh", "radix.cuh"),
+    "index_merge_mask": ("index_merge.cu", "compact.cuh", "radix.cuh"),
+    "index_merge_filter": ("index_merge.cu", "predicate.cu", "compact.cuh", "radix.cuh"),
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -74,7 +82,8 @@ def _lib_path(name: str) -> Path:
 
 
 def _nvcc_cmd(name: str, out: Path) -> list[str]:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC / SOURCES[name][0])]
+    units = [str(CSRC / src) for src in SOURCES[name] if src.endswith(".cu")]
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), *units]
 
 
 def build_all(names=KERNELS) -> dict[str, float]:

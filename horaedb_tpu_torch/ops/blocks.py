@@ -1,13 +1,26 @@
-"""Sort sentinels shared by the port's host and device lanes.
+"""Sort sentinels and the arrow -> numpy lane conversion of the port.
 
-Copied from the JAX package's `ops/blocks.py`; the arrow conversions and
-the padded `Block` stay behind, since the port's lanes are numpy arrays and
-its kernels mask their own ragged edges instead of padding.
+Copied from the JAX package's `ops/blocks.py`. Its padded device `Block`
+stays behind: the port's kernels mask their own ragged edges, so lanes go
+to the card at their true length.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import pyarrow as pa
+
+from horaedb_tpu_torch.common.error import HoraeError
+
+_ARROW_TO_NP = {
+    pa.int64(): np.int64,
+    pa.int32(): np.int32,
+    pa.uint64(): np.uint64,
+    pa.uint32(): np.uint32,
+    pa.float64(): np.float64,
+    pa.float32(): np.float32,
+    pa.timestamp("ms"): np.int64,
+}
 
 
 def sort_sentinel(dtype) -> np.generic:
@@ -21,3 +34,17 @@ def sort_sentinel(dtype) -> np.generic:
 # The packed-u64 merge sentinel: masked rows sink to all-ones, which sorts
 # after every valid (<= 63-bit) packed key.
 PACK_SENTINEL = np.uint64(0xFFFF_FFFF_FFFF_FFFF)
+
+
+def arrow_column_to_numpy(col) -> np.ndarray:
+    """Lossless numeric conversion of an arrow array or chunked array;
+    nulls become 0 (only `__reserved__` is nullable in the storage schema,
+    and it is unused)."""
+    if isinstance(col, pa.ChunkedArray):
+        col = col.combine_chunks()
+    if col.null_count:
+        col = col.fill_null(0)
+    t = col.type
+    if t in _ARROW_TO_NP:
+        return col.to_numpy(zero_copy_only=False).astype(_ARROW_TO_NP[t], copy=False)
+    raise HoraeError(f"unsupported device column type: {t}")

@@ -1,38 +1,32 @@
-"""Load stored state written elsewhere into the port's store.
+"""Open stored state written elsewhere with the port.
 
-For this database the stored runs take the place a model's weights have:
-`runs_from_reference` takes SSTs as plain numpy lanes, as the JAX
-package's `read_sst` returns them, and seals each as a run with the same
-id, sequence and time range, so both packages can answer queries over the
-same data.
+For this database the stored SST tree takes the place a model's weights
+have. The JAX package and the port share one object layout (parquet SSTs,
+the manifest snapshot and its protobuf deltas), so a root the JAX package
+wrote in a `LocalStore` directory opens here as it is, and the port's own
+roots open in the JAX package.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import pyarrow as pa
 
-from horaedb_tpu_torch.common.error import ensure
-from horaedb_tpu_torch.storage.sst import SstFile
-from horaedb_tpu_torch.storage.types import SEQ_COLUMN_NAME, TimeRange
+from horaedb_tpu_torch.backend import DEFAULT_DEVICE, resolve_device
+from horaedb_tpu_torch.objstore import LocalStore
+from horaedb_tpu_torch.storage.config import StorageConfig
+from horaedb_tpu_torch.storage.storage import ObjectBasedStorage
 
 
-def runs_from_reference(storage, segments) -> list[SstFile]:
-    """`segments`: iterable (one entry per segment) of iterables of SSTs,
-    each a dict with `id`, `time_range` as (start, end) and `lanes`: every
-    schema column (pk lanes, ts, value, `__seq__`) as a pk-sorted numpy
-    lane. Returns the handles of the sealed runs."""
-    out = []
-    names = storage.schema.names
-    dtypes = dict(storage.schema.columns)
-    for seg in segments:
-        for sst in seg:
-            lanes = {}
-            for name in names:
-                ensure(name in sst["lanes"], f"sst {sst['id']}: missing lane {name!r}")
-                lanes[name] = np.ascontiguousarray(sst["lanes"][name], dtype=dtypes[name])
-            seqs = lanes[SEQ_COLUMN_NAME]
-            seq = int(seqs.max()) if len(seqs) else int(sst["id"])
-            start, end = sst["time_range"]
-            out.append(storage.add_run(int(sst["id"]), seq, TimeRange(int(start), int(end)),
-                                       lanes))
-    return out
+async def open_local_root(directory: str, root: str, arrow_schema: pa.Schema,
+                          num_primary_keys: int, segment_duration_ms: int,
+                          config: StorageConfig | None = None,
+                          device=DEFAULT_DEVICE) -> ObjectBasedStorage:
+    """The table `root` of the `LocalStore` at `directory`, opened by the
+    port (no background merger, no compaction). Opening folds leftover
+    manifest deltas into the snapshot, as the JAX package's open does."""
+    device = resolve_device(device)  # before anything touches the directory
+    return await ObjectBasedStorage.try_new(
+        root, LocalStore(directory), arrow_schema, num_primary_keys, segment_duration_ms,
+        config=config, enable_compaction_scheduler=False, start_background_merger=False,
+        device=device,
+    )

@@ -1,11 +1,12 @@
-"""Run handles: id allocation and metadata, one `SstFile` per sealed run.
+"""SST handles: id allocation, metadata, the protobuf bridge and paths.
 
-Plain dataclasses in place of the JAX package's protobuf-backed handles
-(`storage/sst.py`); the invariants are the same:
+A copy of the JAX package's `storage/sst.py`; the invariants are the same:
 - ids come from a process-wide monotonic counter seeded with the
   nanosecond wall clock, and an id doubles as the write sequence used for
   dedup, so a later write always carries the higher sequence;
-- `ensure_id_above` moves the counter past ids loaded from elsewhere.
+- `ensure_id_above` moves the counter past ids loaded from a store;
+- the data path layout is `{prefix}/data/{id}.sst`.
+The compaction marks and TTL helpers wait for the compaction slice.
 """
 
 from __future__ import annotations
@@ -15,7 +16,11 @@ import threading
 import time
 from dataclasses import dataclass
 
+from horaedb_tpu_torch.common.error import HoraeError
+from horaedb_tpu_torch.pb import sst_pb2
 from horaedb_tpu_torch.storage.types import TimeRange
+
+PREFIX_PATH = "data"
 
 _U64_MASK = (1 << 64) - 1
 
@@ -32,7 +37,7 @@ class _IdAllocator:
             return next(self._counter) & _U64_MASK
 
     def ensure_above(self, floor: int) -> None:
-        """Advance past `floor`: an id at or below an existing run's would
+        """Advance past `floor`: an id at or below an existing SST's would
         lose the dedup tie-break to older data."""
         with self._lock:
             current = next(self._counter)
@@ -52,17 +57,64 @@ def ensure_id_above(floor: int) -> None:
 
 @dataclass(frozen=True)
 class FileMeta:
-    """Run metadata: the manifest record of the JAX package's SSTs."""
+    """SST metadata carried in the manifest. `format_version` 2 marks an
+    SST with an encoded-lane sidecar, which the port does not read yet;
+    `encodings` names each lane's codec there."""
 
     max_sequence: int
     num_rows: int
     size: int
     time_range: TimeRange
+    format_version: int = 1
+    encodings: tuple[tuple[str, str], ...] = ()
 
 
 @dataclass(frozen=True)
 class SstFile:
-    """Handle to one immutable sorted run."""
+    """Handle to one immutable sorted parquet SST."""
 
     id: int
     meta: FileMeta
+
+    def to_pb(self) -> sst_pb2.SstFile:
+        pb = sst_pb2.SstFile()
+        pb.id = self.id
+        pb.meta.max_sequence = self.meta.max_sequence
+        pb.meta.num_rows = self.meta.num_rows
+        pb.meta.size = self.meta.size
+        pb.meta.time_range.start = self.meta.time_range.start
+        pb.meta.time_range.end = self.meta.time_range.end
+        if self.meta.format_version > 1:
+            pb.meta.format_version = self.meta.format_version
+            for column, codec in self.meta.encodings:
+                e = pb.meta.encodings.add()
+                e.column = column
+                e.codec = codec
+        return pb
+
+    @classmethod
+    def from_pb(cls, pb: sst_pb2.SstFile) -> "SstFile":
+        if not pb.HasField("meta"):
+            raise HoraeError(f"sst pb missing meta: id={pb.id}")
+        return cls(
+            id=pb.id,
+            meta=FileMeta(
+                max_sequence=pb.meta.max_sequence,
+                num_rows=pb.meta.num_rows,
+                size=pb.meta.size,
+                time_range=TimeRange(pb.meta.time_range.start, pb.meta.time_range.end),
+                # proto3 absent scalar decodes 0: a v1 (plain parquet) SST
+                format_version=max(1, pb.meta.format_version),
+                encodings=tuple((e.column, e.codec) for e in pb.meta.encodings),
+            ),
+        )
+
+
+@dataclass(frozen=True)
+class SstPathGenerator:
+    """`{prefix}/data/{id}.sst`."""
+
+    prefix: str
+
+    def generate(self, file_id: int) -> str:
+        return f"{self.prefix}/{PREFIX_PATH}/{file_id}.sst"

@@ -1,35 +1,68 @@
-"""The port's storage engine: writes seal immutable sorted runs in memory.
+"""The port's storage engine: parquet SSTs and a manifest in an object store.
 
-Mirrors `horaedb_tpu/storage/storage.py::ObjectBasedStorage` up to its
-storage API. Each write becomes a run: the lanes a parquet SST holds after
-`read_sst` (the user columns plus `__seq__`), kept as host numpy arrays.
-The parquet and manifest layer waits for a later slice, so nothing here
-touches an object store.
+A port of the JAX package's `storage/storage.py::ObjectBasedStorage`, on
+the same object layout, so either package opens a root the other wrote:
 
-The write path is the reference's: the segment check, the primary-key
-sort (kernel A on the card, skipped when the batch is already sorted),
-sequence allocation, sealing the run.
+    {root}/manifest/snapshot          binary snapshot (manifest/encoding.py)
+    {root}/manifest/delta/{id}        protobuf deltas
+    {root}/data/{id}.sst              sorted parquet SSTs
+
+- write: the segment check, the primary-key sort (kernel A on the card,
+  run in a worker thread, skipped when the batch is already sorted), the
+  builtin columns, a parquet encode off the event loop (streamed to the
+  store for large tables), then the manifest delta commits the SST;
+- scan: per-segment scans (storage/read.py), segments old -> new, with the
+  next segment's read overlapping the consumer.
+
+Not ported yet: the compaction scheduler, bloom-filter and encoded-lane
+sidecars (asking for any of them is refused when storage opens instead of
+quietly doing nothing), the epoch fence, read-only replica views,
+retention masking and the CPU executors of the JAX package's `try_new`
+(those parameters do not exist here).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import asyncio
+import io
+import logging
+import queue
+import threading
+from typing import AsyncIterator
 
 import numpy as np
+import pyarrow as pa
+import pyarrow.parquet as pq
+import torch
 
 from horaedb_tpu_torch.backend import DEFAULT_DEVICE, resolve_device
-from horaedb_tpu_torch.common.error import ensure
-from horaedb_tpu_torch.common.time_ext import ReadableDuration
+from horaedb_tpu_torch.common.error import HoraeError, NotPortedError, context, ensure
+from horaedb_tpu_torch.objstore import NotFound, ObjectStore
 from horaedb_tpu_torch.ops import sort as sort_ops
+from horaedb_tpu_torch.ops.blocks import arrow_column_to_numpy
 from horaedb_tpu_torch.storage.config import StorageConfig
-from horaedb_tpu_torch.storage.sst import FileMeta, SstFile, allocate_id, ensure_id_above
+from horaedb_tpu_torch.storage.manifest import Manifest
+from horaedb_tpu_torch.storage.read import ParquetReader, _is_binary_like
+from horaedb_tpu_torch.storage.sst import (
+    FileMeta,
+    SstFile,
+    SstPathGenerator,
+    allocate_id,
+    ensure_id_above,
+)
 from horaedb_tpu_torch.storage.types import (
-    SEQ_COLUMN_NAME,
+    ScanRequest,
     StorageSchema,
     TimeRange,
     Timestamp,
     WriteRequest,
+    WriteResult,
 )
+
+logger = logging.getLogger(__name__)
+
+# tables above this many bytes stream their encode to the store in chunks
+STREAM_CHUNK = 4 << 20
 
 
 def _is_pk_sorted(keys: list[np.ndarray]) -> bool:
@@ -47,120 +80,362 @@ def _is_pk_sorted(keys: list[np.ndarray]) -> bool:
     return True
 
 
-@dataclass(frozen=True)
-class Run:
-    """One sealed write: its handle and its pk-sorted lanes."""
-
-    sst: SstFile
-    lanes: dict[str, np.ndarray]
+def _refuse_unported(config: StorageConfig, enable_compaction_scheduler: bool) -> None:
+    asked = []
+    if enable_compaction_scheduler:
+        asked.append("the compaction scheduler (pass enable_compaction_scheduler=False)")
+    write = config.write
+    if write.enable_bloom_filter or any(
+            getattr(o, "enable_bloom_filter", None) for o in (write.column_options or {}).values()):
+        asked.append("bloom-filter sidecars")
+    if config.encoding.enabled:
+        asked.append("encoded-lane sidecars (format v2 SSTs)")
+    if asked:
+        raise NotPortedError("not ported yet: " + "; ".join(asked))
 
 
 class ObjectBasedStorage:
-    """Columnar storage over sorted in-memory runs."""
+    """Columnar storage over parquet SSTs in an object store."""
 
-    def __init__(self, schema: StorageSchema, segment_duration_ms: int,
-                 config: StorageConfig, device) -> None:
-        self._schema = schema
-        self._segment_duration = segment_duration_ms
-        self._config = config
-        self._device = device
-        self._runs: dict[int, Run] = {}
+    def __init__(self) -> None:
+        raise HoraeError("use `await ObjectBasedStorage.try_new(...)`")
 
     @classmethod
-    def try_new(
+    async def try_new(
         cls,
-        schema,
+        root: str,
+        store: ObjectStore,
+        arrow_schema: pa.Schema,
         num_primary_keys: int,
-        segment_duration_ms: int | str,
+        segment_duration_ms: int,
         config: StorageConfig | None = None,
+        enable_compaction_scheduler: bool = True,
+        start_background_merger: bool = True,
         device=DEFAULT_DEVICE,
     ) -> "ObjectBasedStorage":
-        """`schema`: (name, numpy dtype) pairs, primary key first.
-        `segment_duration_ms`: ms, or a duration string such as "2h"."""
-        seg = ReadableDuration.parse(segment_duration_ms).ms
-        ensure(seg > 0, f"segment duration must be positive, got {seg}")
-        return cls(StorageSchema.try_new(schema, num_primary_keys), seg,
-                   config or StorageConfig(), resolve_device(device))
+        """Open (or create) the table at `root` in `store`; merges and the
+        write sort run on `device` ("cuda" by default, which raises where
+        there is no card; "cpu" runs the kernels' plain versions). Opening
+        folds leftover manifest deltas and reclaims orphan SST objects."""
+        config = config or StorageConfig()
+        _refuse_unported(config, enable_compaction_scheduler)
+        self = object.__new__(cls)
+        self._device = resolve_device(device)
+        self._root = root.strip("/")
+        self._store = store
+        self._config = config
+        ensure(segment_duration_ms > 0, f"segment duration must be positive, got "
+               f"{segment_duration_ms}")
+        self._segment_duration = segment_duration_ms
+        self._schema = StorageSchema.try_new(arrow_schema, num_primary_keys, config.update_mode)
+        self._manifest = await Manifest.try_new(
+            self._root, store, config.manifest, start_background_merger=start_background_merger)
+        existing = self._manifest.all_ssts()
+        if existing:
+            # never allocate at or below an id the manifest already holds
+            ensure_id_above(max(s.id for s in existing))
+        self._path_gen = SstPathGenerator(self._root)
+        await self._gc_orphan_ssts()
+        self._reader = ParquetReader(store, self._path_gen, self._schema, self._device,
+                                     scan_block_rows=config.scan_block_rows)
+        return self
 
+    async def close(self) -> None:
+        await self._manifest.close()
+
+    async def _gc_orphan_ssts(self) -> None:
+        """Reclaim data objects the manifest does not reference (a crash
+        between upload and commit). Best-effort: a faulty store at open
+        degrades to a log line. Orphan ids also raise the id floor, so a
+        fresh write never reuses an occupied `.sst` path."""
+        try:
+            metas = await self._store.list(f"{self._root}/data")
+        except Exception as e:  # noqa: BLE001 - GC is best-effort at open
+            logger.warning("orphan sst gc skipped (list failed): %s", e)
+            return
+        live = {s.id for s in self._manifest.all_ssts()}
+        by_id: dict[int, list[str]] = {}
+        for m in metas:
+            stem, _, ext = m.path.rsplit("/", 1)[-1].partition(".")
+            if ext not in ("sst", "bloom", "enc") or not stem.isdigit():
+                continue
+            if int(stem) not in live:
+                by_id.setdefault(int(stem), []).append(m.path)
+        if not by_id:
+            return
+        ensure_id_above(max(by_id))
+        paths = [p for ps in by_id.values() for p in ps]
+        results = await asyncio.gather(*(self._store.delete(p) for p in paths),
+                                       return_exceptions=True)
+        failed = [p for p, r in zip(paths, results) if isinstance(r, BaseException)]
+        for p in failed:
+            logger.warning("orphan sst gc: failed to delete %s", p)
+        logger.info("orphan sst gc: root=%s orphans=%d objects=%d (failed=%d)",
+                    self._root, len(by_id), len(paths), len(failed))
+
+    # -- accessors ------------------------------------------------------------
     @property
     def schema(self) -> StorageSchema:
         return self._schema
 
     @property
-    def config(self) -> StorageConfig:
-        return self._config
+    def manifest(self) -> Manifest:
+        return self._manifest
 
-    # -- write path ----------------------------------------------------------
-    def write(self, req: WriteRequest) -> SstFile:
-        if req.enable_check:
-            start_seg = Timestamp(req.time_range.start).truncate_by(self._segment_duration)
-            end_seg = Timestamp(req.time_range.end - 1).truncate_by(self._segment_duration)
-            ensure(
-                start_seg == end_seg,
-                f"time range of one write must fall in one segment, "
-                f"range: [{req.time_range.start}, {req.time_range.end})",
-            )
-        batch = self._checked_batch(req.batch)
-        file_id = allocate_id()
-        if not req.presorted:
-            batch = self._sort_batch(batch)
-        seq = file_id if req.seq is None else req.seq
-        n = len(batch[self._schema.names[0]])
-        lanes = dict(batch)
-        lanes[SEQ_COLUMN_NAME] = np.full(n, seq, dtype=np.uint64)
-        return self.add_run(file_id, seq, req.time_range, lanes)
+    @property
+    def parquet_reader(self) -> ParquetReader:
+        return self._reader
 
-    def add_run(self, file_id: int, seq: int, time_range: TimeRange,
-                lanes: dict[str, np.ndarray]) -> SstFile:
-        """Seal pk-sorted `lanes` (every column, `__seq__` included) as run
-        `file_id`. Later allocated ids stay above it."""
-        ensure(file_id not in self._runs, f"run id {file_id} already exists")
-        n = len(lanes[SEQ_COLUMN_NAME])
-        meta = FileMeta(max_sequence=seq, num_rows=n,
-                        size=sum(a.nbytes for a in lanes.values()),
-                        time_range=time_range)
-        sst = SstFile(id=file_id, meta=meta)
-        self._runs[file_id] = Run(sst, {name: lanes[name] for name in self._schema.names})
-        ensure_id_above(max(file_id, seq))
-        return sst
-
-    def _checked_batch(self, batch: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
-        cols = self._schema.user_columns
-        ensure(set(batch) == {n for n, _ in cols},
-               f"batch columns {sorted(batch)} != schema {[n for n, _ in cols]}")
-        lens = {len(batch[n]) for n, _ in cols}
-        ensure(len(lens) == 1, f"ragged batch: column lengths {sorted(lens)}")
-        out = {}
-        for name, dt in cols:
-            a = np.asarray(batch[name])
-            ensure(a.ndim == 1 and a.dtype == dt,
-                   f"column {name!r} must be 1-D {dt}, got {a.ndim}-D {a.dtype}")
-            out[name] = a
-        return out
-
-    def _sort_batch(self, batch: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
-        """Primary-key sort: the permutation comes from the device (kernel A),
-        the gather of every column runs on the host."""
-        keys = [batch[name] for name in self._schema.primary_key_names]
-        if _is_pk_sorted(keys):
-            return batch
-        perm = sort_ops.sort_permutation(keys, device=self._device).cpu().numpy()
-        return {name: a[perm] for name, a in batch.items()}
-
-    # -- read side -----------------------------------------------------------
     def select_ssts(self, time_range: TimeRange) -> list[SstFile]:
-        """Runs whose time range overlaps `time_range`, oldest id first."""
-        return [self._runs[i].sst for i in sorted(self._runs)
-                if self._runs[i].sst.meta.time_range.overlaps(time_range)]
+        """SSTs whose time range overlaps `time_range`."""
+        return self._manifest.find_ssts(time_range)
 
     def group_by_segment(self, ssts: list[SstFile]) -> list[list[SstFile]]:
-        """Bucket runs by segment start, ordered old -> new."""
+        """Bucket SSTs by segment start, ordered old -> new."""
         buckets: dict[int, list[SstFile]] = {}
         for s in ssts:
             seg = Timestamp(s.meta.time_range.start).truncate_by(self._segment_duration)
             buckets.setdefault(seg.value, []).append(s)
         return [buckets[k] for k in sorted(buckets)]
 
-    def read_run(self, sst: SstFile) -> dict[str, np.ndarray]:
-        """The lanes of one run."""
-        return self._runs[sst.id].lanes
+    # -- write path -----------------------------------------------------------
+    async def write(self, req: WriteRequest) -> None:
+        if req.enable_check:
+            start_seg = Timestamp(req.time_range.start).truncate_by(self._segment_duration)
+            end_seg = Timestamp(req.time_range.end - 1).truncate_by(self._segment_duration)
+            ensure(start_seg == end_seg,
+                   f"time range of one write must fall in one segment, "
+                   f"range: [{req.time_range.start}, {req.time_range.end})")
+        result = await self.write_batch(req.batch, presorted=req.presorted, seq=req.seq,
+                                        fast_encode=req.fast_encode)
+        meta = FileMeta(max_sequence=result.seq, num_rows=req.batch.num_rows,
+                        size=result.size, time_range=req.time_range)
+        await self._manifest.add_file(result.id, meta)
+
+    async def write_batch(self, batch: pa.RecordBatch, presorted: bool = False,
+                          seq: int | None = None, fast_encode: bool = False) -> WriteResult:
+        file_id = allocate_id()
+        sorted_batch = batch if presorted else await asyncio.to_thread(self._sort_batch, batch)
+        # the id doubles as the sequence unless the caller pinned one
+        if seq is None:
+            seq = file_id
+        table = pa.Table.from_batches([self._schema.fill_builtin_columns(sorted_batch, seq)])
+        size = await self.write_sst(file_id, table, fast_encode=fast_encode)
+        return WriteResult(id=file_id, seq=seq, size=size)
+
+    def _sort_batch(self, batch: pa.RecordBatch) -> pa.RecordBatch:
+        """Primary-key sort: the permutation comes from the device (kernel A;
+        this runs in a worker thread, on that thread's current stream), and
+        the gather of every column is one arrow take on the host."""
+        if batch.num_rows <= 1:
+            return batch
+        pk_names = self._schema.primary_key_names
+        if any(_is_binary_like(batch.schema.field(n).type) for n in pk_names):
+            raise NotPortedError("not ported yet: binary primary keys (the host sort route)")
+        keys = [arrow_column_to_numpy(batch.column(batch.schema.names.index(n)))
+                for n in pk_names]
+        if _is_pk_sorted(keys):
+            return batch
+        perm = sort_ops.sort_permutation(keys, device=self._device)
+        if perm.device.type == "cuda":
+            torch.cuda.current_stream(perm.device).synchronize()
+        return batch.take(pa.array(perm.cpu().numpy()))
+
+    def _writer_kwargs(self, fast: bool = False) -> dict:
+        """ParquetWriter options from WriteConfig, per-column overrides
+        applied. `fast=True`: snappy and plain encodings (statistics and
+        sorting columns kept, so pruning and the presorted shortcut see no
+        difference)."""
+        cfg = self._config.write
+        sorting = [pq.SortingColumn(i) for i in range(self._schema.num_primary_keys)] + [
+            pq.SortingColumn(self._schema.seq_idx)]
+        if fast and cfg.flush_fast_encode:
+            return dict(compression="SNAPPY", use_dictionary=False, write_statistics=True,
+                        write_batch_size=cfg.write_batch_size,
+                        sorting_columns=sorting if cfg.enable_sorting_columns else None)
+        names = self._schema.arrow_schema.names
+        col_opts = cfg.column_options or {}
+
+        def opt(n: str, attr: str):
+            per = col_opts.get(n)
+            return getattr(per, attr, None) if per is not None else None
+
+        if any(opt(n, "enable_dict") is not None for n in names):
+            use_dictionary: bool | list = [
+                n for n in names
+                if (opt(n, "enable_dict") if opt(n, "enable_dict") is not None
+                    else cfg.enable_dict)]
+        else:
+            use_dictionary = cfg.enable_dict
+        global_comp = cfg.compression.value if cfg.compression.value != "none" else "NONE"
+        if any(opt(n, "compression") for n in names):
+            compression: str | dict = {n: (opt(n, "compression") or global_comp) for n in names}
+        else:
+            compression = global_comp
+        column_encoding = {n: opt(n, "encoding") for n in names if opt(n, "encoding")}
+        # type-driven defaults where no override and no dictionary applies:
+        # DELTA_BINARY_PACKED on integer lanes, BYTE_STREAM_SPLIT on floats
+        if use_dictionary is not True:
+            dict_cols = set(use_dictionary) if isinstance(use_dictionary, list) else set()
+            for n in names:
+                if n in column_encoding or n in dict_cols:
+                    continue
+                t = self._schema.arrow_schema.field(n).type
+                if pa.types.is_integer(t) or pa.types.is_timestamp(t):
+                    column_encoding[n] = "DELTA_BINARY_PACKED"
+                elif pa.types.is_floating(t):
+                    column_encoding[n] = "BYTE_STREAM_SPLIT"
+        return dict(compression=compression, use_dictionary=use_dictionary,
+                    write_statistics=True, write_batch_size=cfg.write_batch_size,
+                    column_encoding=column_encoding or None,
+                    sorting_columns=sorting if cfg.enable_sorting_columns else None)
+
+    async def write_sst(self, file_id: int, table: pa.Table, fast_encode: bool = False) -> int:
+        """Encode a sorted, builtin-filled table as one parquet SST and put it
+        in the store; returns the object's size. Small tables encode in one
+        worker-thread call and one put; large ones stream: a producer thread
+        encodes into bounded chunks that the store writes as they come, so
+        host memory stays O(row group + chunk)."""
+        path = self._path_gen.generate(file_id)
+        max_rg = self._config.write.max_row_group_size
+        # the manifest carries num_rows and size as u32
+        ensure(table.num_rows < 2**32, f"sst row count too large: {table.num_rows}")
+        kwargs = self._writer_kwargs(fast=fast_encode)
+        if table.nbytes <= 4 * STREAM_CHUNK:
+            def _encode_small() -> bytes:
+                sink = io.BytesIO()
+                with pq.ParquetWriter(sink, table.schema, **kwargs) as writer:
+                    writer.write_table(table, row_group_size=max_rg)
+                return sink.getvalue()
+
+            blob = await asyncio.to_thread(_encode_small)
+            ensure(len(blob) < 2**32, f"sst too large for manifest format: {len(blob)}")
+            with context(f"write sst {path}"):
+                await self._store.put(path, blob)
+            return len(blob)
+        return await self._write_sst_streamed(path, table, kwargs, max_rg)
+
+    async def _write_sst_streamed(self, path: str, table: pa.Table, kwargs: dict,
+                                  max_rg: int) -> int:
+        q: queue.Queue = queue.Queue(maxsize=4)
+        cancel = threading.Event()
+        done = threading.Event()
+
+        class _Sink(io.RawIOBase):
+            def __init__(self):
+                self.parts: list[bytes] = []
+                self.pending = 0
+
+            def writable(self):
+                return True
+
+            def write(self, b):
+                if cancel.is_set():
+                    raise OSError("sst stream cancelled")
+                self.parts.append(bytes(b))
+                self.pending += len(b)
+                while self.pending >= STREAM_CHUNK:
+                    blob = b"".join(self.parts)
+                    q.put(blob[:STREAM_CHUNK])
+                    rest = blob[STREAM_CHUNK:]
+                    self.parts = [rest] if rest else []
+                    self.pending = len(rest)
+                return len(b)
+
+            def flush_tail(self):
+                if self.pending:
+                    q.put(b"".join(self.parts))
+                    self.parts = []
+                    self.pending = 0
+
+        def _produce() -> None:
+            try:
+                sink = _Sink()
+                with pq.ParquetWriter(sink, table.schema, **kwargs) as writer:
+                    writer.write_table(table, row_group_size=max_rg)
+                sink.flush_tail()
+                q.put(None)  # EOF
+            except BaseException as e:  # noqa: BLE001 - relayed to the consumer
+                q.put(e)
+            finally:
+                done.set()
+
+        threading.Thread(target=_produce, name="sst-encode", daemon=True).start()
+
+        async def chunks():
+            total = 0
+            while True:
+                item = await asyncio.to_thread(q.get)
+                if item is None:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                total += len(item)
+                ensure(total < 2**32, f"sst too large for manifest format: {total}")
+                yield item
+
+        try:
+            with context(f"write sst {path}"):
+                return await self._store.put_stream(path, chunks())
+        finally:
+            cancel.set()
+            while not done.is_set():
+                try:  # unblock a producer stuck on a full queue
+                    q.get_nowait()
+                except queue.Empty:
+                    pass
+                done.wait(timeout=0.05)
+
+    # -- scan path --------------------------------------------------------------
+    async def scan(self, req: ScanRequest) -> AsyncIterator[pa.RecordBatch]:
+        """Per-segment scans, old segments first. The next segment's read
+        and merge overlap the consumer draining the current one; an early
+        consumer break cancels that prefetch."""
+        ssts = self.select_ssts(req.range)
+        if not ssts:
+            return
+        segments = self.group_by_segment(ssts)
+
+        def start(seg):
+            return asyncio.ensure_future(self.scan_segment_retrying(
+                seg, req.range,
+                lambda fresh: self._reader.scan_segment(
+                    fresh, predicate=req.predicate, projections=req.projections,
+                    keep_builtin=False),
+                empty_result=[]))
+
+        pending = start(segments[0])
+        try:
+            for i in range(len(segments)):
+                batches = await pending
+                pending = start(segments[i + 1]) if i + 1 < len(segments) else None
+                for b in batches:
+                    yield b
+        finally:
+            if pending is not None:
+                pending.cancel()
+                try:
+                    await pending
+                except (asyncio.CancelledError, Exception):  # noqa: BLE001
+                    pass
+
+    async def scan_segment_retrying(self, seg_ssts, time_range, op, empty_result=None):
+        """Run a per-segment scan `op`, refreshing the segment's SST list
+        from the manifest on NotFound (an SST deleted between the caller's
+        manifest snapshot and the read); an empty refresh means the data is
+        gone."""
+        seg_key = Timestamp(seg_ssts[0].meta.time_range.start).truncate_by(
+            self._segment_duration).value
+        for _attempt in range(3):
+            try:
+                return await op(seg_ssts)
+            except NotFound:
+                fresh = [s for s in self._manifest.find_ssts(time_range)
+                         if Timestamp(s.meta.time_range.start).truncate_by(
+                             self._segment_duration).value == seg_key]
+                if not fresh:
+                    return empty_result
+                logger.info("segment scan raced a delete; retrying with %d fresh ssts",
+                            len(fresh))
+                seg_ssts = fresh
+        return await op(seg_ssts)  # last attempt: let NotFound propagate

@@ -71,3 +71,91 @@ def test_downsample_is_bitwise_repeatable(dev):
     b = downsample_sorted(ts, sid, v, 0, 300_000, 300, 24, device=dev)
     for key in a:
         assert torch.equal(a[key].view(torch.int64), b[key].view(torch.int64))
+
+
+# -- kernels D, E and F ---------------------------------------------------------
+
+from horaedb_tpu_torch.backend import device_lane  # noqa: E402
+from horaedb_tpu_torch.ops import filter as F  # noqa: E402
+from horaedb_tpu_torch.ops import merge  # noqa: E402
+from horaedb_tpu_torch.storage.read import _pack_sort_keys, sort_key_lanes  # noqa: E402
+
+SORT_KEYS = ("pk1", "pk2", "__seq__")
+
+
+def _rows(n: int, seed: int, presorted: bool = False):
+    rng = np.random.default_rng(seed)
+    cols = {"pk1": rng.integers(-(2**40), 2**40, n).astype(np.int64) % 5000,
+            "pk2": rng.integers(2**63, 2**63 + 4, n, dtype=np.uint64),
+            "__seq__": rng.integers(1_700_000_000_000_000_000, 1_700_000_000_000_000_000 + 9,
+                                    n).astype(np.uint64)}
+    if presorted:
+        order = np.lexsort((cols["__seq__"], cols["pk2"], cols["pk1"]))
+        cols = {k: v[order] for k, v in cols.items()}
+    return cols, rng.random(n) < 0.7
+
+
+def _same_survivors(a, b):
+    (out, k), (pout, pk) = a, b
+    assert int(k) == int(pk)
+    assert torch.equal(out[: int(k)].cpu(), pout[: int(pk)].cpu())
+
+
+@pytest.mark.parametrize("dedup", [True, False])
+@pytest.mark.parametrize("n,rejected", [(0, False), (1, False), (2049, True), (2049, False),
+                                        (100_003, False)])
+def test_packed_merge_matches_plain(dev, n, rejected, dedup):
+    cols, mask = _rows(n, n)
+    if rejected:
+        mask[:] = False
+    if n:
+        packed, seq_width, bits = _pack_sort_keys(cols.__getitem__, SORT_KEYS, n)
+    else:
+        packed, seq_width, bits = np.zeros(0, np.uint64), 1, 8
+    key = torch.from_numpy(order_key(np.where(mask, packed, np.uint64(2**64 - 1)))).to(dev)
+    _same_survivors(merge.packed_merge(key, bits, seq_width, dedup),
+                    merge.packed_merge_plain(key, seq_width, dedup))
+
+
+@pytest.mark.parametrize("dedup", [True, False])
+@pytest.mark.parametrize("n,presorted", [(1, False), (2048, True), (4097, False),
+                                         (300_001, False), (300_001, True)])
+def test_index_merge_mask_matches_plain(dev, n, presorted, dedup):
+    cols, mask = _rows(n, n + 1, presorted)
+    keys, bounds, num_pk = sort_key_lanes(cols.__getitem__, SORT_KEYS, dev)
+    mask_t = torch.from_numpy(mask.astype(np.uint8)).to(dev)
+    _same_survivors(merge.index_merge_mask(keys, bounds, num_pk, mask_t, dedup, presorted),
+                    merge.index_merge_plain(keys, num_pk, mask_t, dedup, presorted))
+
+
+def _pred_cases():
+    members = tuple(range(2**63, 2**63 + 2))
+    return {
+        "nan_negzero": F.Or(F.Compare("v", "eq", 0.0), F.Compare("v", "ne", float("nan"))),
+        "u64_ge_2p63": F.And(F.Compare("pk2", "ge", 2**63 + 1), F.Not(F.Compare("pk1", "lt", 9))),
+        "inset_0": F.InSet("pk1", (-1.5,)),
+        "inset_1": F.InSet("pk2", members[:1]),
+        "inset_128": F.InSet("pk1", tuple(range(0, 256, 2))),
+        "inset_129": F.InSet("pk1", tuple(range(0, 258, 2))),
+        "inset_65536": F.InSet("pk1", tuple(range(-(2**15), 2**15))),
+        "inset_f64": F.InSet("v", (float("nan"), -0.0, 0.5)),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_pred_cases()))
+def test_predicate_and_index_merge_filter_match_plain(dev, case):
+    n = 70_001
+    cols, _ = _rows(n, 3)
+    rng = np.random.default_rng(4)
+    v = rng.choice(np.array([np.nan, -0.0, 0.0, 0.5, -np.inf, 1.0]), n)
+    host = {"pk1": cols["pk1"], "pk2": cols["pk2"], "v": v}
+    dtypes = {k: a.dtype for k, a in host.items()}
+    lanes = {k: torch.from_numpy(device_lane(a)).to(dev) for k, a in host.items()}
+    pred = _pred_cases()[case]
+    got = F.eval_predicate(pred, lanes, dtypes)
+    prog = F.compile_program(pred, dtypes)
+    assert torch.equal(got.cpu(), F.eval_program_plain(prog, lanes, n).cpu())
+    keys, bounds, num_pk = sort_key_lanes(cols.__getitem__, SORT_KEYS, dev)
+    _same_survivors(
+        merge.index_merge_filter(keys, bounds, num_pk, prog, lanes, n, True, False, dev),
+        merge.index_merge_plain(keys, num_pk, F.eval_program_plain(prog, lanes, n), True, False))

@@ -1,7 +1,10 @@
 """Boundaries of the PyTorch/CUDA port (horaedb_tpu_torch).
 
-- Nothing in the port or in chip_smoke.py imports jax, the JAX package,
-  pyarrow or protobuf (the card's machine has none of them).
+- Nothing in the port or in chip_smoke.py imports jax or the JAX package
+  (the card's machine has no jax; it has pyarrow and protobuf, which the
+  port's storage uses).
+- The port's protobuf module is a byte-identical copy of the JAX
+  package's, so one process can import both.
 - Entry points default to the card and raise where there is none, instead
   of running on the CPU; the plain versions run only when asked for.
 - The host copies (time_ext, size_ext) parse as the JAX package's do.
@@ -25,7 +28,7 @@ from horaedb_tpu_torch.ops import _build
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "horaedb_tpu_torch").rglob("*.py"))
-FORBIDDEN = ("jax", "jaxlib", "horaedb_tpu", "pyarrow", "google.protobuf")
+FORBIDDEN = ("jax", "jaxlib", "horaedb_tpu")
 SCHEMA = [("metric_id", np.uint64), ("tsid", np.uint64), ("field_id", np.uint64),
           ("ts", np.int64), ("value", np.float64)]
 
@@ -52,8 +55,23 @@ def test_no_forbidden_imports(rel):
 
 def test_forbidden_rule_catches_the_reference_but_not_the_port():
     assert _forbidden("horaedb_tpu.ops.sort") and _forbidden("jax.numpy")
-    assert _forbidden("google.protobuf.message") and _forbidden("pyarrow")
+    assert _forbidden("jaxlib.xla_client") and _forbidden("horaedb_tpu")
     assert not _forbidden("horaedb_tpu_torch.ops.sort") and not _forbidden("jaxtyping_like")
+    assert not _forbidden("pyarrow") and not _forbidden("google.protobuf")
+
+
+@pytest.mark.parametrize("rel", ["pb/sst_pb2.py", "pb/protos/sst.proto"])
+def test_pb_copy_is_byte_identical(rel):
+    port, reference = ROOT / "horaedb_tpu_torch" / rel, ROOT / "horaedb_tpu" / rel
+    assert port.read_bytes() == reference.read_bytes()
+
+
+def test_both_pb_copies_share_one_registration():
+    from horaedb_tpu.pb import sst_pb2 as jax_pb
+    from horaedb_tpu_torch.pb import sst_pb2 as port_pb
+
+    msg = port_pb.ManifestUpdate(to_deletes=[2**64 - 1])
+    assert jax_pb.ManifestUpdate.FromString(msg.SerializeToString()).to_deletes == [2**64 - 1]
 
 
 @pytest.fixture
@@ -63,24 +81,31 @@ def no_card():
 
 
 def _entry_points():
-    from horaedb_tpu_torch.engine_query import query_downsample
+    import asyncio
+
+    import pyarrow as pa
+
+    from horaedb_tpu_torch.objstore import MemStore
     from horaedb_tpu_torch.ops.aggregate import downsample_sorted
     from horaedb_tpu_torch.ops.sort import sort_permutation
-    from horaedb_tpu_torch.storage import ObjectBasedStorage, TimeRange
+    from horaedb_tpu_torch.storage import ObjectBasedStorage
+    from horaedb_tpu_torch.storage.carry import open_local_root
 
-    cpu_store = ObjectBasedStorage.try_new(SCHEMA, 4, "2h", device="cpu")
+    schema = pa.schema([(n, pa.from_numpy_dtype(dt)) for n, dt in SCHEMA])
     z = np.zeros(4, np.int64)
     return {
-        "try_new": lambda: ObjectBasedStorage.try_new(SCHEMA, 4, "2h"),
-        "query_downsample": lambda: query_downsample(
-            cpu_store, np.arange(3, dtype=np.uint64), TimeRange(0, 600), 60, None),
+        "try_new": lambda: asyncio.run(ObjectBasedStorage.try_new(
+            "db", MemStore(), schema, 4, 7_200_000, enable_compaction_scheduler=False,
+            start_background_merger=False)),
+        "open_local_root": lambda: asyncio.run(open_local_root(
+            str(ROOT / "chiprun_out" / "never-created"), "db", schema, 4, 7_200_000)),
         "sort_permutation": lambda: sort_permutation([np.arange(4, dtype=np.uint64)]),
         "downsample_sorted": lambda: downsample_sorted(z, z.astype(np.int32), z * 1.0, 0, 10,
                                                        num_series=1, num_buckets=1),
     }
 
 
-@pytest.mark.parametrize("name", ["try_new", "query_downsample", "sort_permutation",
+@pytest.mark.parametrize("name", ["try_new", "open_local_root", "sort_permutation",
                                   "downsample_sorted"])
 def test_entry_point_without_device_raises_on_cpu_box(no_card, name):
     with pytest.raises(HoraeError, match="no CUDA device"):
@@ -88,6 +113,8 @@ def test_entry_point_without_device_raises_on_cpu_box(no_card, name):
 
 
 def test_plain_versions_do_not_count_launches():
+    from horaedb_tpu_torch.ops import filter as F
+    from horaedb_tpu_torch.ops import merge
     from horaedb_tpu_torch.ops.blockagg import sorted_segment_min_max, sorted_segment_sum_count
     from horaedb_tpu_torch.ops.sort import sort_permutation
 
@@ -97,8 +124,15 @@ def test_plain_versions_do_not_count_launches():
     sorted_segment_sum_count(k, v, 1)
     sorted_segment_min_max(k, v, 1)
     sort_permutation([np.array([3, 1, 2], np.uint64)], device="cpu")
+    key = torch.tensor([5, 1, 5], dtype=torch.int64)
+    merge.packed_merge(key, 3, 1, True)
+    merge.index_merge_mask([key], [(1, 5)], 1, torch.ones(3, dtype=torch.uint8), True, False)
+    prog = F.compile_program(F.Compare("k", "gt", 1), {"k": np.dtype(np.int64)})
+    merge.index_merge_filter([key], [(1, 5)], 1, prog, {"k": key}, 3, True, False, "cpu")
     assert launch_counts() == before
-    assert set(before) == set(KERNELS) == {"sort_perm", "block_sum_count", "block_min_max"}
+    assert set(before) == set(KERNELS) == {"sort_perm", "block_sum_count", "block_min_max",
+                                           "packed_merge", "index_merge_mask",
+                                           "index_merge_filter"}
 
 
 @pytest.mark.parametrize("text", ["0", "1500", "2h", "1d2h3m4s5ms", "1.5h", "90s", "250ms"])
@@ -122,4 +156,6 @@ def test_build_command_targets_sm90a_without_fast_math(name, monkeypatch):
     assert "fast_math" not in joined and "fast-math" not in joined
     for src in _build.SOURCES[name]:
         assert (_build.CSRC / src).exists()
+        assert (str(_build.CSRC / src) in cmd) == src.endswith(".cu")
+    assert ("predicate.cu" in _build.SOURCES[name]) == (name == "index_merge_filter")
     assert _build._lib_path(name).parent == ROOT / "horaedb_tpu_torch" / "_build"

@@ -15,7 +15,7 @@ import torch
 from horaedb_tpu.ops import aggregate as jagg
 from horaedb_tpu.ops import blockagg as jblock
 from horaedb_tpu.ops import sort as jsort
-from horaedb_tpu_torch.backend import i64_to_u64, order_key, u64_to_i64
+from horaedb_tpu_torch.backend import device_lane, i64_to_u64, order_key, u64_to_i64
 from horaedb_tpu_torch.ops import aggregate as tagg
 from horaedb_tpu_torch.ops import blockagg as tblock
 from horaedb_tpu_torch.ops import sort as tsort
@@ -242,3 +242,184 @@ def test_bucket_of_floors_before_t0():
     np.testing.assert_array_equal(tagg.bucket_of(ts, 1000, 60).numpy(), [-1, 0, 0, 1, -17])
     np.testing.assert_array_equal(tagg.bucket_of(ts, 1000, 60).numpy(),
                                   np.asarray(jagg.bucket_of(jnp.asarray(ts.numpy()), 1000, 60)))
+
+
+# -- kernels D, E and F: the merges of a segment scan ---------------------------
+
+from horaedb_tpu.ops import filter as jfilter  # noqa: E402
+from horaedb_tpu.ops.blocks import Block  # noqa: E402
+from horaedb_tpu.storage import read as jread  # noqa: E402
+from horaedb_tpu_torch.common.error import HoraeError  # noqa: E402
+from horaedb_tpu_torch.ops import filter as tfilter  # noqa: E402
+from horaedb_tpu_torch.ops import merge as tmerge  # noqa: E402
+from horaedb_tpu_torch.storage import read as tread  # noqa: E402
+
+MERGE_N = 3000  # every JAX merge kernel pads to one 8192-row shape
+SORT_KEYS = ("pk1", "pk2", "__seq__")
+
+
+def _merge_rows(case: str):
+    """Sort-key lanes and a mask: pk1 int64 with few values (runs), pk2 u64
+    >= 2^63, three ns-clock write sequences."""
+    rng = np.random.default_rng(12)
+    n = {"no_rows": 0, "one_row": 1}.get(case, MERGE_N)
+    cols = {
+        "pk1": rng.integers(-20, 40, n).astype(np.int64),
+        "pk2": rng.integers(2**63, 2**63 + 3, n, dtype=np.uint64),
+        "__seq__": rng.choice(np.array([1_700_000_000_000_000_001, 1_700_000_000_000_000_007,
+                                        1_700_000_000_000_900_000], np.uint64), n),
+    }
+    if case == "one_group":
+        cols["pk1"][:] = 5
+        cols["pk2"][:] = 2**64 - 1
+    mask = rng.random(n) < 0.8
+    if case == "all_rejected":
+        mask[:] = False
+    if case == "presorted":
+        order = np.lexsort((cols["__seq__"], cols["pk2"], cols["pk1"]))
+        cols = {k: v[order] for k, v in cols.items()}
+    return cols, mask
+
+
+MERGE_CASES = ["mixed", "presorted", "one_group", "all_rejected", "one_row", "no_rows"]
+
+
+@pytest.mark.parametrize("dedup", [True, False])
+@pytest.mark.parametrize("case", MERGE_CASES)
+def test_packed_merge_matches_jax(case, dedup):
+    cols, mask = _merge_rows(case)
+    n = len(mask)
+    packres = tread._pack_sort_keys(cols.__getitem__, SORT_KEYS, n)
+    if packres is None:  # no rows: every row of the padded block is rejected
+        packed, seq_width, key_bits = np.zeros(0, np.uint64), 2, 8
+    else:
+        packed, seq_width, key_bits = packres
+        jpacked, jwidth = jread._pack_sort_keys(cols.__getitem__, SORT_KEYS, n)
+        np.testing.assert_array_equal(packed, jpacked)
+        assert seq_width == jwidth
+    packed = np.where(mask, packed, PACK_SENTINEL)
+    block = Block.from_numpy({"p": packed}, pad_keys=("p",))
+    jout, jk = jread._build_packed_index_kernel(seq_width, dedup)(block.columns["p"],
+                                                                  int(mask.sum()))
+    out, k = tmerge.packed_merge(torch.from_numpy(order_key(packed)), key_bits, seq_width, dedup)
+    assert int(k) == int(jk)
+    np.testing.assert_array_equal(out[: int(k)].numpy(), np.asarray(jout)[: int(jk)])
+
+
+def _jax_index(cols, mask, template, literals, dedup, presorted):
+    arrays = dict(cols)
+    if template is None:
+        arrays["__mask__"] = mask.astype(np.uint8)
+    block = Block.from_numpy(arrays, pad_keys=SORT_KEYS)
+    names = tuple(block.names)
+    kernel = jread._build_index_kernel(names, SORT_KEYS, SORT_KEYS[:2], template,
+                                       template is None, dedup, presorted)
+    if template is None:
+        lanes = {k: v for k, v in block.columns.items() if k != "__mask__"}
+        out, k = kernel(lanes, block.columns["__mask__"], block.num_valid)
+    else:
+        out, k = kernel(block.columns, literals, block.num_valid)
+    return np.asarray(out)[: int(k)], int(k)
+
+
+@pytest.mark.parametrize("dedup", [True, False])
+@pytest.mark.parametrize("case", MERGE_CASES)
+def test_index_merge_mask_matches_jax(case, dedup):
+    cols, mask = _merge_rows(case)
+    presorted = case == "presorted"
+    want, wk = _jax_index(cols, mask, None, (), dedup, presorted)
+    keys, bounds, num_pk = tread.sort_key_lanes(cols.__getitem__, SORT_KEYS, torch.device("cpu"))
+    out, k = tmerge.index_merge_mask(keys, bounds, num_pk, torch.from_numpy(mask), dedup,
+                                     presorted)
+    assert int(k) == wk
+    np.testing.assert_array_equal(out[: int(k)].numpy(), want)
+
+
+def _filter_preds(F):
+    big = tuple(int(v) for v in np.arange(2**63, 2**63 + 600, 3, dtype=np.uint64))
+    return {
+        "eq_u64": F.Compare("pk2", "eq", 2**63 + 1),
+        "range_and_inset": F.And(F.Compare("pk1", "ge", -3), F.Compare("pk1", "lt", 30),
+                                 F.InSet("pk2", (2**63, 2**63 + 2))),
+        "not_or": F.Not(F.Or(F.Compare("pk1", "gt", 10), F.InSet("pk1", (-20, -19, 0)))),
+        "big_inset": F.InSet("pk2", big),
+    }
+
+
+@pytest.mark.parametrize("pred", sorted(_filter_preds(tfilter)))
+def test_index_merge_filter_matches_jax(pred):
+    cols, _mask = _merge_rows("mixed")
+    template, raw = jfilter.split_literals(_filter_preds(jfilter)[pred])
+    literals = jfilter.literal_arrays(template, raw, {k: v.dtype for k, v in cols.items()})
+    want, wk = _jax_index(cols, None, template, literals, True, False)
+    keys, bounds, num_pk = tread.sort_key_lanes(cols.__getitem__, SORT_KEYS, torch.device("cpu"))
+    p = _filter_preds(tfilter)[pred]
+    names = sorted(tfilter.pred_columns(p))
+    program = tfilter.compile_program(p, {c: cols[c].dtype for c in names})
+    lanes = {c: torch.from_numpy(device_lane(cols[c])) for c in names}
+    out, k = tmerge.index_merge_filter(keys, bounds, num_pk, program, lanes, MERGE_N, True,
+                                       False, "cpu")
+    assert int(k) == wk and wk > 0
+    np.testing.assert_array_equal(out[: int(k)].numpy(), want)
+
+
+def _pred_lanes():
+    rng = np.random.default_rng(21)
+    n = 1000
+    f64 = rng.normal(size=n)
+    f64[:8] = [np.nan, -0.0, 0.0, np.inf, -np.inf, np.nan, 1.5, -1.5]
+    return {
+        "u64": np.concatenate([rng.integers(2**63 - 50, 2**63 + 50, n - 2, dtype=np.uint64),
+                               np.array([0, 2**64 - 1], np.uint64)]),
+        "i64": rng.integers(-(2**62), 2**62, n).astype(np.int64),
+        "i32": rng.integers(-100, 100, n).astype(np.int32),
+        "u8": rng.integers(0, 4, n).astype(np.uint8),
+        "f64": f64,
+        "f32": f64.astype(np.float32),
+    }
+
+
+def _eval_preds(F):
+    members = tuple(range(2**63 - 50, 2**63 + 50))
+    return {
+        "nan_eq": F.Compare("f64", "eq", float("nan")),
+        "nan_ne": F.Compare("f64", "ne", float("nan")),
+        "neg_zero": F.And(F.Compare("f64", "le", 0.0), F.Compare("f64", "ge", -0.0)),
+        "f64_order": F.Or(F.Compare("f64", "lt", -1.5), F.Compare("f64", "gt", 1.5)),
+        "f32_lane": F.Compare("f32", "ge", 0.25),
+        "u64_ge_2p63": F.Compare("u64", "ge", 2**63 + 10),
+        "u64_lt_edges": F.Not(F.Compare("u64", "lt", 2**64 - 1)),
+        "i32_u8": F.And(F.Compare("i32", "ne", 7), F.Compare("u8", "le", 2)),
+        "i64_float_literal": F.Compare("i64", "lt", 4.0),
+        "inset_0": F.InSet("u64", (2**65, -1)),
+        "inset_1": F.InSet("u64", (2**63,)),
+        "inset_128": F.InSet("u64", members[:128]),
+        "inset_129": F.InSet("u64", members[:129]),
+        "inset_f64_nan_negzero": F.InSet("f64", (float("nan"), 0.0, 1.5)),
+        "inset_65536": F.InSet("i64", tuple(range(-(2**15), 2**15))),
+    }
+
+
+@pytest.mark.parametrize("pred", sorted(_eval_preds(tfilter)))
+def test_eval_predicate_matches_jax(pred):
+    lanes = _pred_lanes()
+    template, raw = jfilter.split_literals(_eval_preds(jfilter)[pred])
+    literals = jfilter.literal_arrays(template, raw, {k: v.dtype for k, v in lanes.items()})
+    want = np.asarray(jfilter.eval_predicate(template, {k: jnp.asarray(v) for k, v in
+                                                        lanes.items()}, literals))
+    got = tfilter.eval_predicate(_eval_preds(tfilter)[pred],
+                                 {k: torch.from_numpy(device_lane(v)) for k, v in lanes.items()},
+                                 {k: v.dtype for k, v in lanes.items()})
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("literal", [2.5, 2**63, -(2**63) - 1])
+def test_eval_predicate_rejects_unrepresentable_literals(literal):
+    lanes = {"i64": np.arange(4, dtype=np.int64)}
+    with pytest.raises(Exception, match="literal"):
+        jfilter.literal_arrays(*jfilter.split_literals(jfilter.Compare("i64", "eq", literal)),
+                               {"i64": np.dtype(np.int64)})
+    with pytest.raises(HoraeError, match="literal"):
+        tfilter.eval_predicate(tfilter.Compare("i64", "eq", literal),
+                               {"i64": torch.from_numpy(lanes["i64"])}, {"i64": np.dtype(np.int64)})

@@ -1,13 +1,13 @@
-"""The port's write -> sorted runs -> downsample slice vs the JAX package.
+"""The port's write -> parquet SSTs -> downsample query vs the JAX package.
 
 The same seeded rows (about 50 series over two 2 h segments, shuffled
 batches, a re-send that overwrites 5 % of the samples, rows of another
 metric, NaN values) go through the JAX package's ObjectBasedStorage on a
-MemStore and are queried segment by segment with
+LocalStore and are queried segment by segment with
 `scan_segment_downsample(..., packed_ok=True)` plus the engine's
-segment-order fold. The port answers the same query twice: over the JAX
-package's stored runs carried across (`runs_from_reference`), and over
-the same batches written through its own `write`. Counts and min/max must
+segment-order fold. The port answers the same query twice: over the SST
+tree the JAX package wrote, opened as it is ("carry"), and over the same
+batches written through its own `write` ("write"). Counts and min/max must
 match exactly (NaN == NaN), sums and means to rtol=1e-12.
 """
 
@@ -17,16 +17,17 @@ import numpy as np
 import pyarrow as pa
 import pytest
 
-from horaedb_tpu.objstore import MemStore
+from horaedb_tpu.objstore import LocalStore as JLocalStore
 from horaedb_tpu.ops import filter as JF
 from horaedb_tpu.storage import ObjectBasedStorage as JaxStorage
 from horaedb_tpu.storage import TimeRange as JTimeRange
 from horaedb_tpu.storage import WriteRequest as JWriteRequest
 from horaedb_tpu_torch.engine_query import query_downsample
+from horaedb_tpu_torch.objstore import MemStore
 from horaedb_tpu_torch.ops import filter as F
 from horaedb_tpu_torch.storage import ObjectBasedStorage, StorageConfig, TimeRange, UpdateMode
 from horaedb_tpu_torch.storage import WriteRequest
-from horaedb_tpu_torch.storage.carry import runs_from_reference
+from horaedb_tpu_torch.storage.carry import open_local_root
 from horaedb_tpu_torch.storage.read import NotPortedError
 
 SEGMENT_MS = 2 * 3600 * 1000
@@ -35,14 +36,15 @@ INTERVAL_MS = 60_000
 BUCKET_MS = 5 * 60_000
 NUM_SERIES = 50
 METRIC = 3
-SCHEMA = [("metric_id", np.uint64), ("tsid", np.uint64), ("field_id", np.uint64),
-          ("ts", np.int64), ("value", np.float64)]
+ARROW_SCHEMA = pa.schema([("metric_id", pa.uint64()), ("tsid", pa.uint64()),
+                          ("field_id", pa.uint64()), ("ts", pa.int64()),
+                          ("value", pa.float64())])
 # the query window starts and ends inside the segments
 WINDOW = (T0 + 25 * 60_000, T0 + 2 * SEGMENT_MS - 35 * 60_000)
 
 
 def make_batches(seed: int = 7):
-    """[(segment start, batch lanes)] in write order."""
+    """[(segment start, record batch)] in write order."""
     rng = np.random.default_rng(seed)
     tsids = np.sort(rng.choice(
         np.unique(rng.integers(0, 2**64 - 1, 4 * NUM_SERIES, dtype=np.uint64, endpoint=True)),
@@ -57,19 +59,21 @@ def make_batches(seed: int = 7):
     metric = np.where(rng.random(len(ts)) < 0.03, METRIC + 1, METRIC).astype(np.uint64)
     seg = (ts - T0) // SEGMENT_MS
 
-    def lanes(rows, vals):
-        return {"metric_id": metric[rows], "tsid": tsids[sid[rows]],
-                "field_id": np.zeros(len(rows), np.uint64), "ts": ts[rows], "value": vals}
+    def batch(rows, vals):
+        return pa.RecordBatch.from_pydict(
+            {"metric_id": metric[rows], "tsid": tsids[sid[rows]],
+             "field_id": np.zeros(len(rows), np.uint64), "ts": ts[rows], "value": vals},
+            schema=ARROW_SCHEMA)
 
     out = []
     for s in (0, 1):
         rows = rng.permutation(np.flatnonzero(seg == s))
         for part in np.array_split(rows, 4):
-            out.append((T0 + s * SEGMENT_MS, lanes(part, values[part])))
+            out.append((T0 + s * SEGMENT_MS, batch(part, values[part])))
     resend = rng.permutation(rng.choice(len(ts), len(ts) // 20, replace=False))
     for s in (0, 1):
         part = resend[seg[resend] == s]
-        out.append((T0 + s * SEGMENT_MS, lanes(part, rng.normal(size=len(part)) * 50)))
+        out.append((T0 + s * SEGMENT_MS, batch(part, rng.normal(size=len(part)) * 50)))
     return tsids, out
 
 
@@ -79,18 +83,16 @@ def predicate(module):
                       module.Compare("ts", "lt", WINDOW[1]))
 
 
-async def jax_reference(batches, subsets):
-    """Grids per series subset from the JAX package, and its stored runs as
-    numpy lanes, one list per segment."""
-    schema = pa.schema([(n, pa.from_numpy_dtype(dt)) for n, dt in SCHEMA])
+async def jax_reference(directory, batches, subsets):
+    """Grids per series subset from the JAX package, which leaves its SST
+    tree in the LocalStore at `directory`."""
     eng = await JaxStorage.try_new(
-        root="db", store=MemStore(), arrow_schema=schema, num_primary_keys=4,
-        segment_duration_ms=SEGMENT_MS, enable_compaction_scheduler=False,
-        start_background_merger=False,
+        root="db", store=JLocalStore(directory), arrow_schema=ARROW_SCHEMA,
+        num_primary_keys=4, segment_duration_ms=SEGMENT_MS,
+        enable_compaction_scheduler=False, start_background_merger=False,
     )
     try:
-        for seg_start, lanes in batches:
-            batch = pa.RecordBatch.from_pydict(lanes, schema=schema)
+        for seg_start, batch in batches:
             await eng.write(JWriteRequest(batch, JTimeRange(seg_start, seg_start + SEGMENT_MS)))
         rng_ = JTimeRange(*WINDOW)
         num_buckets = -(-(WINDOW[1] - WINDOW[0]) // BUCKET_MS)
@@ -114,52 +116,46 @@ async def jax_reference(batches, subsets):
             with np.errstate(invalid="ignore", divide="ignore"):
                 acc["mean"] = acc["sum"] / acc["count"]
             grids.append(acc)
-        names = [n for n, _ in SCHEMA] + ["__seq__"]
-        stored = []
-        for seg in segments:
-            runs = []
-            for sst in seg:
-                table = await eng.parquet_reader.read_sst(sst, names, None)
-                runs.append({
-                    "id": sst.id,
-                    "time_range": (sst.meta.time_range.start, sst.meta.time_range.end),
-                    "lanes": {n: table.column(n).to_numpy() for n in names},
-                })
-            stored.append(runs)
-        return grids, stored
+        return grids
     finally:
         await eng.close()
 
 
 @pytest.fixture(scope="module")
-def reference():
+def reference(tmp_path_factory):
     tsids, batches = make_batches()
     rng = np.random.default_rng(11)
     subset = np.sort(rng.choice(tsids, 9, replace=False))
+    directory = str(tmp_path_factory.mktemp("jax_tree"))
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("HORAEDB_AGG_IMPL", "scatter")
-        grids, stored = asyncio.run(jax_reference(batches, [tsids, subset]))
+        grids = asyncio.run(jax_reference(directory, batches, [tsids, subset]))
     return {"batches": batches, "ids": {"all": tsids, "subset": subset},
-            "grids": {"all": grids[0], "subset": grids[1]}, "stored": stored}
+            "grids": {"all": grids[0], "subset": grids[1]}, "directory": directory}
 
 
-def port_storage(route: str, ref):
-    st = ObjectBasedStorage.try_new(SCHEMA, 4, "2h", device="cpu")
+async def port_storage(route: str, ref, config=None):
     if route == "carry":
-        runs_from_reference(st, ref["stored"])
-    else:
-        for seg_start, lanes in ref["batches"]:
-            st.write(WriteRequest(lanes, TimeRange(seg_start, seg_start + SEGMENT_MS)))
+        return await open_local_root(ref["directory"], "db", ARROW_SCHEMA, 4, SEGMENT_MS,
+                                     config=config, device="cpu")
+    st = await ObjectBasedStorage.try_new(
+        "db", MemStore(), ARROW_SCHEMA, 4, SEGMENT_MS, config=config,
+        enable_compaction_scheduler=False, start_background_merger=False, device="cpu")
+    for seg_start, batch in ref["batches"]:
+        await st.write(WriteRequest(batch, TimeRange(seg_start, seg_start + SEGMENT_MS)))
     return st
 
 
-@pytest.mark.parametrize("series", ["all", "subset"])
-@pytest.mark.parametrize("route", ["carry", "write"])
-def test_port_grids_match_jax(reference, route, series):
-    st = port_storage(route, reference)
-    got = query_downsample(st, reference["ids"][series], TimeRange(*WINDOW), BUCKET_MS,
-                           predicate(F), device="cpu")
-    want = reference["grids"][series]
+async def port_query(route, ref, ids, config=None, repeat=1):
+    st = await port_storage(route, ref, config)
+    try:
+        return [await query_downsample(st, ids, TimeRange(*WINDOW), BUCKET_MS, predicate(F))
+                for _ in range(repeat)]
+    finally:
+        await st.close()
+
+
+def assert_grids(got, want):
     assert got["count"].sum() > 0
     np.testing.assert_array_equal(got["count"], want["count"])
     np.testing.assert_array_equal(got["min"], want["min"])
@@ -168,52 +164,71 @@ def test_port_grids_match_jax(reference, route, series):
     np.testing.assert_allclose(got["mean"], want["mean"], rtol=1e-12, atol=0, equal_nan=True)
 
 
+@pytest.mark.parametrize("series", ["all", "subset"])
+@pytest.mark.parametrize("route", ["carry", "write"])
+def test_port_grids_match_jax(reference, route, series):
+    (got,) = asyncio.run(port_query(route, reference, reference["ids"][series]))
+    assert_grids(got, reference["grids"][series])
+
+
 def test_repeat_query_is_bitwise_identical(reference):
-    st = port_storage("write", reference)
-    a, b = (query_downsample(st, reference["ids"]["all"], TimeRange(*WINDOW), BUCKET_MS,
-                             predicate(F), device="cpu") for _ in range(2))
+    a, b = asyncio.run(port_query("write", reference, reference["ids"]["all"], repeat=2))
     for k in a:
         np.testing.assert_array_equal(a[k].view(np.uint64), b[k].view(np.uint64))
 
 
 def test_overwrite_resolves_to_later_write():
-    st = ObjectBasedStorage.try_new(SCHEMA, 4, SEGMENT_MS, device="cpu")
-    lanes = {"metric_id": np.full(2, METRIC, np.uint64), "tsid": np.array([9, 9], np.uint64),
-             "field_id": np.zeros(2, np.uint64), "ts": np.array([T0 + 5, T0 + 1], np.int64),
-             "value": np.array([1.0, 2.0])}
-    rng_ = TimeRange(T0, T0 + SEGMENT_MS)
-    st.write(WriteRequest(lanes, rng_))
-    st.write(WriteRequest({**lanes, "value": np.array([10.0, 20.0])}, rng_))
-    pred = F.And(F.Compare("metric_id", "eq", METRIC), F.time_range_pred("ts", T0, T0 + 60_000))
-    got = query_downsample(st, np.array([9], np.uint64), TimeRange(T0, T0 + 60_000), 60_000,
-                           pred, device="cpu")
+    async def run():
+        st = await ObjectBasedStorage.try_new(
+            "db", MemStore(), ARROW_SCHEMA, 4, SEGMENT_MS, enable_compaction_scheduler=False,
+            start_background_merger=False, device="cpu")
+        lanes = {"metric_id": np.full(2, METRIC, np.uint64), "tsid": np.array([9, 9], np.uint64),
+                 "field_id": np.zeros(2, np.uint64), "ts": np.array([T0 + 5, T0 + 1], np.int64),
+                 "value": np.array([1.0, 2.0])}
+        rng_ = TimeRange(T0, T0 + SEGMENT_MS)
+        await st.write(WriteRequest(pa.RecordBatch.from_pydict(lanes, schema=ARROW_SCHEMA), rng_))
+        lanes["value"] = np.array([10.0, 20.0])
+        await st.write(WriteRequest(pa.RecordBatch.from_pydict(lanes, schema=ARROW_SCHEMA), rng_))
+        pred = F.And(F.Compare("metric_id", "eq", METRIC),
+                     F.time_range_pred("ts", T0, T0 + 60_000))
+        got = await query_downsample(st, np.array([9], np.uint64), TimeRange(T0, T0 + 60_000),
+                                     60_000, pred)
+        await st.close()
+        return got
+
+    got = asyncio.run(run())
     assert got["count"][0, 0] == 2 and got["sum"][0, 0] == 30.0
 
 
-def _one_run_storage(config=None):
-    st = ObjectBasedStorage.try_new(SCHEMA, 4, SEGMENT_MS, config=config, device="cpu")
-    _tsids, batches = make_batches()
-    for seg_start, lanes in batches[:2]:
-        st.write(WriteRequest(lanes, TimeRange(seg_start, seg_start + SEGMENT_MS)))
-    return st, _tsids
-
-
-def test_packed_pass_decline_raises_not_ported():
-    st, tsids = _one_run_storage(StorageConfig(update_mode=UpdateMode.APPEND))
+def test_packed_pass_decline_raises_not_ported(reference):
     with pytest.raises(NotPortedError, match="not ported yet: fused scan path"):
-        query_downsample(st, tsids, TimeRange(*WINDOW), BUCKET_MS, predicate(F), device="cpu")
+        asyncio.run(port_query("write", reference, reference["ids"]["all"],
+                               StorageConfig(update_mode=UpdateMode.APPEND)))
 
 
-def test_segment_over_scan_block_rows_raises_not_ported():
-    st, tsids = _one_run_storage(StorageConfig(scan_block_rows=100))
-    with pytest.raises(NotPortedError, match="not ported yet: chunked scan path"):
-        query_downsample(st, tsids, TimeRange(*WINDOW), BUCKET_MS, predicate(F), device="cpu")
+@pytest.mark.parametrize("scan_path", ["host", "device"])
+def test_segment_over_scan_block_rows_matches_single_block(reference, monkeypatch, scan_path):
+    """The chunked route (segments above scan_block_rows) gives the packed
+    route's grids: counts, min and max exact, sums to rtol 1e-12."""
+    monkeypatch.setenv("HORAEDB_SCAN_PATH", scan_path)
+    (got,) = asyncio.run(port_query("write", reference, reference["ids"]["all"],
+                                    StorageConfig(scan_block_rows=1500)))
+    assert_grids(got, reference["grids"]["all"])
 
 
 def test_write_must_fall_in_one_segment():
-    st = ObjectBasedStorage.try_new(SCHEMA, 4, SEGMENT_MS, device="cpu")
-    lanes = {"metric_id": np.ones(1, np.uint64), "tsid": np.ones(1, np.uint64),
+    async def run():
+        st = await ObjectBasedStorage.try_new(
+            "db", MemStore(), ARROW_SCHEMA, 4, SEGMENT_MS, enable_compaction_scheduler=False,
+            start_background_merger=False, device="cpu")
+        batch = pa.RecordBatch.from_pydict(
+            {"metric_id": np.ones(1, np.uint64), "tsid": np.ones(1, np.uint64),
              "field_id": np.zeros(1, np.uint64), "ts": np.array([T0], np.int64),
-             "value": np.ones(1)}
+             "value": np.ones(1)}, schema=ARROW_SCHEMA)
+        try:
+            await st.write(WriteRequest(batch, TimeRange(T0, T0 + SEGMENT_MS + 1)))
+        finally:
+            await st.close()
+
     with pytest.raises(Exception, match="one segment"):
-        st.write(WriteRequest(lanes, TimeRange(T0, T0 + SEGMENT_MS + 1)))
+        asyncio.run(run())
