@@ -384,12 +384,12 @@ def check_merge_kernels(torch, rng, dev, data) -> list[dict]:
     from horaedb_tpu_torch.backend import device_lane, order_key
     from horaedb_tpu_torch.ops import filter as F
     from horaedb_tpu_torch.ops import merge
-    from horaedb_tpu_torch.storage.read import _pack_sort_keys, sort_key_lanes
+    from horaedb_tpu_torch.storage.read import _pack_sort_keys, predicate_lanes, sort_key_lanes
 
     # edge cases: D and F against their plain versions
     for name, cols, mask, presorted in merge_edge_cases(rng):
         n = len(mask)
-        keys, bounds, num_pk = sort_key_lanes(cols.__getitem__, SORT_KEYS, dev)
+        keys, bounds, num_pk, _ = sort_key_lanes(cols.__getitem__, SORT_KEYS, dev)
         mask_t = torch.from_numpy(mask.astype(np.uint8)).to(dev)
         for dedup in (True, False):
             require(same_survivors(torch, merge.index_merge_mask(keys, bounds, num_pk, mask_t,
@@ -410,7 +410,7 @@ def check_merge_kernels(torch, rng, dev, data) -> list[dict]:
     cols["value"] = rng.choice(np.array([np.nan, -0.0, 0.0, 0.5, np.inf, -1.0]), n)
     dtypes = {k: a.dtype for k, a in cols.items()}
     lanes = {k: torch.from_numpy(device_lane(a)).to(dev) for k, a in cols.items()}
-    keys, bounds, num_pk = sort_key_lanes(cols.__getitem__, SORT_KEYS, dev)
+    keys, bounds, num_pk, _ = sort_key_lanes(cols.__getitem__, SORT_KEYS, dev)
     for name, pred in predicate_edge_cases(F).items():
         prog = F.compile_program(pred, dtypes)
         plain = F.eval_program_plain(prog, lanes, n)
@@ -446,7 +446,7 @@ def check_merge_kernels(torch, rng, dev, data) -> list[dict]:
         "one_key_sort_ms": cuda_ms(torch, lambda: torch.sort(key, stable=True)),
     })
     # F with a host mask: metric_id eq keeps every row of this data
-    keys, bounds, num_pk = sort_key_lanes(seg.__getitem__, SORT_KEYS, dev)
+    keys, bounds, num_pk, key_names = sort_key_lanes(seg.__getitem__, SORT_KEYS, dev)
     mask_t = torch.from_numpy((seg["metric_id"] == METRIC_ID).astype(np.uint8)).to(dev)
     got = merge.index_merge_mask(keys, bounds, num_pk, mask_t, True, False)
     want = merge.index_merge_plain(keys, num_pk, mask_t, True, False)
@@ -472,7 +472,8 @@ def check_merge_kernels(torch, rng, dev, data) -> list[dict]:
                  F.time_range_pred("ts", T0 + 600_000, T0 + SEGMENT_MS - 600_000))
     pcols = {c: seg[c] for c in ("tsid", "ts")}
     prog = F.compile_program(pred, {c: a.dtype for c, a in pcols.items()})
-    plane = {c: torch.from_numpy(device_lane(a)).to(dev) for c, a in pcols.items()}
+    # as the scan's planner does: tsid and ts are read from their key lanes
+    plane = predicate_lanes(pcols, dict(zip(key_names, keys)), dev)
     got = merge.index_merge_filter(keys, bounds, num_pk, prog, plane, n, True, False, dev)
     plain_mask = F.eval_program_plain(prog, plane, n)
     want = merge.index_merge_plain(keys, num_pk, plain_mask, True, False)
@@ -480,13 +481,19 @@ def check_merge_kernels(torch, rng, dev, data) -> list[dict]:
     require(torch.equal(F.eval_predicate(pred, plane, {c: a.dtype for c, a in pcols.items()}),
                         plain_mask), "predicate kernel != plain at the main path shape")
     k = int(got[1].item())
-    nb, kind = bound(n * (8 * len(keys) + 16) + k * 4, 0)
+    # each distinct lane read once (the predicate's tsid and ts are key
+    # lanes), the program and its literals, 4 B per survivor written
+    own_lanes = [t for t in plane.values() if not any(t is key for key in keys)]
+    literal_bytes = sum(a.nbytes for a in (prog.code, prog.lit_i64, prog.lit_f64, prog.set_i64,
+                                           prog.set_f64))
+    nb, kind = bound(n * 8 * len(keys) + sum(t.numel() * t.element_size() for t in own_lanes)
+                     + literal_bytes + k * 4, 0)
     records.append({
         "name": "index_merge_filter", "route": "cuda",
         "source": "horaedb_tpu_torch/ops/csrc/index_merge.cu + predicate.cu",
         "replaces": "horaedb_tpu/storage/read.py:586",
-        "shape": f"{n} rows x {len(keys)} key lanes + (tsid, ts) predicate lanes, InSet of "
-                 f"{SUBSET} + ts range, {k} survivors",
+        "shape": f"{n} rows x {len(keys)} key lanes, the predicate reading tsid and ts from "
+                 f"them, InSet of {SUBSET} + ts range, {k} survivors",
         "max_abs_err": 0.0,
         "ms": cuda_ms(torch, lambda: merge.index_merge_filter(keys, bounds, num_pk, prog, plane,
                                                               n, True, False, dev)),

@@ -307,6 +307,25 @@ class Program:
     set_f64: np.ndarray   # sorted unique members of every float set (no NaN)
 
 
+def _stack_depth(p) -> int:
+    """Values the postfix program of `p` holds on its stack at most: a
+    connective keeps its first child's value while each later one runs."""
+    if isinstance(p, (And, Or)) and p.children:
+        return max([_stack_depth(p.children[0])]
+                   + [1 + _stack_depth(ch) for ch in p.children[1:]])
+    if isinstance(p, Not):
+        return _stack_depth(p.child)
+    return 1
+
+
+def program_fits(pred: Predicate | None) -> bool:
+    """Whether kernel E can evaluate `pred`: it reads at most MAX_LANES
+    columns and nests at most MAX_DEPTH deep. The scan planner evaluates
+    any other predicate on the host."""
+    return pred is None or (len(pred_columns(pred)) <= MAX_LANES
+                            and _stack_depth(pred) <= MAX_DEPTH)
+
+
 def compile_program(pred: Predicate | None, dtypes: dict) -> Program | None:
     """Flatten `pred` over columns of host `dtypes` into a Program (None for
     no predicate). Literals go through `literal_arrays`, so a literal its
@@ -323,11 +342,6 @@ def compile_program(pred: Predicate | None, dtypes: dict) -> Program | None:
     set_i64: list[np.ndarray] = []
     set_f64: list[np.ndarray] = []
     sizes = {"i": 0, "f": 0}
-    depth = [0, 0]  # current, max
-
-    def push() -> None:
-        depth[0] += 1
-        depth[1] = max(depth[1], depth[0])
 
     def lane_of(column: str) -> int:
         ensure(column in dtypes, f"predicate column {column!r} not in the scan's lanes")
@@ -346,7 +360,6 @@ def compile_program(pred: Predicate | None, dtypes: dict) -> Program | None:
                 lit_i64.append(int(device_lane(np.asarray([v], dtype=dtypes[p.column]))[0]))
                 slot = len(lit_i64) - 1
             code.append((OP_CMP, _OPS.index(p.op), lane, slot))
-            push()
         elif isinstance(p, InSetProbe):
             lane = lane_of(p.column)
             vals = np.asarray(lits[p.values_slot])[np.asarray(lits[p.mask_slot], dtype=bool)]
@@ -361,14 +374,12 @@ def compile_program(pred: Predicate | None, dtypes: dict) -> Program | None:
                 key = "i"
             code.append((OP_SET, lane, sizes[key], len(vals)))
             sizes[key] += len(vals)
-            push()
         elif isinstance(p, (And, Or)):
             ensure(len(p.children) > 0, f"empty {type(p).__name__}")
             emit(p.children[0])
             for ch in p.children[1:]:
                 emit(ch)
                 code.append((OP_AND if isinstance(p, And) else OP_OR, 0, 0, 0))
-                depth[0] -= 1
         elif isinstance(p, Not):
             emit(p.child)
             code.append((OP_NOT, 0, 0, 0))
@@ -377,7 +388,8 @@ def compile_program(pred: Predicate | None, dtypes: dict) -> Program | None:
 
     emit(template)
     ensure(len(lanes) <= MAX_LANES, f"predicate reads {len(lanes)} lanes (at most {MAX_LANES})")
-    ensure(depth[1] <= MAX_DEPTH, f"predicate nests {depth[1]} deep (at most {MAX_DEPTH})")
+    depth = _stack_depth(template)
+    ensure(depth <= MAX_DEPTH, f"predicate nests {depth} deep (at most {MAX_DEPTH})")
     return Program(
         lanes=tuple(lanes),
         lane_types=tuple(lane_type(dtypes[c]) for c in lanes),

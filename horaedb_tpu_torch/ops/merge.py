@@ -125,6 +125,7 @@ def index_merge_plain(keys: list[torch.Tensor], num_pk: int, mask: torch.Tensor,
     return _compacted(perm, keep)
 
 
+MAX_KEYS = 16  # sort-key lanes kernel F takes (index_merge.cu)
 _INDEX_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
     ctypes.c_int64, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
@@ -134,7 +135,7 @@ _INDEX_ARGTYPES = [
 
 def _check_keys(name: str, keys, bounds, num_pk: int, n: int, dev) -> None:
     ensure(len(keys) == len(bounds), f"{name}: one (min, max) bound per key")
-    ensure(0 <= num_pk <= len(keys) <= 16, f"{name}: {len(keys)} keys, {num_pk} pk")
+    ensure(0 <= num_pk <= len(keys) <= MAX_KEYS, f"{name}: {len(keys)} keys, {num_pk} pk")
     for key in keys:
         _check_lane(name, key, n, (torch.int64,))
         ensure(key.device == dev, f"{name}: keys and mask must share one device")

@@ -44,9 +44,7 @@ class ColumnOptions:
 
 @dataclass
 class WriteConfig:
-    """Parquet writer knobs. `flush_fast_encode`: writes that ask for the
-    fast profile (`WriteRequest.fast_encode`) encode with snappy and plain
-    encodings."""
+    """Parquet writer knobs."""
 
     max_row_group_size: int = 8192
     write_batch_size: int = 1024
@@ -55,7 +53,6 @@ class WriteConfig:
     enable_bloom_filter: bool = False
     compression: ParquetCompression = ParquetCompression.SNAPPY
     column_options: dict | None = None
-    flush_fast_encode: bool = True
 
 
 @dataclass

@@ -249,11 +249,12 @@ def _pack_sort_keys(col, sort_keys: tuple[str, ...], n: int):
 
 
 def sort_key_lanes(col_of, sort_keys: tuple[str, ...], device: torch.device):
-    """(lanes, bounds, num_pk) for kernel F: every sort key as a mapped
-    int64 lane on `device` (the seq as its dense rank) with its (min, max),
-    leaving out keys constant over the rows, which change neither the order
-    nor the runs; num_pk counts the primary-key lanes kept."""
-    lanes, bounds, num_pk = [], [], 0
+    """(lanes, bounds, num_pk, names) for kernel F: every sort key as a
+    mapped int64 lane on `device` (the seq as its dense rank) with its
+    (min, max), leaving out keys constant over the rows, which change
+    neither the order nor the runs; num_pk counts the primary-key lanes
+    kept, and names[i] is the column of lanes[i]."""
+    lanes, bounds, num_pk, names = [], [], 0, []
     for name in sort_keys:
         a = np.asarray(col_of(name))
         if not np.issubdtype(a.dtype, np.integer):
@@ -265,8 +266,24 @@ def sort_key_lanes(col_of, sort_keys: tuple[str, ...], device: torch.device):
             continue
         lanes.append(to_device(m, device))
         bounds.append((lo, hi))
+        names.append(name)
         num_pk += name != SEQ_COLUMN_NAME
-    return lanes, bounds, num_pk
+    return lanes, bounds, num_pk, names
+
+
+def predicate_lanes(host: dict[str, np.ndarray], keys: dict[str, torch.Tensor],
+                    device: torch.device) -> dict[str, torch.Tensor]:
+    """Kernel E's lanes for the host columns `host`. A primary key whose
+    lane `keys` already holds on the device is read from there, since
+    `order_key` and `device_lane` map 8-byte integer columns to the same
+    int64 bytes; every other column is uploaded. (The seq lane holds a
+    rank, not the column.)"""
+    out = {}
+    for c, a in host.items():
+        lane = device_lane(a)
+        shared = keys.get(c) if c != SEQ_COLUMN_NAME and lane.dtype == np.int64 else None
+        out[c] = shared if shared is not None else to_device(lane, device)
+    return out
 
 
 def _rows_presorted(arrays: dict, sort_keys: tuple) -> bool:
@@ -363,14 +380,18 @@ def _plan_and_merge(schema: StorageSchema, n: int, col_of, predicate: Predicate 
     device wins even at worst-case selectivity, the predicate evaluates on
     the device (kernel E) and the host never evaluates it.
     `HORAEDB_SCAN_PATH` in {auto, host, device} pins the route; `sharded`
-    is the multi-GPU merge, not ported yet. Binary-column predicates always
-    evaluate on the host, but may still merge on the device."""
+    is the multi-GPU merge, not ported yet. Binary-column predicates, and
+    predicates beyond kernel E's limits (`filter_ops.program_fits`), always
+    evaluate on the host, but may still merge on the device. Auto merges on
+    the host when the sort keys outnumber kernel F's lanes
+    (`merge_ops.MAX_KEYS`); the device route then refuses them."""
     pk_names = tuple(schema.primary_key_names)
     sort_keys = pk_names + (SEQ_COLUMN_NAME,)
     do_dedup = schema.update_mode == UpdateMode.OVERWRITE
     if n == 0:
         return np.empty(0, np.int64)
     pred_cols = filter_ops.pred_columns(predicate)
+    host_pred = binary_pred or not filter_ops.program_fits(predicate)
     mode = scan_path_mode()
     if mode == "sharded":
         raise NotPortedError("not ported yet: HORAEDB_SCAN_PATH=sharded (the multi-GPU slice)")
@@ -418,7 +439,7 @@ def _plan_and_merge(schema: StorageSchema, n: int, col_of, predicate: Predicate 
             res = device_merge_packed(mask)
             if res is not None:
                 return res
-        keys, bounds, num_pk = sort_key_lanes(col_of, sort_keys, device)
+        keys, bounds, num_pk, key_names = sort_key_lanes(col_of, sort_keys, device)
         presorted = keys_presorted()
         if mask is not None:
             mask_t = to_device(mask.astype(np.uint8), device)
@@ -426,11 +447,13 @@ def _plan_and_merge(schema: StorageSchema, n: int, col_of, predicate: Predicate 
                                                       presorted))
         host = {c: np.asarray(col_of(c)) for c in sorted(pred_cols)}
         program = filter_ops.compile_program(predicate, {c: a.dtype for c, a in host.items()})
-        lanes = {c: to_device(device_lane(a), device) for c, a in host.items()}
+        lanes = predicate_lanes(host, dict(zip(key_names, keys)), device)
         return finish(*merge_ops.index_merge_filter(keys, bounds, num_pk, program, lanes, n,
                                                     do_dedup, presorted, device))
 
-    tmpl_bytes = key_bytes + sum(itemsize_of(c) for c in pred_cols if c not in sort_keys)
+    # kernel E reads 8-byte primary keys from their sort-key lanes
+    tmpl_bytes = key_bytes + sum(itemsize_of(c) for c in pred_cols
+                                 if c not in pk_names or itemsize_of(c) != 8)
 
     def dev_cost(lane_bytes: int, sel: int) -> float:
         return (n * lane_bytes / link["h2d_bw"] + n * link["sort_s_per_row"]
@@ -451,8 +474,8 @@ def _plan_and_merge(schema: StorageSchema, n: int, col_of, predicate: Predicate 
         return mask
 
     if mode == "device":
-        return device_merge(eval_mask() if binary_pred else None)
-    if mode == "host":
+        return device_merge(eval_mask() if host_pred else None)
+    if mode == "host" or len(sort_keys) > merge_ops.MAX_KEYS:
         return host_merge(eval_mask())
     if predicate is None:
         if not keys_presorted() and dev_cost(key_bytes, n) < host_cost(n):
@@ -461,7 +484,7 @@ def _plan_and_merge(schema: StorageSchema, n: int, col_of, predicate: Predicate 
     # auto with a predicate: if the device wins even at worst-case
     # selectivity, skip the host eval entirely
     eval_cost = n * _HostCalib.eval_s_per_row() * n_terms
-    if not binary_pred and dev_cost(tmpl_bytes, n) < eval_cost and not keys_presorted():
+    if not host_pred and dev_cost(tmpl_bytes, n) < eval_cost and not keys_presorted():
         return device_merge(None)
     mask = eval_mask()
     sel = int(np.count_nonzero(mask))

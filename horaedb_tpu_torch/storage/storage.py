@@ -206,22 +206,18 @@ class ObjectBasedStorage:
             ensure(start_seg == end_seg,
                    f"time range of one write must fall in one segment, "
                    f"range: [{req.time_range.start}, {req.time_range.end})")
-        result = await self.write_batch(req.batch, presorted=req.presorted, seq=req.seq,
-                                        fast_encode=req.fast_encode)
+        result = await self.write_batch(req.batch)
         meta = FileMeta(max_sequence=result.seq, num_rows=req.batch.num_rows,
                         size=result.size, time_range=req.time_range)
         await self._manifest.add_file(result.id, meta)
 
-    async def write_batch(self, batch: pa.RecordBatch, presorted: bool = False,
-                          seq: int | None = None, fast_encode: bool = False) -> WriteResult:
+    async def write_batch(self, batch: pa.RecordBatch) -> WriteResult:
         file_id = allocate_id()
-        sorted_batch = batch if presorted else await asyncio.to_thread(self._sort_batch, batch)
-        # the id doubles as the sequence unless the caller pinned one
-        if seq is None:
-            seq = file_id
-        table = pa.Table.from_batches([self._schema.fill_builtin_columns(sorted_batch, seq)])
-        size = await self.write_sst(file_id, table, fast_encode=fast_encode)
-        return WriteResult(id=file_id, seq=seq, size=size)
+        sorted_batch = await asyncio.to_thread(self._sort_batch, batch)
+        # the id doubles as the write sequence
+        table = pa.Table.from_batches([self._schema.fill_builtin_columns(sorted_batch, file_id)])
+        size = await self.write_sst(file_id, table)
+        return WriteResult(id=file_id, seq=file_id, size=size)
 
     def _sort_batch(self, batch: pa.RecordBatch) -> pa.RecordBatch:
         """Primary-key sort: the permutation comes from the device (kernel A;
@@ -241,18 +237,12 @@ class ObjectBasedStorage:
             torch.cuda.current_stream(perm.device).synchronize()
         return batch.take(pa.array(perm.cpu().numpy()))
 
-    def _writer_kwargs(self, fast: bool = False) -> dict:
+    def _writer_kwargs(self) -> dict:
         """ParquetWriter options from WriteConfig, per-column overrides
-        applied. `fast=True`: snappy and plain encodings (statistics and
-        sorting columns kept, so pruning and the presorted shortcut see no
-        difference)."""
+        applied."""
         cfg = self._config.write
         sorting = [pq.SortingColumn(i) for i in range(self._schema.num_primary_keys)] + [
             pq.SortingColumn(self._schema.seq_idx)]
-        if fast and cfg.flush_fast_encode:
-            return dict(compression="SNAPPY", use_dictionary=False, write_statistics=True,
-                        write_batch_size=cfg.write_batch_size,
-                        sorting_columns=sorting if cfg.enable_sorting_columns else None)
         names = self._schema.arrow_schema.names
         col_opts = cfg.column_options or {}
 
@@ -290,7 +280,7 @@ class ObjectBasedStorage:
                     column_encoding=column_encoding or None,
                     sorting_columns=sorting if cfg.enable_sorting_columns else None)
 
-    async def write_sst(self, file_id: int, table: pa.Table, fast_encode: bool = False) -> int:
+    async def write_sst(self, file_id: int, table: pa.Table) -> int:
         """Encode a sorted, builtin-filled table as one parquet SST and put it
         in the store; returns the object's size. Small tables encode in one
         worker-thread call and one put; large ones stream: a producer thread
@@ -300,7 +290,7 @@ class ObjectBasedStorage:
         max_rg = self._config.write.max_row_group_size
         # the manifest carries num_rows and size as u32
         ensure(table.num_rows < 2**32, f"sst row count too large: {table.num_rows}")
-        kwargs = self._writer_kwargs(fast=fast_encode)
+        kwargs = self._writer_kwargs()
         if table.nbytes <= 4 * STREAM_CHUNK:
             def _encode_small() -> bytes:
                 sink = io.BytesIO()

@@ -138,17 +138,9 @@ class ScanRequest:
 
 @dataclass
 class WriteRequest:
-    """One batch to write as one sorted SST.
-
-    `enable_check`: the rows' range must fall in one segment. `presorted`:
-    the caller guarantees pk order, so the write skips the sort and its
-    O(n) check. `seq`: explicit write sequence (defaults to the SST id).
-    `fast_encode`: the flush encode profile (snappy, plain encodings), used
-    when `WriteConfig.flush_fast_encode` is on."""
+    """One batch to write as one sorted SST. `enable_check`: the rows'
+    range must fall in one segment."""
 
     batch: pa.RecordBatch
     time_range: TimeRange
     enable_check: bool = True
-    presorted: bool = False
-    seq: int | None = None
-    fast_encode: bool = False

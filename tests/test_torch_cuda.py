@@ -122,7 +122,7 @@ def test_packed_merge_matches_plain(dev, n, rejected, dedup):
                                          (300_001, False), (300_001, True)])
 def test_index_merge_mask_matches_plain(dev, n, presorted, dedup):
     cols, mask = _rows(n, n + 1, presorted)
-    keys, bounds, num_pk = sort_key_lanes(cols.__getitem__, SORT_KEYS, dev)
+    keys, bounds, num_pk, _ = sort_key_lanes(cols.__getitem__, SORT_KEYS, dev)
     mask_t = torch.from_numpy(mask.astype(np.uint8)).to(dev)
     _same_survivors(merge.index_merge_mask(keys, bounds, num_pk, mask_t, dedup, presorted),
                     merge.index_merge_plain(keys, num_pk, mask_t, dedup, presorted))
@@ -155,7 +155,7 @@ def test_predicate_and_index_merge_filter_match_plain(dev, case):
     got = F.eval_predicate(pred, lanes, dtypes)
     prog = F.compile_program(pred, dtypes)
     assert torch.equal(got.cpu(), F.eval_program_plain(prog, lanes, n).cpu())
-    keys, bounds, num_pk = sort_key_lanes(cols.__getitem__, SORT_KEYS, dev)
+    keys, bounds, num_pk, _ = sort_key_lanes(cols.__getitem__, SORT_KEYS, dev)
     _same_survivors(
         merge.index_merge_filter(keys, bounds, num_pk, prog, lanes, n, True, False, dev),
         merge.index_merge_plain(keys, num_pk, F.eval_program_plain(prog, lanes, n), True, False))

@@ -328,7 +328,8 @@ def test_index_merge_mask_matches_jax(case, dedup):
     cols, mask = _merge_rows(case)
     presorted = case == "presorted"
     want, wk = _jax_index(cols, mask, None, (), dedup, presorted)
-    keys, bounds, num_pk = tread.sort_key_lanes(cols.__getitem__, SORT_KEYS, torch.device("cpu"))
+    keys, bounds, num_pk, _ = tread.sort_key_lanes(cols.__getitem__, SORT_KEYS,
+                                                   torch.device("cpu"))
     out, k = tmerge.index_merge_mask(keys, bounds, num_pk, torch.from_numpy(mask), dedup,
                                      presorted)
     assert int(k) == wk
@@ -352,11 +353,15 @@ def test_index_merge_filter_matches_jax(pred):
     template, raw = jfilter.split_literals(_filter_preds(jfilter)[pred])
     literals = jfilter.literal_arrays(template, raw, {k: v.dtype for k, v in cols.items()})
     want, wk = _jax_index(cols, None, template, literals, True, False)
-    keys, bounds, num_pk = tread.sort_key_lanes(cols.__getitem__, SORT_KEYS, torch.device("cpu"))
+    keys, bounds, num_pk, key_names = tread.sort_key_lanes(cols.__getitem__, SORT_KEYS,
+                                                           torch.device("cpu"))
     p = _filter_preds(tfilter)[pred]
     names = sorted(tfilter.pred_columns(p))
     program = tfilter.compile_program(p, {c: cols[c].dtype for c in names})
-    lanes = {c: torch.from_numpy(device_lane(cols[c])) for c in names}
+    # as the planner does: the pk columns are read from their key lanes
+    by_name = dict(zip(key_names, keys))
+    lanes = tread.predicate_lanes({c: cols[c] for c in names}, by_name, torch.device("cpu"))
+    assert all(lanes[c] is by_name[c] for c in names)
     out, k = tmerge.index_merge_filter(keys, bounds, num_pk, program, lanes, MERGE_N, True,
                                        False, "cpu")
     assert int(k) == wk and wk > 0
@@ -423,3 +428,42 @@ def test_eval_predicate_rejects_unrepresentable_literals(literal):
     with pytest.raises(HoraeError, match="literal"):
         tfilter.eval_predicate(tfilter.Compare("i64", "eq", literal),
                                {"i64": torch.from_numpy(lanes["i64"])}, {"i64": np.dtype(np.int64)})
+
+
+@pytest.mark.parametrize("lanes,depth", [(16, 2), (17, 2), (1, 32), (1, 33)])
+def test_program_fits_matches_compile_limits(lanes, depth):
+    """`program_fits` admits exactly the predicates `compile_program` takes,
+    at kernel E's 16 lanes and 32 stack slots."""
+    F = tfilter
+    p = F.And(*[F.Compare(f"c{i}", "gt", 0) for i in range(lanes)]) if lanes > 1 else \
+        F.Compare("c0", "gt", 0)
+    for _ in range(depth - (2 if lanes > 1 else 1)):
+        p = F.Or(F.Compare("c0", "eq", 1), p)
+    assert F._stack_depth(p) == depth
+    fits = lanes <= F.MAX_LANES and depth <= F.MAX_DEPTH
+    assert F.program_fits(p) == fits
+    dtypes = {f"c{i}": np.dtype(np.int64) for i in range(lanes)}
+    if fits:
+        prog = F.compile_program(p, dtypes)
+        assert len(prog.lanes) == lanes
+    else:
+        with pytest.raises(HoraeError, match="lanes|deep"):
+            F.compile_program(p, dtypes)
+
+
+def test_predicate_lanes_share_only_identical_key_lanes():
+    """8-byte integer pks are read from their key lanes; a narrower pk
+    (its predicate lane is int32) and the seq (its key lane is a rank) are
+    uploaded as their own lanes."""
+    cols = {"a": np.array([3, 1, 2], np.int32), "b": np.array([2**63, 1, 5], np.uint64),
+            "__seq__": np.array([9, 7, 8], np.uint64)}
+    keys, _, num_pk, names = tread.sort_key_lanes(cols.__getitem__, ("a", "b", "__seq__"),
+                                                  torch.device("cpu"))
+    assert names == ["a", "b", "__seq__"] and num_pk == 2
+    by_name = dict(zip(names, keys))
+    lanes = tread.predicate_lanes(cols, by_name, torch.device("cpu"))
+    assert lanes["b"] is by_name["b"]
+    assert lanes["a"] is not by_name["a"] and lanes["a"].dtype == torch.int32
+    assert lanes["__seq__"] is not by_name["__seq__"]
+    for c, a in cols.items():
+        np.testing.assert_array_equal(lanes[c].numpy(), device_lane(a))

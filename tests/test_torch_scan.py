@@ -275,6 +275,68 @@ def test_routes_reach_the_kernels_plain_versions(monkeypatch):
     assert seen[-1] == "index_merge_mask"
 
 
+WIDE = pa.schema([(f"c{i}", pa.int64()) for i in range(17)] + [("value", pa.float64())])
+_JAX_WIDE: dict = {}
+
+
+def _beyond_kernel_e(F):
+    """Predicates kernel E refuses: one reads 17 lanes, one nests 41 deep."""
+    wide = F.And(*[F.Compare(f"c{i}", "ge", 0) for i in range(16)],
+                 F.Compare("value", "gt", 0.0))
+    deep = F.Compare("value", "gt", 0.0)
+    for i in range(20):
+        deep = F.Or(F.Compare("c2", "eq", i % 3), F.And(F.Compare("c3", "ne", i % 2), deep))
+    return {"wide": wide, "deep": deep}
+
+
+async def s_beyond_kernel_limits(pkg, num_pks, pred):
+    eng = await pkg.st.ObjectBasedStorage.try_new(
+        "db", pkg.objstore.MemStore(), WIDE, num_pks, SEGMENT_MS,
+        enable_compaction_scheduler=False, start_background_merger=False, **pkg.kw)
+    rng = np.random.default_rng(8)
+    for _ in range(3):
+        cols = {f"c{i}": rng.integers(0, 30 if i < 2 else 3, 300) for i in range(17)}
+        cols["value"] = rng.normal(size=300)
+        await write(pkg, eng, pa.RecordBatch.from_pydict(cols, schema=WIDE), 10, 11)
+    out = [await collect(pkg, eng, predicate=_beyond_kernel_e(pkg.F)[pred] if pred else None)]
+    await eng.close()
+    return out
+
+
+@pytest.mark.parametrize("route", ["auto", "device", "host"])
+@pytest.mark.parametrize("num_pks,pred", [(2, "wide"), (2, "deep"), (17, None), (17, "deep")])
+def test_beyond_kernel_limits_matches_jax(num_pks, pred, route, monkeypatch):
+    """A predicate kernel E cannot take evaluates on the host and merges
+    through `index_merge_mask`; under auto, sort keys beyond kernel F's 16
+    lanes merge on the host, and the device route refuses them."""
+    from horaedb_tpu_torch.ops import merge as merge_ops
+
+    monkeypatch.delenv("HORAEDB_LINK_PROFILE", raising=False)
+    monkeypatch.delenv("HORAEDB_SCAN_PATH", raising=False)
+    key = (num_pks, pred)
+    if key not in _JAX_WIDE:
+        _JAX_WIDE[key] = asyncio.run(s_beyond_kernel_limits(JAX, num_pks, pred))
+    seen = []
+    for name in ("packed_merge", "index_merge_mask", "index_merge_filter"):
+        inner = getattr(merge_ops, name)
+        monkeypatch.setattr(merge_ops, name,
+                            lambda *a, _n=name, _f=inner, **k: seen.append(_n) or _f(*a, **k))
+    # the host looks slow and the link fast: auto takes the device wherever it may
+    monkeypatch.setattr(tread._HostCalib, "_sort", 1.0)
+    monkeypatch.setattr(tread._HostCalib, "_eval", 1.0)
+    monkeypatch.setattr(tread._LinkProfile, "_CPU", {
+        "h2d_bw": 1e10, "d2h_bw": 1e10, "dispatch_s": 1e-5, "sort_s_per_row": 4e-9})
+    monkeypatch.setattr(tread._LinkProfile, "_cached", {})
+    monkeypatch.setenv("HORAEDB_SCAN_PATH", route)
+    if num_pks == 17 and route == "device":
+        with pytest.raises(HoraeError, match="keys"):
+            asyncio.run(s_beyond_kernel_limits(PORT, num_pks, pred))
+        return
+    got = asyncio.run(s_beyond_kernel_limits(PORT, num_pks, pred))
+    assert_same_results(got, _JAX_WIDE[key])
+    assert seen == (["index_merge_mask"] if num_pks == 2 and route != "host" else [])
+
+
 # -- SST trees across packages ---------------------------------------------------
 
 def tsbs_batches(seed=3, series=40, per_series=90, interval=60_000):
