@@ -14,7 +14,11 @@ Phases, each of which exits non-zero on failure:
    index_merge_mask / index_merge_filter (F) - edge cases n = 0 and 1,
    all rejected, one group, keys >= 2^63, NaN and -0.0 lanes, InSet of 0,
    1, 128, 129 and 65,536 members, presorted and shuffled rows, and one
-   segment of about 7.56M rows;
+   segment of about 7.56M rows; and the fused route's scan_kernel,
+   downsample and grouped_stats on edge cases (f64, int64 and uint64
+   values, NaN and -0.0, ids out of range, masked rows, empty cells, rows
+   before t0, presorted and shuffled rows, dedup on and off, no predicate,
+   a Compare, an InSet of 200 members, a host mask, u64 keys >= 2^63);
 3. the main paths at TSBS cpu-only scale (10,000 series, one field, 10 s
    interval, 4 h = two 2 h segments = 14.4M samples), stored as parquet
    SSTs and a manifest in a LocalStore under a temporary directory; the
@@ -34,9 +38,24 @@ Phases, each of which exits non-zero on failure:
       a ts range (index_merge_filter); a table with a dense int64 series id
       under HORAEDB_SCAN_PATH=device and HORAEDB_LINK_PROFILE=skip, no
       predicate (packed_merge);
-   every kernel must have launched on one of these paths; one query and
-   one scan run under torch.profiler (and the query under cProfile) for
-   where the time goes.
+   e. the fused route at TSBS cpu-only scale --scale=1000000 (1,000,000
+      series, one field, 10 s interval, a 10-minute window of one 2 h
+      segment = 60M samples): 20 shuffled writes of 3M rows plus a 5 %
+      re-send, into a table whose scan_block_rows holds the segment in
+      one pass; the 1-minute downsample over all series (twice, bitwise
+      identical; the repeat under the profilers) and over 200,000 series
+      must launch scan_kernel, downsample and grouped_stats (the packed
+      pass declines at 2^17 series) and equal a numpy last-write-wins
+      oracle;
+   f. an append-mode table with a binary value column (about 1M rows in 8
+      writes, repeated (tsid, ts) groups) scanned through
+      `ObjectBasedStorage.scan` (scan_kernel), held bitwise against a numpy
+      oracle that concatenates each group's bytes in (pk, write) order;
+   every kernel must have launched on one of these paths; queries and a
+   scan run under torch.profiler (and cProfile) for where the time goes;
+4. scan_kernel, downsample and grouped_stats against their plain versions
+   at the main path's shapes, on the inputs the first fused query of 3e
+   gave them (kept from that run), and timed.
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result.
@@ -68,6 +87,18 @@ METRIC_ID = 1
 T0 = 1_700_000_000_000 - 1_700_000_000_000 % SEGMENT_MS
 SCHEMA = [("metric_id", np.uint64), ("tsid", np.uint64), ("field_id", np.uint64),
           ("ts", np.int64), ("value", np.float64)]
+# phase 3e: TSBS cpu-only --scale=1000000, a 10-minute window, 1-minute buckets
+FUSED_SERIES = 1_000_000
+FUSED_WINDOW_MS = 10 * 60 * 1000
+FUSED_BUCKET_MS = 60 * 1000
+FUSED_WRITES = 20
+FUSED_SUBSET = 200_000
+FUSED_BLOCK_ROWS = 1 << 27  # scan_block_rows: the 63M-row segment in one pass
+# phase 3f: the append-mode table with a binary value column
+APPEND_SERIES = 50_000
+APPEND_TS = 10
+APPEND_WRITES = 8
+APPEND_ROWS = 125_000
 
 
 class SmokeFailure(Exception):
@@ -508,6 +539,267 @@ def check_merge_kernels(torch, rng, dev, data) -> list[dict]:
     return records
 
 
+# -- phase 2, continued: the fused route (scan_kernel, downsample, grouped_stats)
+
+def fused_values(rng, kind: str, n: int):
+    """A value lane of `kind` (f64 with NaN / -0.0 / inf, int64, or uint64
+    bits with bit 63 set on some rows, carried as int64) and its flag."""
+    if kind == "f64":
+        v = rng.integers(-1000, 1000, n).astype(np.float64)  # exact sums in any order
+        m = min(n, 40)
+        v[rng.choice(n, m, replace=False)] = np.resize([np.nan, -0.0, np.inf, -np.inf, 0.0], m)
+        return v, False
+    if kind == "i64":
+        return rng.integers(-(2**56), 2**56, n).astype(np.int64), False
+    u = rng.integers(0, 2**58, n, dtype=np.uint64)
+    u[: n // 5] = np.uint64(2**63 + 77)
+    return u.view(np.int64), True
+
+
+def same_stats(torch, got: dict, want: dict, what: str) -> float:
+    """Counts, min and max exact (NaN == NaN); float sums and means within
+    rtol 1e-12, integer sums exact. Returns the largest |difference|."""
+    for k in ("count", "min", "max"):
+        require(got[k].dtype == want[k].dtype and same_values(torch, got[k], want[k]),
+                f"{what}: {k} differs from the plain version")
+    for k in ("sum", "mean"):
+        if got[k].dtype == torch.float64:
+            require(close_sums(torch, got[k], want[k]), f"{what}: {k} differs from plain")
+        else:
+            require(torch.equal(got[k], want[k]), f"{what}: {k} differs from the plain version")
+    return max(abs_err(torch, got[k].double(), want[k].double()) for k in got)
+
+
+def same_scan(torch, got, want, what: str) -> None:
+    """kept, perm[:kept], every gathered lane's first kept rows (as raw
+    bits), keep and starts all equal."""
+    k = int(got[4].item())
+    require(k == int(want[4].item()), f"{what}: kept differs from the plain version")
+    require(torch.equal(got[1][:k], want[1][:k]), f"{what}: perm differs from the plain version")
+    for name, lane in got[0].items():
+        a, b = lane[:k], want[0][name][:k]
+        if a.dtype == torch.float64:
+            a, b = a.view(torch.int64), b.view(torch.int64)
+        require(torch.equal(a, b), f"{what}: gathered lane {name!r} differs from plain")
+    require(torch.equal(got[2], want[2]) and torch.equal(got[3], want[3]),
+            f"{what}: keep / starts differ from the plain version")
+
+
+def scan_plain_mask(torch, F, program, lanes, n, mask, dev):
+    if program is not None:
+        return F.eval_program_plain(program, lanes, n)
+    return mask if mask is not None else torch.ones(n, dtype=torch.bool, device=dev)
+
+
+def check_fused_kernels(torch, rng, dev) -> None:
+    """Edge cases of the fused route's three kernels against their plain
+    versions (the main-path shapes come in phase 4)."""
+    from horaedb_tpu_torch.backend import device_lane
+    from horaedb_tpu_torch.ops import aggregate as agg
+    from horaedb_tpu_torch.ops import filter as F
+    from horaedb_tpu_torch.ops import scan as scan_ops
+    from horaedb_tpu_torch.storage.read import predicate_lanes, sort_key_lanes
+
+    for kind in ("f64", "i64", "u64"):
+        for n, cells in ((0, 9), (1, 1), (5000, 0), (70_001, 300), (300_000, 200_000)):
+            v, unsigned = fused_values(rng, kind, n)
+            idx = rng.integers(-4, cells + 4, n).astype(np.int32)
+            idx[idx == cells // 2] = cells // 2 + 1  # an empty cell
+            ok = rng.random(n) > 0.1
+            vt, it, okt = (torch.from_numpy(a).to(dev) for a in (v, idx, ok))
+            what = f"grouped_stats {kind} n={n} cells={cells}"
+            same_stats(torch, agg.grouped_stats(vt, it, okt, cells, unsigned=unsigned),
+                       agg.grouped_stats_plain(vt, it, okt, cells, unsigned=unsigned), what)
+        t0, bucket_ms, ns, nb = T0, 60_000, 1_000, 10
+        n = 100_003
+        ts = t0 + rng.integers(-2 * bucket_ms, (nb + 2) * bucket_ms, n).astype(np.int64)
+        ts[:3] = [t0 - 1, t0, t0 + nb * bucket_ms]  # bucket -1, bucket 0, past the grid
+        sid = rng.integers(-2, ns + 2, n).astype(np.int32)
+        v, unsigned = fused_values(rng, kind, n)
+        args = [torch.from_numpy(a).to(dev) for a in (ts, sid, v, rng.random(n) > 0.2)]
+        got = agg.downsample(*args, t0, bucket_ms, ns, nb, unsigned=unsigned)
+        want = agg.downsample_plain(*args, t0, bucket_ms, ns, nb, unsigned=unsigned)
+        same_stats(torch, {k: t.reshape(-1) for k, t in got.items()}, want,
+                   f"downsample {kind}")
+
+    members = tuple(range(2**63 - 3, 2**63 + 400, 2))
+    preds = {"none": None,
+             "compare": F.And(F.Compare("metric_id", "eq", METRIC_ID), F.Compare("ts", "lt", T0 + 90)),
+             "inset 200": F.Or(F.InSet("tsid", members), F.Compare("value", "ne", 0.0))}
+    for n in (0, 1, 70_001):
+        for presorted in (False, True):
+            cols = {"metric_id": rng.integers(1, 3, n).astype(np.uint64),
+                    "tsid": rng.integers(2**63 - 3, 2**63 + 40, n, dtype=np.uint64),
+                    "field_id": np.zeros(n, np.uint64),
+                    "ts": T0 + rng.integers(0, 12, n).astype(np.int64) * 10,
+                    "__seq__": rng.integers(10**18, 10**18 + 4, n).astype(np.uint64),
+                    "value": rng.choice(np.array([np.nan, -0.0, 0.0, 1.5, -np.inf]), n),
+                    "__sid__": rng.integers(0, 1000, n).astype(np.int32)}
+            if presorted:
+                order = np.lexsort(tuple(cols[k] for k in reversed(SORT_KEYS)))
+                cols = {k: a[order] for k, a in cols.items()}
+            keys, bounds, num_pk, names = sort_key_lanes(cols.__getitem__, SORT_KEYS, dev)
+            lanes = predicate_lanes(cols, dict(zip(names, keys)), dev)
+            for pname, pred in preds.items():
+                for host in (False, True) if pred is not None else (False,):
+                    prog = mask = None
+                    if host:
+                        mask = torch.from_numpy(F.eval_predicate_np(pred, cols)).to(dev)
+                    elif pred is not None:
+                        prog = F.compile_program(pred, {k: a.dtype for k, a in cols.items()})
+                    for dedup in (True, False):
+                        what = (f"scan_kernel n={n} presorted={presorted} {pname} "
+                                f"host_mask={host} dedup={dedup}")
+                        got = scan_ops.scan_kernel(lanes, keys, bounds, num_pk, prog, n, dedup,
+                                                   presorted, dev, mask=mask)
+                        want = scan_ops.scan_kernel_plain(
+                            lanes, keys, num_pk, scan_plain_mask(torch, F, prog, lanes, n, mask,
+                                                                 dev), dedup, presorted)
+                        torch.cuda.synchronize()
+                        same_scan(torch, got, want, what)
+    require(device_lane(np.zeros(1, np.uint64)).dtype == np.int64, "u64 lanes map to int64")
+
+
+class CaptureFused:
+    """Keeps the arguments of the first scan_kernel and downsample calls
+    made inside the block: the main path's own inputs, for phase 4."""
+
+    def __init__(self):
+        self.scan = None
+        self.down = None
+
+    def __enter__(self):
+        from horaedb_tpu_torch.ops import aggregate as agg
+        from horaedb_tpu_torch.ops import scan as scan_ops
+
+        self.orig = (scan_ops.scan_kernel, agg.downsample)
+
+        def scan(*a, **k):
+            if self.scan is None:
+                self.scan = (a, k)
+            return self.orig[0](*a, **k)
+
+        def down(*a, **k):
+            if self.down is None:
+                self.down = (a, k)
+            return self.orig[1](*a, **k)
+
+        scan_ops.scan_kernel, agg.downsample = scan, down
+        return self
+
+    def __exit__(self, *exc):
+        from horaedb_tpu_torch.ops import aggregate as agg
+        from horaedb_tpu_torch.ops import scan as scan_ops
+
+        scan_ops.scan_kernel, agg.downsample = self.orig
+
+
+def fused_records(torch, cap: CaptureFused, dev) -> list[dict]:
+    """Phase 4: scan_kernel, downsample and grouped_stats against their
+    plain versions on the inputs the first fused query gave them, timed."""
+    from horaedb_tpu_torch.ops import aggregate as agg
+    from horaedb_tpu_torch.ops import filter as F
+    from horaedb_tpu_torch.ops import scan as scan_ops
+
+    require(cap.scan is not None and cap.down is not None, "the fused query ran no scan pass")
+    records = []
+    (lanes, keys, bounds, num_pk, prog, n, dedup, presorted, _d), kw = cap.scan
+    mask = kw.get("mask")
+    got = scan_ops.scan_kernel(lanes, keys, bounds, num_pk, prog, n, dedup, presorted, dev,
+                               mask=mask)
+
+    def plain_scan():
+        return scan_ops.scan_kernel_plain(
+            lanes, keys, num_pk, scan_plain_mask(torch, F, prog, lanes, n, mask, dev), dedup,
+            presorted)
+
+    same_scan(torch, got, plain_scan(), "scan_kernel at the main path shape")
+    kept = int(got[4].item())
+    # each distinct input lane read once (the tsid and ts key lanes are also
+    # gathered lanes), every gathered lane written once, 4 B of perm and 2 B
+    # of flags per row
+    inputs = {t.data_ptr(): t.numel() * t.element_size()
+              for t in [*keys, *lanes.values()] + ([mask] if mask is not None else [])}
+    lit = 0 if prog is None else sum(a.nbytes for a in (prog.code, prog.lit_i64, prog.lit_f64,
+                                                        prog.set_i64, prog.set_f64))
+    out_bytes = sum(t.numel() * t.element_size() for t in lanes.values()) + n * (4 + 2)
+    nb, kind = bound(sum(inputs.values()) + lit + out_bytes, 0)
+    del got
+    records.append({
+        "name": "scan_kernel", "route": "cuda",
+        "source": "horaedb_tpu_torch/ops/csrc/scan.cu + predicate.cu",
+        "replaces": "horaedb_tpu/storage/read.py:926",
+        "shape": f"{n} rows, {len(keys)} key lanes ({', '.join(str(b) for b in bounds)}), "
+                 f"{len(lanes)} gathered lanes ({', '.join(lanes)}), presorted={presorted}, "
+                 f"predicate on the device={prog is not None}, {kept} kept",
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(torch, lambda: scan_ops.scan_kernel(lanes, keys, bounds, num_pk, prog, n,
+                                                          dedup, presorted, dev, mask=mask),
+                      iters=5, warmup=1),
+        "plain_ms": cuda_ms(torch, plain_scan, iters=3, warmup=1),
+        "bound_ms": nb, "bound_by": kind, "library_ms": None,
+        "one_key_sort_ms": cuda_ms(torch, lambda: torch.sort(keys[0], stable=True), iters=5,
+                                   warmup=1),
+    })
+
+    (ts, sid, values, valid, t0, bucket_ms, ns, nbk), kw = cap.down
+    unsigned = kw.get("unsigned", False)
+    got = agg.downsample(ts, sid, values, valid, t0, bucket_ms, ns, nbk, unsigned=unsigned)
+    want = agg.downsample_plain(ts, sid, values, valid, t0, bucket_ms, ns, nbk, unsigned)
+    err = same_stats(torch, {k: t.reshape(-1) for k, t in got.items()}, want,
+                     "downsample at the main path shape")
+    del got, want
+    cells = ns * nbk
+    rows = ts.shape[0]
+    # the library yardstick: two index_add_ and two scatter_reduce over the
+    # same unsorted ids (dropped rows at a sentinel cell)
+    bucket = agg.bucket_of(ts, t0, bucket_ms)
+    in_grid = valid.bool() & (bucket >= 0) & (bucket < nbk) & (sid >= 0) & (sid < ns)
+    flat = sid * nbk + bucket
+    idx = torch.where(in_grid, flat.long(), cells)
+    ones = torch.ones_like(values)
+
+    def library():
+        torch.zeros(cells + 1, dtype=values.dtype, device=dev).index_add_(0, idx, values)
+        torch.zeros(cells + 1, dtype=values.dtype, device=dev).index_add_(0, idx, ones)
+        torch.full((cells + 1,), torch.inf, dtype=values.dtype, device=dev).scatter_reduce_(
+            0, idx, values, "amin", include_self=True)
+        torch.full((cells + 1,), -torch.inf, dtype=values.dtype, device=dev).scatter_reduce_(
+            0, idx, values, "amax", include_self=True)
+
+    lib_ms = cuda_ms(torch, library, iters=5, warmup=1)
+    shape = f"{rows} rows, {ns} series x {nbk} buckets = {cells} cells"
+    nb, kind = bound(rows * (8 + 4 + 8 + 1) + cells * 40, 0)
+    records.append({
+        "name": "downsample", "route": "cuda",
+        "source": "horaedb_tpu_torch/ops/csrc/downsample.cu + grouped_stats.cu",
+        "replaces": "horaedb_tpu/ops/aggregate.py:332", "shape": shape, "max_abs_err": err,
+        "ms": cuda_ms(torch, lambda: agg.downsample(ts, sid, values, valid, t0, bucket_ms, ns,
+                                                    nbk, unsigned=unsigned), iters=5, warmup=1),
+        "plain_ms": cuda_ms(torch, lambda: agg.downsample_plain(
+            ts, sid, values, valid, t0, bucket_ms, ns, nbk, unsigned), iters=3, warmup=1),
+        "bound_ms": nb, "bound_by": kind, "library_ms": lib_ms,
+        "library_call": "index_add_ x2 + scatter_reduce amin/amax over the unsorted cell ids",
+    })
+    got = agg.grouped_stats(values, flat, in_grid, cells, unsigned=unsigned)
+    want = agg.grouped_stats_plain(values, flat, in_grid, cells, unsigned)
+    err = same_stats(torch, got, want, "grouped_stats at the main path shape")
+    del got, want
+    nb, kind = bound(rows * (8 + 4 + 1) + cells * 40, 0)
+    records.append({
+        "name": "grouped_stats", "route": "cuda",
+        "source": "horaedb_tpu_torch/ops/csrc/grouped_stats.cu + segreduce.cuh, radix.cuh",
+        "replaces": "horaedb_tpu/ops/aggregate.py:96", "shape": shape, "max_abs_err": err,
+        "ms": cuda_ms(torch, lambda: agg.grouped_stats(values, flat, in_grid, cells,
+                                                       unsigned=unsigned), iters=5, warmup=1),
+        "plain_ms": cuda_ms(torch, lambda: agg.grouped_stats_plain(values, flat, in_grid, cells,
+                                                                   unsigned), iters=3, warmup=1),
+        "bound_ms": nb, "bound_by": kind, "library_ms": lib_ms,
+        "library_call": "index_add_ x2 + scatter_reduce amin/amax over the unsorted cell ids",
+    })
+    return records
+
+
 # -- phase 3: the main paths ----------------------------------------------------
 
 def make_data(rng):
@@ -536,24 +828,28 @@ def arrow_schema(dense: bool):
     return pa.schema([(n, pa.from_numpy_dtype(dt)) for n, dt in SCHEMA])
 
 
-async def write_all(storage, rng, data, dense: bool = False, segments=(0, 1)):
-    """The shuffled writes plus the re-send, segment by segment."""
+def tsbs_batch(tsids, ts, rows, vals, dense: bool = False):
+    """Grid rows (series * samples + sample) as one TSBS record batch."""
     import pyarrow as pa
 
+    s, t = rows // len(ts), rows % len(ts)
+    if dense:
+        arrays = [s.astype(np.int64), ts[t], vals]
+    else:
+        arrays = [np.full(len(rows), METRIC_ID, np.uint64), tsids[s],
+                  np.zeros(len(rows), np.uint64), ts[t], vals]
+    return pa.RecordBatch.from_arrays([pa.array(a) for a in arrays], schema=arrow_schema(dense))
+
+
+async def write_all(storage, rng, data, dense: bool = False, segments=(0, 1)):
+    """The shuffled writes plus the re-send, segment by segment."""
     from horaedb_tpu_torch.storage import TimeRange, WriteRequest
 
     tsids, ts, values, resend, new_values, _final = data
     per_series = len(ts)
-    schema = arrow_schema(dense)
 
     def batch(rows, vals):
-        s, t = rows // per_series, rows % per_series
-        if dense:
-            arrays = [s.astype(np.int64), ts[t], vals]
-        else:
-            arrays = [np.full(len(rows), METRIC_ID, np.uint64), tsids[s],
-                      np.zeros(len(rows), np.uint64), ts[t], vals]
-        return pa.RecordBatch.from_arrays([pa.array(a) for a in arrays], schema=schema)
+        return tsbs_batch(tsids, ts, rows, vals, dense)
 
     seg_of = (ts - T0) // SEGMENT_MS
     rows_written = 0
@@ -659,6 +955,91 @@ async def timed_scan(storage, req):
     return (pa.Table.from_batches(batches) if batches else None), secs
 
 
+def make_fused_data(rng):
+    """Phase 3e's grid in (series, ts) order: 1M series, 60 samples each
+    over the 10-minute window, the 5 % re-sent rows and the final value of
+    every sample (last write wins)."""
+    tsids = np.unique(rng.integers(1, 2**64 - 1, FUSED_SERIES * 2, dtype=np.uint64))
+    tsids = np.sort(rng.choice(tsids, FUSED_SERIES, replace=False))
+    require(len(tsids) == FUSED_SERIES, "tsid draw collided")
+    ts = T0 + np.arange(FUSED_WINDOW_MS // INTERVAL_MS, dtype=np.int64) * INTERVAL_MS
+    n = FUSED_SERIES * len(ts)
+    values = rng.uniform(0, 100, n)
+    resend = rng.choice(n, int(n * RESEND_FRACTION), replace=False)
+    new_values = rng.uniform(0, 100, len(resend))
+    final = values.copy()
+    final[resend] = new_values
+    return tsids, ts, values, resend, new_values, final
+
+
+async def write_fused(storage, rng, data):
+    """20 shuffled writes of 3M rows, then the re-send as one write."""
+    from horaedb_tpu_torch.storage import TimeRange, WriteRequest
+
+    tsids, ts, values, resend, new_values, _final = data
+    seg = TimeRange(T0, T0 + SEGMENT_MS)
+    written = 0
+    t = time.perf_counter()
+    for part in np.array_split(rng.permutation(len(values)), FUSED_WRITES):
+        await storage.write(WriteRequest(tsbs_batch(tsids, ts, part, values[part]), seg))
+        written += len(part)
+    await storage.write(WriteRequest(tsbs_batch(tsids, ts, resend, new_values), seg))
+    written += len(resend)
+    return written, time.perf_counter() - t
+
+
+def fused_oracle(final, series=None) -> dict:
+    """The 1-minute grids of the final values: every cell holds the 6
+    consecutive samples of one series (the grid is in (series, ts) order)."""
+    per_cell = FUSED_BUCKET_MS // INTERVAL_MS
+    cells = final.reshape(FUSED_SERIES, FUSED_WINDOW_MS // FUSED_BUCKET_MS, per_cell)
+    if series is not None:
+        cells = cells[series]
+    return {"sum": cells.sum(axis=2), "count": np.full(cells.shape[:2], float(per_cell)),
+            "min": cells.min(axis=2), "max": cells.max(axis=2)}
+
+
+def append_schema():
+    import pyarrow as pa
+
+    return pa.schema([("tsid", pa.uint64()), ("ts", pa.int64()), ("payload", pa.binary())])
+
+
+def make_append_data(rng):
+    """Phase 3f's writes, (tsid, ts, payload) per row, 16-64 byte payloads,
+    and the oracle: one row per (tsid, ts) group, in key order, whose
+    payload concatenates the group's bytes in (write, row) order."""
+    import pyarrow as pa
+
+    tsids = np.unique(rng.integers(0, 2**64 - 1, APPEND_SERIES * 2, dtype=np.uint64,
+                                   endpoint=True))
+    tsids = np.sort(rng.choice(tsids, APPEND_SERIES, replace=False))
+    n = APPEND_WRITES * APPEND_ROWS
+    sid = rng.integers(0, APPEND_SERIES, n)
+    ts = T0 + rng.integers(0, APPEND_TS, n).astype(np.int64) * 1000
+    lens = rng.integers(16, 65, n)
+    offsets = np.concatenate([[0], np.cumsum(lens)])
+    blob = rng.integers(0, 256, int(offsets[-1]), dtype=np.uint8)
+    payload = pa.BinaryArray.from_buffers(pa.binary(), n, [None, pa.py_buffer(
+        offsets.astype(np.int32).tobytes()), pa.py_buffer(blob.tobytes())])
+    writes = [pa.RecordBatch.from_arrays(
+        [pa.array(tsids[sid[w:w + APPEND_ROWS]]), pa.array(ts[w:w + APPEND_ROWS]),
+         payload.slice(w, APPEND_ROWS)], schema=append_schema())
+        for w in range(0, n, APPEND_ROWS)]
+    order = np.lexsort((np.arange(n), ts, sid))  # stable: (write, row) order within a group
+    s_sid, s_ts, s_len = sid[order], ts[order], lens[order]
+    head = np.r_[True, (s_sid[1:] != s_sid[:-1]) | (s_ts[1:] != s_ts[:-1])]
+    # the payload bytes in sorted row order are the groups' payloads back to back
+    out_off = np.concatenate([[0], np.cumsum(s_len)])
+    byte_src = np.repeat(offsets[order] - out_off[:-1], s_len) + np.arange(out_off[-1])
+    joined = blob[byte_src].tobytes()
+    starts = out_off[:-1][head]
+    ends = np.r_[starts[1:], out_off[-1]]
+    want = {"tsid": tsids[s_sid[head]], "ts": s_ts[head],
+            "payload": [joined[a:b] for a, b in zip(starts, ends)]}
+    return writes, want
+
+
 async def main_paths(torch, rng, dev, data, workdir) -> dict:
     import horaedb_tpu_torch as port
     from horaedb_tpu_torch.engine_query import query_downsample
@@ -669,6 +1050,8 @@ async def main_paths(torch, rng, dev, data, workdir) -> dict:
         ScanRequest,
         StorageConfig,
         TimeRange,
+        UpdateMode,
+        WriteRequest,
     )
 
     tsids, ts, values, resend, new_values, final = data
@@ -764,16 +1147,145 @@ async def main_paths(torch, rng, dev, data, workdir) -> dict:
                    scan_oracle(data, np.arange(NUM_SERIES), seg0.start, seg0.end, True),
                    {"HORAEDB_SCAN_PATH": "device", "HORAEDB_LINK_PROFILE": "skip"})
     out["scans"] = scans
+    out["profile"] = await profile_paths(torch, storage, tsids, window, query_pred, seg0)
+    await dense.close()
+    await storage.close()
+
+    # e. the fused route: TSBS cpu-only at --scale=1000000
+    t = time.perf_counter()
+    fdata = make_fused_data(rng)
+    out["fused_data_s"] = time.perf_counter() - t
+    ftsids, fwindow = fdata[0], TimeRange(T0, T0 + FUSED_WINDOW_MS)
+    fpred = F.And(F.Compare("metric_id", "eq", METRIC_ID),
+                  F.time_range_pred("ts", fwindow.start, fwindow.end))
+    fused = await open_table("tsbs1m", config=StorageConfig(scan_block_rows=FUSED_BLOCK_ROWS))
+    port.reset_launch_counts()
+    rows, write_s = await write_fused(fused, rng, fdata)
+    torch.cuda.synchronize()
+    counted("write_1m", port.launch_counts())
+    out.update(fused_rows_written=rows, fused_write_rows_per_s=rows / write_s,
+               fused_write_s=write_s,
+               fused_sst_bytes=sum(s.meta.size for s in fused.manifest.all_ssts()))
+    fused_kernels = ("scan_kernel", "downsample", "grouped_stats")
+
+    async def fused_query(name, ids, profiled=False):
+        port.reset_launch_counts()
+        if profiled:
+            grids, summary = await profiled_query(torch, fused, ids, fwindow, FUSED_BUCKET_MS,
+                                                  fpred)
+            out["profile"]["fused_query"] = summary
+            secs = summary["wall_s"]
+        else:
+            t = time.perf_counter()
+            grids = await query_downsample(fused, ids, fwindow, FUSED_BUCKET_MS, fpred)
+            secs = time.perf_counter() - t
+        counts = port.launch_counts()
+        counted(name, counts)
+        for k in fused_kernels:
+            require(counts[k] > 0, f"{name}: the query did not launch {k}")
+        out[f"query_s_{name}"] = secs
+        return grids
+
+    t = time.perf_counter()
+    fwant = fused_oracle(fdata[5])
+    out["fused_oracle_s"] = time.perf_counter() - t
+    with CaptureFused() as cap:
+        g_all = await fused_query("fused_all", ftsids)
+    check_grids(g_all, fwant, "1M series, fused route")
+    g_rep = await fused_query("fused_repeat", ftsids, profiled=True)
+    require(bitwise_equal(g_all, g_rep), "repeat fused query is not bitwise identical")
+    reader = fused.parquet_reader
+    t = time.perf_counter()
+    await reader._read_tables(fused.select_ssts(fwindow), reader._resolve_read_names(None, False),
+                              fpred)
+    out["profile"]["fused_query"]["host_read_decode_s"] = time.perf_counter() - t
+    del g_rep, fwant
+    fsub = np.sort(rng.choice(FUSED_SERIES, FUSED_SUBSET, replace=False))
+    g_sub = await fused_query("fused_subset", ftsids[fsub])
+    check_grids(g_sub, fused_oracle(fdata[5], fsub), "200,000-series subset, fused route")
+    del g_sub, g_all, fdata
+    await fused.close()
+
+    # f. append mode over binary values
+    import pyarrow as pa
+
+    writes, awant = make_append_data(rng)
+    app = await ObjectBasedStorage.try_new(
+        "append", store, append_schema(), 2, SEGMENT_MS,
+        config=StorageConfig(update_mode=UpdateMode.APPEND), enable_compaction_scheduler=False,
+        start_background_merger=False, device=dev)
+    for b in writes:
+        await app.write(WriteRequest(b, TimeRange(T0, T0 + SEGMENT_MS)))
+    port.reset_launch_counts()
+    table, secs = await timed_scan(app, ScanRequest(TimeRange(T0, T0 + SEGMENT_MS)))
+    counts = port.launch_counts()
+    counted("scan_append_binary", counts)
+    require(counts["scan_kernel"] > 0, "the append-mode scan did not launch scan_kernel")
+    require(table is not None and table.num_rows == len(awant["ts"]),
+            "append-mode scan: wrong number of groups")
+    require(np.array_equal(table.column("tsid").to_numpy(), awant["tsid"])
+            and np.array_equal(table.column("ts").to_numpy(), awant["ts"]),
+            "append-mode scan: keys differ from the oracle")
+    require(table.column("payload").type == pa.binary()
+            and table.column("payload").to_pylist() == awant["payload"],
+            "append-mode scan: payloads differ from the oracle")
+    out["scans"]["append_binary"] = {"rows_in": APPEND_WRITES * APPEND_ROWS,
+                                     "groups": table.num_rows, "s": secs}
+    await app.close()
+
     for name, count in launches.items():
         require(count > 0, f"kernel {name} never launched on a main path")
     out["kernel_launches"] = launches
-    out["profile"] = await profile_paths(torch, storage, tsids, window, query_pred, seg0)
+    out["fused_capture"] = cap
     from horaedb_tpu_torch.storage.read import _LinkProfile
 
     out["link_profile"] = _LinkProfile.get(dev)
-    await dense.close()
-    await storage.close()
     return out
+
+
+def host_top(host) -> list:
+    import pstats
+
+    stats = pstats.Stats(host)
+    return sorted(((f"{fn[0].rsplit('/', 1)[-1]}:{fn[2]}", st[2])
+                   for fn, st in stats.stats.items()), key=lambda kv: -kv[1])[:12]
+
+
+def device_summary(prof, wall: float) -> dict:
+    """Device busy time and share of a profiled window, its H2D and D2H
+    copies, and the largest device kernels."""
+    from torch.autograd import DeviceType
+
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in ev) / 1e6
+    h2d = sum(e.self_device_time_total for e in ev if "HtoD" in e.key) / 1e6
+    d2h = sum(e.self_device_time_total for e in ev if "DtoH" in e.key) / 1e6
+    top = sorted(((e.key[:60], e.self_device_time_total / 1e6) for e in ev),
+                 key=lambda kv: -kv[1])[:8]
+    return {"wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
+            "h2d_s": h2d, "d2h_s": d2h, "kernels_s": busy - h2d - d2h, "device_top": top}
+
+
+async def profiled_query(torch, storage, ids, window, bucket_ms, pred):
+    """One query_downsample under torch.profiler and cProfile: its grids
+    and where its time went."""
+    import cProfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from horaedb_tpu_torch.engine_query import query_downsample
+
+    host = cProfile.Profile()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        host.enable()
+        grids = await query_downsample(storage, ids, window, bucket_ms, pred)
+        host.disable()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    summary = device_summary(prof, wall)
+    summary["host_top_self_s"] = host_top(host)
+    return grids, summary
 
 
 async def profile_paths(torch, storage, ids, window, pred, seg0) -> dict:
@@ -782,39 +1294,13 @@ async def profile_paths(torch, storage, ids, window, pred, seg0) -> dict:
     time and share, H2D copy time, the largest device kernels and host
     functions."""
     import cProfile
-    import pstats
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from horaedb_tpu_torch.engine_query import query_downsample
     from horaedb_tpu_torch.ops import filter as F
     from horaedb_tpu_torch.storage import ScanRequest
 
-    def host_top(host):
-        stats = pstats.Stats(host)
-        return sorted(((f"{fn[0].rsplit('/', 1)[-1]}:{fn[2]}", st[2])
-                       for fn, st in stats.stats.items()), key=lambda kv: -kv[1])[:8]
-
-    def device_summary(prof, wall):
-        ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in ev) / 1e6
-        h2d = sum(e.self_device_time_total for e in ev if "HtoD" in e.key) / 1e6
-        top = sorted(((e.key[:60], e.self_device_time_total / 1e6) for e in ev),
-                     key=lambda kv: -kv[1])[:6]
-        return {"wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
-                "h2d_s": h2d, "kernels_s": busy - h2d, "device_top": top}
-
-    host = cProfile.Profile()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        host.enable()
-        await query_downsample(storage, ids, window, BUCKET_MS, pred)
-        host.disable()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    query = device_summary(prof, wall)
-    query["host_top_self_s"] = host_top(host)
+    _grids, query = await profiled_query(torch, storage, ids, window, BUCKET_MS, pred)
     reader = storage.parquet_reader
     ssts = storage.select_ssts(seg0)
     t = time.perf_counter()
@@ -864,15 +1350,19 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     data = make_data(rng)
     records = check_kernels(torch, rng, dev) + check_merge_kernels(torch, rng, dev, data)
-    for r in records:
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        print(f"{r['name']}: {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms,"
-              f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib} [{card}]",
-              flush=True)
+    check_fused_kernels(torch, rng, dev)
+    print(f"phase 2: {time.perf_counter() - t_all:.1f} s", flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         result = asyncio.run(main_paths(torch, rng, dev, data, workdir))
+    print(f"phase 3: {time.perf_counter() - t_all:.1f} s", flush=True)
+    records += fused_records(torch, result.pop("fused_capture"), dev)
+    result["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
     for r in records:
         r["launches"] = result["kernel_launches"][r["name"]]
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"{r['name']}: {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms,"
+              f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib}, "
+              f"{r['launches']} launches [{card}]", flush=True)
     profiled = result.pop("profile")
     result["smoke_s"] = time.perf_counter() - t_all
     print(json.dumps({"main_paths": result, "card": card}), flush=True)

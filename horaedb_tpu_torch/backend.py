@@ -78,6 +78,15 @@ def device_lane(a: np.ndarray) -> np.ndarray:
     raise HoraeError(f"no device lane for dtype {dt}")
 
 
+def host_lane(a: np.ndarray, dtype) -> np.ndarray:
+    """Inverse of `device_lane` for a column of host `dtype`: exact, since
+    every device lane holds its column's values unchanged or widened."""
+    dt = np.dtype(dtype)
+    if dt == np.uint64:
+        return i64_to_u64(a)
+    return np.asarray(a).astype(dt, copy=False)
+
+
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host lane -> tensor on `device` (a CUDA copy through pinned memory,
     queued on the current stream). u64 lanes must be mapped first."""

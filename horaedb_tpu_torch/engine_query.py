@@ -3,10 +3,12 @@
 A port of the engine's solo pushdown
 (`horaedb_tpu/engine/data.py::_query_downsample_pushdown`): each segment
 of the selected SSTs reduces to grids
-(`ParquetReader.scan_segment_downsample`, packed route, or the chunked
-route above `scan_block_rows`), and the host folds the grids in SEGMENT
-order, never completion order, so the result is bitwise repeatable (float
-addition does not reassociate).
+(`ParquetReader.scan_segment_downsample`: the packed route; the fused
+route of kernels `scan_kernel`, `downsample` and `grouped_stats` where the
+packed pass declines, as at 2^17 series or more; the chunked route above
+`scan_block_rows`), and the host folds the grids in SEGMENT order, never
+completion order, so the result is bitwise repeatable (float addition does
+not reassociate).
 """
 
 from __future__ import annotations

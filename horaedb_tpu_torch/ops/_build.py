@@ -32,9 +32,12 @@ from horaedb_tpu_torch.common.error import HoraeError
 # catalog names are the JAX package's (`common/xprof.py` kernel names);
 # each maps to its sources: every `.cu` is compiled into one library, the
 # headers are hashed into its name. predicate.cu is kernel E, which runs
-# inside index_merge_filter and is not a catalog kernel of its own.
+# inside index_merge_filter and scan_kernel and is not a catalog kernel of
+# its own. A downsample call launches two libraries, downsample (the cell
+# ids) and grouped_stats (the reduction), and counts once in each.
 KERNELS = ("sort_perm", "block_sum_count", "block_min_max", "packed_merge",
-           "index_merge_mask", "index_merge_filter")
+           "index_merge_mask", "index_merge_filter", "scan_kernel", "downsample",
+           "grouped_stats")
 SOURCES = {
     "sort_perm": ("sort_perm.cu", "radix.cuh"),
     "block_sum_count": ("block_sum_count.cu", "segreduce.cuh"),
@@ -42,6 +45,9 @@ SOURCES = {
     "packed_merge": ("packed_merge.cu", "compact.cuh", "radix.cuh"),
     "index_merge_mask": ("index_merge.cu", "compact.cuh", "radix.cuh"),
     "index_merge_filter": ("index_merge.cu", "predicate.cu", "compact.cuh", "radix.cuh"),
+    "scan_kernel": ("scan.cu", "predicate.cu", "compact.cuh", "radix.cuh"),
+    "downsample": ("downsample.cu",),
+    "grouped_stats": ("grouped_stats.cu", "radix.cuh", "segreduce.cuh"),
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,20 +1,33 @@
-"""Time-bucket downsample over rows sorted by (series, ts).
+"""Segment reductions: time-bucket downsample and grouped stats.
 
-A port of `horaedb_tpu/ops/aggregate.py::downsample_sorted` and its
-helpers: rows map to the flat cell id `sid * num_buckets + bucket`, which
-is monotone over the scan's (series, ts) order, and the sorted-segment
-kernels (ops/blockagg.py) reduce each cell's run. Values accumulate in f64
-on the card: the H100 has native FP64 and the reduction is memory-bound
-(the JAX package's f32 rule was for the TPU's lack of FP64).
+A port of `horaedb_tpu/ops/aggregate.py`:
+- `downsample_sorted` and its helpers: rows sorted by (series, ts) map to
+  the flat cell id `sid * num_buckets + bucket`, which is monotone over
+  that order, and the sorted-segment kernels (ops/blockagg.py) reduce each
+  cell's run;
+- `grouped_stats` (kernel `grouped_stats`) and `downsample` (kernel
+  `downsample`) over UNSORTED rows, the fused scan route's reduction:
+  `csrc/grouped_stats.cu` and `csrc/downsample.cu` on CUDA tensors, the
+  plain versions beside them (`masked_segment_stats`, `masked_minmax`,
+  index_add_ and scatter_reduce) on CPU ones.
+Float values accumulate in f64 on the card: the H100 has native FP64 and
+the reduction is memory-bound (the JAX package's f32 rule was for the
+TPU's lack of FP64). Integer values sum exactly in 64 bits: signed in
+int64, unsigned in uint64 (carried as int64 bits, `unsigned=True`), with a
+count of the same type; their min and max come back as f64, as the JAX
+package promotes them.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from horaedb_tpu_torch.backend import DEFAULT_DEVICE, resolve_device, to_device
-from horaedb_tpu_torch.common.error import ensure
+from horaedb_tpu_torch.common.error import HoraeError, ensure
+from horaedb_tpu_torch.ops import _build
 from horaedb_tpu_torch.ops.blockagg import sorted_segment_min_max, sorted_segment_sum_count
 
 
@@ -72,3 +85,177 @@ def downsample_sorted(
         out["min"] = mn.reshape(shape)
         out["max"] = mx.reshape(shape)
     return out
+
+
+# -- grouped_stats and downsample over unsorted rows ---------------------------
+
+KIND_F64, KIND_I64, KIND_U64 = 0, 1, 2
+
+
+def _value_lane(values: torch.Tensor, unsigned: bool) -> tuple[torch.Tensor, int]:
+    """Values as the reduction's accumulator lane: floats as f64, integers
+    and bools as int64 (`unsigned`: the int64 bits are a uint64 lane)."""
+    if values.dtype.is_floating_point:
+        return values.to(torch.float64), KIND_F64
+    ensure(not values.dtype.is_complex, f"unsupported value dtype {values.dtype}")
+    return values.to(torch.int64), KIND_U64 if unsigned else KIND_I64
+
+
+def to_f64(t: torch.Tensor, unsigned: bool = False) -> torch.Tensor:
+    """An accumulator lane as f64, rounded once to nearest: an unsigned lane
+    splits into 32-bit halves (each exact in f64), so one addition rounds."""
+    if t.dtype == torch.float64 or not unsigned:
+        return t.to(torch.float64)
+    hi = torch.bitwise_and(torch.bitwise_right_shift(t, 32), 0xFFFFFFFF)
+    lo = torch.bitwise_and(t, 0xFFFFFFFF)
+    return hi.to(torch.float64) * 4294967296.0 + lo.to(torch.float64)
+
+
+def masked_minmax(values: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
+                  num_segments: int):
+    """Scatter min/max per segment of f64 `values`; `idx` routes invalid rows
+    to num_segments, which is dropped. NaN propagates (scatter_reduce
+    amin/amax); empty segments read +inf / -inf."""
+    i = idx.long()
+    m = num_segments + 1
+    mn = torch.full((m,), torch.inf, dtype=torch.float64, device=values.device)
+    mx = torch.full((m,), -torch.inf, dtype=torch.float64, device=values.device)
+    mn.scatter_reduce_(0, i, torch.where(valid, values, torch.inf), "amin", include_self=True)
+    mx.scatter_reduce_(0, i, torch.where(valid, values, -torch.inf), "amax", include_self=True)
+    return mn[:-1], mx[:-1]
+
+
+def masked_segment_stats(values: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
+                         num_segments: int, with_minmax: bool = True, unsigned: bool = False):
+    """(sum, count, min|None, max|None) per segment, by index_add_ and
+    scatter_reduce; `idx` must already route invalid rows to num_segments.
+    Sums and counts keep the accumulator lane's type (`_value_lane`)."""
+    vals, _ = _value_lane(values, unsigned)
+    i = idx.long()
+    m = num_segments + 1
+    s = torch.zeros(m, dtype=vals.dtype, device=vals.device).index_add_(
+        0, i, torch.where(valid, vals, torch.zeros((), dtype=vals.dtype)))[:-1]
+    c = torch.zeros(m, dtype=vals.dtype, device=vals.device).index_add_(
+        0, i, valid.to(vals.dtype))[:-1]
+    if not with_minmax:
+        return s, c, None, None
+    mn, mx = masked_minmax(to_f64(vals, unsigned), idx, valid, num_segments)
+    return s, c, mn, mx
+
+
+def grouped_stats_plain(values, index, valid, num_segments: int, unsigned: bool = False):
+    """Plain version of kernel `grouped_stats`: the masked scatters."""
+    ok = valid.bool() & (index >= 0) & (index < num_segments)
+    idx = torch.where(ok, index.long(), num_segments)
+    s, c, mn, mx = masked_segment_stats(values, idx, ok, num_segments, unsigned=unsigned)
+    return {"sum": s, "count": c, "min": mn, "max": mx,
+            "mean": to_f64(s, unsigned) / to_f64(c, unsigned)}
+
+
+def _check_rows(name: str, n: int, dev, **lanes) -> None:
+    for lname, t in lanes.items():
+        ensure(t.dim() == 1 and t.shape[0] == n and t.is_contiguous() and t.device == dev,
+               f"{name}: {lname} must be a contiguous 1-D lane of {n} rows on {dev}, "
+               f"got {t.dtype}{tuple(t.shape)} on {t.device}")
+
+
+_GROUPED_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+]
+
+
+def grouped_stats(values: torch.Tensor, index: torch.Tensor, valid: torch.Tensor | None,
+                  num_segments: int, unsigned: bool = False) -> dict[str, torch.Tensor]:
+    """sum / count / min / max / mean per segment over unsorted `index`
+    (int32 or int64). Ids outside [0, num_segments) drop regardless of
+    `valid` (bool or uint8; None keeps every row). Empty segments: count 0,
+    sum 0, min +inf, max -inf, mean NaN. Kernel `grouped_stats` on CUDA
+    tensors, `grouped_stats_plain` on CPU ones."""
+    n = index.shape[0]
+    dev = index.device
+    _check_rows("grouped_stats", n, dev, values=values, index=index,
+                **({} if valid is None else {"valid": valid}))
+    ensure(index.dtype in (torch.int32, torch.int64), f"grouped_stats: index is {index.dtype}")
+    ensure(valid is None or valid.dtype in (torch.bool, torch.uint8),
+           f"grouped_stats: valid is {valid.dtype if valid is not None else None}")
+    ensure(0 <= num_segments < 2**62, f"grouped_stats: {num_segments} segments")
+    if dev.type == "cpu":
+        ok = torch.ones(n, dtype=torch.bool) if valid is None else valid
+        return grouped_stats_plain(values, index, ok, num_segments, unsigned)
+    if dev.type != "cuda":
+        raise HoraeError(f"grouped_stats: unsupported device {dev}")
+    ensure(n < 2**31, f"grouped_stats: {n} rows exceed int32 row indices")
+    vals, kind = _value_lane(values, unsigned)
+    acc = vals.dtype
+    out = {k: torch.empty(num_segments, dtype=acc if k in ("sum", "count") else torch.float64,
+                          device=dev) for k in ("sum", "count", "min", "max", "mean")}
+    scratch = torch.empty(_build.scratch_bytes("grouped_stats", "grouped_stats_scratch_bytes", n),
+                          dtype=torch.uint8, device=dev)
+    fn = _build.kernel("grouped_stats", "grouped_stats_launch", _GROUPED_ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(vals.data_ptr(), kind, index.data_ptr(), int(index.dtype == torch.int64),
+                0 if valid is None else valid.data_ptr(), n, num_segments,
+                *(out[k].data_ptr() for k in ("sum", "count", "min", "max", "mean")),
+                scratch.data_ptr(), stream)
+    _build.check("grouped_stats", rc)
+    return out
+
+
+def downsample_plain(ts, series_idx, values, valid, t0: int, bucket_ms: int, num_series: int,
+                     num_buckets: int, unsigned: bool = False) -> dict[str, torch.Tensor]:
+    """Plain version of kernel `downsample` (flat [cells] grids)."""
+    bucket = bucket_of(ts, t0, bucket_ms)
+    in_grid = (valid.bool() & (bucket >= 0) & (bucket < num_buckets)
+               & (series_idx >= 0) & (series_idx < num_series))
+    flat = series_idx.to(torch.int32) * num_buckets + bucket
+    return grouped_stats_plain(values, flat, in_grid, num_series * num_buckets, unsigned)
+
+
+_CELLS_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+    ctypes.c_int32, ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+]
+
+
+def downsample(ts: torch.Tensor, series_idx: torch.Tensor, values: torch.Tensor,
+               valid: torch.Tensor | None, t0: int, bucket_ms: int, num_series: int,
+               num_buckets: int, unsigned: bool = False) -> dict[str, torch.Tensor]:
+    """Per-(series, bucket) stats as [num_series, num_buckets] grids over
+    unsorted rows: bucket = floor((ts - t0) / bucket_ms), and a row counts
+    when `valid` (None: every row) and its series and bucket are in the
+    grid. On CUDA tensors kernel `downsample` writes the cell ids and
+    kernel `grouped_stats` reduces them (one launch counted in each); on
+    CPU tensors `downsample_plain`."""
+    n = ts.shape[0]
+    dev = ts.device
+    _check_rows("downsample", n, dev, ts=ts, series_idx=series_idx, values=values,
+                **({} if valid is None else {"valid": valid}))
+    ensure(ts.dtype == torch.int64 and series_idx.dtype == torch.int32,
+           f"downsample: ts must be int64 and series_idx int32, got {ts.dtype}, "
+           f"{series_idx.dtype}")
+    ensure(valid is None or valid.dtype in (torch.bool, torch.uint8),
+           f"downsample: valid is {valid.dtype if valid is not None else None}")
+    ensure(bucket_ms > 0, f"downsample: bucket_ms must be positive, got {bucket_ms}")
+    cells = num_series * num_buckets
+    ensure(num_series >= 0 and num_buckets >= 0 and cells < 2**31,
+           f"downsample: grid of {num_series} x {num_buckets} exceeds int32 cell ids")
+    shape = (num_series, num_buckets)
+    if dev.type == "cpu":
+        ok = torch.ones(n, dtype=torch.bool) if valid is None else valid
+        flat = downsample_plain(ts, series_idx, values, ok, t0, bucket_ms, num_series,
+                                num_buckets, unsigned)
+        return {k: v.reshape(shape) for k, v in flat.items()}
+    if dev.type != "cuda":
+        raise HoraeError(f"downsample: unsupported device {dev}")
+    cell = torch.empty(n, dtype=torch.int32, device=dev)
+    fn = _build.kernel("downsample", "downsample_cells_launch", _CELLS_ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(ts.data_ptr(), series_idx.data_ptr(), 0 if valid is None else valid.data_ptr(),
+                t0, bucket_ms, num_series, num_buckets, n, cell.data_ptr(), stream)
+    _build.check("downsample", rc)
+    flat = grouped_stats(values, cell, None, cells, unsigned)
+    return {k: v.reshape(shape) for k, v in flat.items()}

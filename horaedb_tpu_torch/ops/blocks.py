@@ -36,6 +36,13 @@ def sort_sentinel(dtype) -> np.generic:
 PACK_SENTINEL = np.uint64(0xFFFF_FFFF_FFFF_FFFF)
 
 
+def numpy_dtype(t: pa.DataType) -> np.dtype:
+    """The numpy dtype `arrow_column_to_numpy` gives a column of type `t`."""
+    if t in _ARROW_TO_NP:
+        return np.dtype(_ARROW_TO_NP[t])
+    raise HoraeError(f"unsupported device column type: {t}")
+
+
 def arrow_column_to_numpy(col) -> np.ndarray:
     """Lossless numeric conversion of an arrow array or chunked array;
     nulls become 0 (only `__reserved__` is nullable in the storage schema,
@@ -44,7 +51,4 @@ def arrow_column_to_numpy(col) -> np.ndarray:
         col = col.combine_chunks()
     if col.null_count:
         col = col.fill_null(0)
-    t = col.type
-    if t in _ARROW_TO_NP:
-        return col.to_numpy(zero_copy_only=False).astype(_ARROW_TO_NP[t], copy=False)
-    raise HoraeError(f"unsupported device column type: {t}")
+    return col.to_numpy(zero_copy_only=False).astype(numpy_dtype(col.type), copy=False)

@@ -12,34 +12,27 @@
 // and max NaN, as jax.ops.segment_min / np.minimum do: CUDA's fmin/fmax
 // drop NaN, so the compare is written out. Invalid rows keep their sorted
 // id and load the identity (+inf, -inf), so they never break a run.
-#include <math.h>
-
 #include "segreduce.cuh"
 
 namespace {
 
-__device__ inline double nan_min(double x, double y) {
-    if (x != x) return x;
-    if (y != y) return y;
-    return y < x ? y : x;
-}
-
-__device__ inline double nan_max(double x, double y) {
-    if (x != x) return x;
-    if (y != y) return y;
-    return y > x ? y : x;
-}
-
 struct MinMax {
-    using Aux = uint8_t;
-    __host__ __device__ static seg::Pair identity() {
-        return {(double)INFINITY, -(double)INFINITY};
+    using Acc = seg::Pair;
+    const double* v;
+    const uint8_t* valid;
+    double* out_min;
+    double* out_max;
+    __host__ __device__ static Acc identity() { return {(double)INFINITY, -(double)INFINITY}; }
+    __device__ Acc load(int64_t i) const {
+        const double x = v[i];
+        return valid[i] ? Acc{x, x} : identity();
     }
-    __device__ static seg::Pair load(double v, uint8_t ok) {
-        return ok ? seg::Pair{v, v} : identity();
+    __device__ static Acc combine(Acc x, Acc y) {
+        return {seg::nan_min(x.a, y.a), seg::nan_max(x.b, y.b)};
     }
-    __device__ static seg::Pair combine(seg::Pair x, seg::Pair y) {
-        return {nan_min(x.a, y.a), nan_max(x.b, y.b)};
+    __device__ void store(int64_t c, Acc x) const {
+        out_min[c] = x.a;
+        out_max[c] = x.b;
     }
 };
 
@@ -50,11 +43,12 @@ struct MinMax {
 extern "C" int block_min_max_launch(const void* k, const void* v, const void* valid,
                                     int64_t n, int32_t num_cells, void* out_min,
                                     void* out_max, void* scratch, void* stream) {
-    return seg::launch<MinMax>(
-        static_cast<const int32_t*>(k), static_cast<const double*>(v),
-        static_cast<const uint8_t*>(valid), n, num_cells, static_cast<double*>(out_min),
-        static_cast<double*>(out_max), static_cast<seg::Pair*>(scratch),
-        static_cast<cudaStream_t>(stream));
+    const MinMax op{static_cast<const double*>(v), static_cast<const uint8_t*>(valid),
+                    static_cast<double*>(out_min), static_cast<double*>(out_max)};
+    return seg::launch(static_cast<const int32_t*>(k), n, (int64_t)num_cells, op,
+                       static_cast<seg::Pair*>(scratch), static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int64_t block_min_max_scratch_bytes(int64_t n) { return seg::scratch_bytes(n); }
+extern "C" int64_t block_min_max_scratch_bytes(int64_t n) {
+    return seg::scratch_bytes<seg::Pair>(n);
+}

@@ -18,11 +18,17 @@
 namespace {
 
 struct SumCount {
-    using Aux = double;
-    __host__ __device__ static seg::Pair identity() { return {0.0, 0.0}; }
-    __device__ static seg::Pair load(double v, double w) { return {v, w}; }
-    __device__ static seg::Pair combine(seg::Pair x, seg::Pair y) {
-        return {x.a + y.a, x.b + y.b};
+    using Acc = seg::Pair;
+    const double* v;
+    const double* w;
+    double* out_sum;
+    double* out_count;
+    __host__ __device__ static Acc identity() { return {0.0, 0.0}; }
+    __device__ Acc load(int64_t i) const { return {v[i], w[i]}; }
+    __device__ static Acc combine(Acc x, Acc y) { return {x.a + y.a, x.b + y.b}; }
+    __device__ void store(int64_t c, Acc x) const {
+        out_sum[c] = x.a;
+        out_count[c] = x.b;
     }
 };
 
@@ -34,11 +40,12 @@ struct SumCount {
 extern "C" int block_sum_count_launch(const void* k, const void* v, const void* w,
                                       int64_t n, int32_t num_cells, void* out_sum,
                                       void* out_count, void* scratch, void* stream) {
-    return seg::launch<SumCount>(
-        static_cast<const int32_t*>(k), static_cast<const double*>(v),
-        static_cast<const double*>(w), n, num_cells, static_cast<double*>(out_sum),
-        static_cast<double*>(out_count), static_cast<seg::Pair*>(scratch),
-        static_cast<cudaStream_t>(stream));
+    const SumCount op{static_cast<const double*>(v), static_cast<const double*>(w),
+                      static_cast<double*>(out_sum), static_cast<double*>(out_count)};
+    return seg::launch(static_cast<const int32_t*>(k), n, (int64_t)num_cells, op,
+                       static_cast<seg::Pair*>(scratch), static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int64_t block_sum_count_scratch_bytes(int64_t n) { return seg::scratch_bytes(n); }
+extern "C" int64_t block_sum_count_scratch_bytes(int64_t n) {
+    return seg::scratch_bytes<seg::Pair>(n);
+}

@@ -1,6 +1,7 @@
 // Stable LSD radix sort of (u64 key, int32 row) pairs over up to k integer
 // keys: the shared body of sort_perm.cu (kernel A), packed_merge.cu
-// (kernel D) and index_merge.cu (kernel F).
+// (kernel D), index_merge.cu (kernel F), scan.cu (scan_kernel) and
+// grouped_stats.cu.
 //
 // Keys arrive as int64 whose signed order is the desired order (u64 lanes
 // are mapped by flipping bit 63 on the host); (key - lo) taken as u64 is
@@ -165,6 +166,32 @@ struct Sorted {
     uint64_t* u;    // buffer holding the last sorted key's (key - lo)
 };
 
+// Ping-pong buffers of the digit passes: (ua, pa) hold the current order.
+struct Buffers {
+    int32_t* pa;
+    int32_t* pb;
+    uint64_t* ua;
+    uint64_t* ub;
+};
+
+// `digits` LSD passes over the u64 keys ua[0, rows), carrying pa along;
+// afterwards (b.ua, b.pa) hold the stably sorted keys and rows. hist holds
+// hist_bytes(n). All launches on `s`.
+inline void passes(int digits, int64_t n, const int32_t* len_dev, Buffers& b, int32_t* hist,
+                   cudaStream_t s) {
+    const int64_t num_tiles = tiles_for(n);
+    for (int dg = 0; dg < digits; ++dg) {
+        const int shift = 8 * dg;
+        hist_kernel<<<(unsigned)num_tiles, THREADS, 0, s>>>(b.ua, n, len_dev, shift, num_tiles,
+                                                            hist);
+        scan_kernel<<<1, SCAN_THREADS, 0, s>>>(hist, (int64_t)RADIX * num_tiles);
+        scatter_kernel<<<(unsigned)num_tiles, THREADS, 0, s>>>(
+            b.ua, b.pa, b.ub, b.pb, hist, n, len_dev, shift, num_tiles);
+        uint64_t* tu = b.ua; b.ua = b.ub; b.ub = tu;
+        int32_t* tp = b.pa; b.pa = b.pb; b.pb = tp;
+    }
+}
+
 // LSD passes over keys[num_keys - 1] .. keys[0] (most significant first in
 // the array), reordering perm[0, rows) in place of a stable sort. perm must
 // be initialised by the caller (iota, or a partition); perm_tmp, ua and ub
@@ -174,26 +201,15 @@ inline Sorted sort(const void* const* keys, const int64_t* lo, const int32_t* di
                    int32_t num_keys, int64_t n, const int32_t* len_dev, int32_t* perm,
                    int32_t* perm_tmp, uint64_t* ua, uint64_t* ub, int32_t* hist,
                    cudaStream_t s) {
-    const int64_t num_tiles = tiles_for(n);
-    int32_t* pa = perm;
-    int32_t* pb = perm_tmp;
-    if (n == 0) return {pa, ua};
+    Buffers b{perm, perm_tmp, ua, ub};
+    if (n == 0) return {b.pa, b.ua};
     for (int ki = num_keys - 1; ki >= 0; --ki) {
         if (digits[ki] <= 0) continue;
         gather_kernel<<<blocks_for(n, 256), 256, 0, s>>>(
-            static_cast<const int64_t*>(keys[ki]), (uint64_t)lo[ki], pa, ua, n, len_dev);
-        for (int dg = 0; dg < digits[ki]; ++dg) {
-            const int shift = 8 * dg;
-            hist_kernel<<<(unsigned)num_tiles, THREADS, 0, s>>>(ua, n, len_dev, shift,
-                                                                num_tiles, hist);
-            scan_kernel<<<1, SCAN_THREADS, 0, s>>>(hist, (int64_t)RADIX * num_tiles);
-            scatter_kernel<<<(unsigned)num_tiles, THREADS, 0, s>>>(
-                ua, pa, ub, pb, hist, n, len_dev, shift, num_tiles);
-            uint64_t* tu = ua; ua = ub; ub = tu;
-            int32_t* tp = pa; pa = pb; pb = tp;
-        }
+            static_cast<const int64_t*>(keys[ki]), (uint64_t)lo[ki], b.pa, b.ua, n, len_dev);
+        passes(digits[ki], n, len_dev, b, hist, s);
     }
-    return {pa, ua};
+    return {b.pa, b.ua};
 }
 
 }  // namespace radix

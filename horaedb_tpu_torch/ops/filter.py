@@ -1,5 +1,6 @@
 """Predicates: the tree, its literal templates, host evaluation, min/max
-pruning, and kernel E (the device evaluation inside `index_merge_filter`).
+pruning, and kernel E (the device evaluation inside `index_merge_filter`
+and `scan_kernel`).
 
 Copied from the JAX package's `ops/filter.py`: the same AST (`Compare`,
 `InSet`, `And`, `Or`, `Not`), the template form (`split_literals` turns
@@ -453,10 +454,11 @@ _PREDICATE_ARGTYPES = [
 
 
 def launch_program(prog: Program, lanes: dict[str, torch.Tensor], n: int,
-                   out: torch.Tensor) -> None:
+                   out: torch.Tensor, library: str = "index_merge_filter") -> None:
     """Kernel E: write the program's uint8 mask over n CUDA rows into `out`.
-    Built with and counted as part of `index_merge_filter`; raises on a
-    failed launch (the caller counts)."""
+    Built into, and counted as part of, the kernel `library`
+    (`index_merge_filter` or `scan_kernel`); raises on a failed launch (the
+    caller counts)."""
     dev = out.device
     for name, lt in zip(prog.lanes, prog.lane_types):
         t = lanes[name]
@@ -475,7 +477,7 @@ def launch_program(prog: Program, lanes: dict[str, torch.Tensor], n: int,
     k = len(prog.lanes)
     ptrs = (ctypes.c_void_p * max(k, 1))(*[lanes[c].data_ptr() for c in prog.lanes])
     types = (ctypes.c_int32 * max(k, 1))(*prog.lane_types)
-    fn = _build.kernel("index_merge_filter", "predicate_launch", _PREDICATE_ARGTYPES)
+    fn = _build.kernel(library, "predicate_launch", _PREDICATE_ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(ptrs, types, k, code.data_ptr(), len(prog.code), lit_i64.data_ptr(),

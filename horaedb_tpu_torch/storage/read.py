@@ -16,19 +16,26 @@ A port of the JAX package's `storage/read.py`:
      builtin columns stripped unless `keep_builtin`, sliced into batches.
 
 Segments above `scan_block_rows` take the chunked scan: per-chunk merges
-whose sorted, deduped runs merge again until one remains. The downsample
-pushdown (`scan_segment_downsample`) keeps its packed route and gains the
-chunked one.
+whose sorted, deduped runs merge again until one remains.
+
+The fused route (`_fused_pass`) uploads every numeric lane of a segment
+and runs the `scan_kernel` pass on it (filter, stable sort, gather of
+every lane, keep-last and run-start flags). It serves the downsample
+pushdown (`scan_segment_downsample`) when the packed pass declines (2^17
+series or more, more than 4,096 write sequences, a span of 2^34 ms or
+more, append mode): the gathered lanes then go straight to the
+`downsample` / `grouped_stats` kernels. And it serves the raw scan in
+append mode over binary values, whose groups concatenate their bytes on
+the host (`_materialize_append_mode`). The downsample's other routes are
+the packed pass and, above `scan_block_rows`, the chunked scan.
 
 Ordering contract: output sorted by (pk..., __seq__), duplicates collapsed
 per UpdateMode; the filter runs BEFORE dedup, so a newest-version row
 rejected by the predicate exposes the older surviving version.
 
 Not ported yet, and refused with `NotPortedError` instead of running
-something else: the fused scan route (`scan_kernel`, the downsample when
-the packed pass declines), binary primary keys, append mode over binary
-values, encoded (format v2) SSTs, the sharded multi-GPU merge, and device
-merges over non-integer sort keys.
+something else: binary primary keys, encoded (format v2) SSTs, the sharded
+multi-GPU merge, and device merges over non-integer sort keys.
 """
 
 from __future__ import annotations
@@ -45,13 +52,14 @@ import pyarrow as pa
 import pyarrow.parquet as pq
 import torch
 
-from horaedb_tpu_torch.backend import device_lane, order_key, to_device
+from horaedb_tpu_torch.backend import device_lane, host_lane, order_key, to_device
 from horaedb_tpu_torch.common.error import HoraeError, NotPortedError
 from horaedb_tpu_torch.objstore import NotFound, ObjectStore
 from horaedb_tpu_torch.ops import aggregate as agg_ops
 from horaedb_tpu_torch.ops import filter as filter_ops
 from horaedb_tpu_torch.ops import merge as merge_ops
-from horaedb_tpu_torch.ops.blocks import PACK_SENTINEL, arrow_column_to_numpy
+from horaedb_tpu_torch.ops import scan as scan_ops
+from horaedb_tpu_torch.ops.blocks import PACK_SENTINEL, arrow_column_to_numpy, numpy_dtype
 from horaedb_tpu_torch.ops.filter import Predicate
 from horaedb_tpu_torch.ops.sort import num_digits
 from horaedb_tpu_torch.storage.config import UpdateMode
@@ -271,18 +279,24 @@ def sort_key_lanes(col_of, sort_keys: tuple[str, ...], device: torch.device):
     return lanes, bounds, num_pk, names
 
 
+_I64_MIN = -(1 << 63)
+
+# host dtypes whose `device_lane` is int64, the form `order_key` gives them
+_I64_LANE_DTYPES = (np.dtype(np.int64), np.dtype(np.uint64), np.dtype(np.uint32))
+
+
 def predicate_lanes(host: dict[str, np.ndarray], keys: dict[str, torch.Tensor],
                     device: torch.device) -> dict[str, torch.Tensor]:
-    """Kernel E's lanes for the host columns `host`. A primary key whose
-    lane `keys` already holds on the device is read from there, since
-    `order_key` and `device_lane` map 8-byte integer columns to the same
-    int64 bytes; every other column is uploaded. (The seq lane holds a
-    rank, not the column.)"""
+    """Device lanes for the host columns `host`: kernel E's, and every lane
+    the fused pass gathers. A primary key whose lane `keys` already holds
+    on the device is read from there, since `order_key` and `device_lane`
+    map 8-byte integer columns (and uint32) to the same int64 bytes; every
+    other column is uploaded. (The seq lane holds a rank, not the
+    column.)"""
     out = {}
     for c, a in host.items():
-        lane = device_lane(a)
-        shared = keys.get(c) if c != SEQ_COLUMN_NAME and lane.dtype == np.int64 else None
-        out[c] = shared if shared is not None else to_device(lane, device)
+        shared = keys.get(c) if c != SEQ_COLUMN_NAME and a.dtype in _I64_LANE_DTYPES else None
+        out[c] = shared if shared is not None else to_device(device_lane(a), device)
     return out
 
 
@@ -568,8 +582,6 @@ class ParquetReader:
         schema = self._schema
         read_names = self._resolve_read_names(projections, keep_builtin)
         has_binary = any(_is_binary_like(schema.arrow_schema.field(n).type) for n in read_names)
-        if schema.update_mode == UpdateMode.APPEND and has_binary:
-            raise NotPortedError("not ported yet: append mode over binary values (the fused route)")
         total_rows = sum(s.meta.num_rows for s in ssts)
         if total_rows > self._scan_block_rows and len(ssts) > 1 and not has_binary:
             return await self._scan_segment_chunked(ssts, predicate, projections,
@@ -580,10 +592,24 @@ class ParquetReader:
         tables = _order_tables_by_first_key(
             tables, tuple(schema.primary_key_names) + (SEQ_COLUMN_NAME,))
         table = pa.concat_tables(tables)
+        out_names = self._output_names(read_names, keep_builtin)
+        # append mode with binary values (every non-key column is a value
+        # here): the fused pass sorts and flags the runs on the device, and
+        # each run's bytes concatenate on the host
+        if schema.update_mode == UpdateMode.APPEND and has_binary:
+            sorted_cols, perm, _keep, starts, kept, numeric, binary = self._fused_pass(
+                table, predicate)
+            k = int(kept.item())
+            host = {c: host_lane(sorted_cols[c][:k].cpu().numpy(),
+                                 numpy_dtype(table.schema.field(c).type))
+                    for c in numeric if c in out_names}
+            result = await asyncio.to_thread(
+                self._materialize_append_mode, table, host, perm[:k].cpu().numpy(),
+                starts[:k].cpu().numpy(), k, binary, out_names)
+            return self._slice_batches(result, batch_size)
         idx = self._merge_table(table, predicate)
         if len(idx) == 0:
             return []
-        out_names = self._output_names(read_names, keep_builtin)
         result = table.select(out_names).take(pa.array(idx)).combine_chunks()
         return [b for b in result.to_batches(max_chunksize=batch_size) if b.num_rows > 0]
 
@@ -748,8 +774,10 @@ class ParquetReader:
         Segments above `scan_block_rows` take the chunked scan and reduce
         its merged, sorted batches; others take the packed pass when
         `packed_ok` (the caller pins every primary-key column but series and
-        time). The fused route, taken when the packed pass declines, is not
-        ported yet."""
+        time), and the fused route (`_fused_pass`, then kernels `downsample`
+        and `grouped_stats` on the gathered lanes) when the packed pass
+        declines or is not asked for. Integer value columns give integer
+        sum and count grids (uint64 for unsigned columns)."""
         num_series = len(series_ids)
         grids = {"sum": np.zeros((num_series, num_buckets)),
                  "count": np.zeros((num_series, num_buckets))}
@@ -797,15 +825,75 @@ class ParquetReader:
         fast = (packed_downsample_pass(table, predicate, sid, sid_hit, ts_column, value_column,
                                        num_series, self._schema.update_mode)
                 if packed_ok else None)
-        if fast is None:
-            raise NotPortedError(
-                "not ported yet: fused scan path (the packed pass declined or was not "
-                "asked for: append mode, a series / sequence / time-span budget exceeded; "
-                "scan_kernel, downsample and grouped_stats are the next slice)")
-        ts_s, sid_s, val_s = fast
-        if len(ts_s):
-            accumulate_sorted(ts_s, sid_s, val_s)
+        if fast is not None:
+            ts_s, sid_s, val_s = fast
+            if len(ts_s):
+                accumulate_sorted(ts_s, sid_s, val_s)
+            return grids
+
+        # the fused route: the dense series index rides the scan pass's
+        # permutation as a lane, and the hit mask too when some rows belong
+        # to series outside the query (skipped when every row hits)
+        extra = {"__sid__": sid}
+        all_hit = bool(sid_hit.all())
+        if not all_hit:
+            extra["__sidok__"] = sid_hit.astype(np.int32)
+        sorted_cols, _perm, keep, _starts, _kept, _num, _bin = self._fused_pass(
+            table, predicate, extra_arrays=extra)
+        row_ok = keep if all_hit else keep & (sorted_cols["__sidok__"] != 0)
+        vtype = table.schema.field(value_column).type
+        unsigned = pa.types.is_unsigned_integer(vtype)
+        values = sorted_cols[value_column]
+        if vtype == pa.uint64():
+            values = values ^ _I64_MIN  # the mapped lane back to the raw u64 bits
+        out = agg_ops.downsample(sorted_cols[ts_column].to(torch.int64), sorted_cols["__sid__"],
+                                 values, row_ok, t0, bucket_ms, num_series, num_buckets,
+                                 unsigned=unsigned)
+        for k in list(grids):
+            g = out[k].cpu().numpy()
+            grids[k] = g.view(np.uint64) if unsigned and k in ("sum", "count") else g
         return grids
+
+    def _fused_pass(self, table: pa.Table, predicate: Predicate | None,
+                    extra_arrays: dict[str, np.ndarray] | None = None):
+        """The shared fused device pass: the numeric/binary split, every
+        numeric column (and `extra_arrays`, host lanes such as the dense
+        series index) uploaded once as a device lane, and kernel
+        `scan_kernel` (filter -> sort -> gather -> flags; `ops/scan.py` has
+        the output contract). Returns (sorted lanes, perm, keep, starts,
+        kept, numeric names, binary names), all device tensors but the
+        names. The predicate runs on the device, or on the host when kernel
+        E cannot take it (a binary column, or past `program_fits`)."""
+        schema = self._schema
+        pk_names = tuple(schema.primary_key_names)
+        sort_keys = pk_names + (SEQ_COLUMN_NAME,)
+        numeric_names, binary_names = [], []
+        for name in table.schema.names:
+            (binary_names if _is_binary_like(table.schema.field(name).type)
+             else numeric_names).append(name)
+        if not all(k in numeric_names for k in sort_keys):
+            raise HoraeError("primary key and seq columns must be numeric for the device path")
+        arrays = {name: arrow_column_to_numpy(table.column(name)) for name in numeric_names}
+        if extra_arrays:
+            arrays.update(extra_arrays)
+        n = table.num_rows
+        dev = self._device
+        keys, bounds, num_pk, key_names = sort_key_lanes(arrays.__getitem__, sort_keys, dev)
+        lanes = predicate_lanes(arrays, dict(zip(key_names, keys)), dev)
+        pred_cols = filter_ops.pred_columns(predicate)
+        program, mask = None, None
+        if predicate is not None:
+            if any(c not in arrays for c in pred_cols) or not filter_ops.program_fits(predicate):
+                mask = to_device(filter_ops.eval_predicate_host(predicate, table).astype(np.uint8),
+                                 dev)
+            else:
+                program = filter_ops.compile_program(
+                    predicate, {c: a.dtype for c, a in arrays.items()})
+        do_dedup = schema.update_mode == UpdateMode.OVERWRITE and not binary_names
+        sorted_cols, perm, keep, starts, kept = scan_ops.scan_kernel(
+            lanes, keys, bounds, num_pk, program, n, do_dedup,
+            _rows_presorted(arrays, sort_keys), dev, mask=mask)
+        return sorted_cols, perm, keep, starts, kept, numeric_names, binary_names
 
     # -- shared prologue/epilogue ---------------------------------------------
     def _resolve_read_names(self, projections: list[int] | None, keep_builtin: bool) -> list[str]:
@@ -828,6 +916,35 @@ class ParquetReader:
         if result.num_rows == 0:
             return []
         return [result.slice(i, batch_size) for i in range(0, result.num_rows, batch_size)]
+
+    def _materialize_append_mode(self, table: pa.Table, sorted_cols: dict[str, np.ndarray],
+                                 perm: np.ndarray, starts: np.ndarray, kept: int,
+                                 binary_names: list[str], out_names: list[str]) -> pa.RecordBatch:
+        """Append mode with binary values: each primary-key run collapses to
+        one row whose binary value columns concatenate the run's bytes in
+        (pk, seq) order, as the JAX package's BytesMergeOperator does; every other
+        column takes the run's first row. The runs come from the device's
+        run-start flags; `sorted_cols` holds the gathered numeric lanes'
+        first `kept` rows as host columns."""
+        value_names = {self._schema.arrow_schema.names[i] for i in self._schema.value_idxes}
+        start_idx = np.nonzero(starts[:kept])[0]
+        ends = np.append(start_idx[1:], kept)
+        cols = []
+        for name in out_names:
+            f = table.schema.field(name)
+            if name in binary_names:
+                src = table.column(name).combine_chunks().take(pa.array(perm[:kept]))
+                if name in value_names:
+                    vals = src.to_pylist()
+                    cols.append(pa.array(
+                        [b"".join(v for v in vals[lo:hi] if v is not None)
+                         for lo, hi in zip(start_idx, ends)], type=f.type))
+                else:
+                    cols.append(src.take(pa.array(start_idx)))
+            else:
+                cols.append(_np_to_arrow(sorted_cols[name][start_idx], f.type))
+        return pa.RecordBatch.from_arrays(
+            cols, schema=pa.schema([table.schema.field(n) for n in out_names]))
 
 
 # packed-key budget of the downsample pass: sid | ts-offset | seq-rank must

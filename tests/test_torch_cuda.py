@@ -159,3 +159,107 @@ def test_predicate_and_index_merge_filter_match_plain(dev, case):
     _same_survivors(
         merge.index_merge_filter(keys, bounds, num_pk, prog, lanes, n, True, False, dev),
         merge.index_merge_plain(keys, num_pk, F.eval_program_plain(prog, lanes, n), True, False))
+
+
+# -- the fused route: grouped_stats, downsample, scan_kernel --------------------
+
+from horaedb_tpu_torch.ops import aggregate  # noqa: E402
+from horaedb_tpu_torch.ops import scan as scan_ops  # noqa: E402
+
+
+def _same_stats(got: dict, want: dict) -> None:
+    for k in ("count", "min", "max"):
+        a, b = got[k].cpu(), want[k].cpu()
+        assert a.dtype == b.dtype and bool(((a == b) | (a.isnan() & b.isnan())).all()), k
+    for k in ("sum", "mean"):
+        a, b = got[k].cpu(), want[k].cpu()
+        if a.dtype == torch.float64:
+            torch.testing.assert_close(a, b, rtol=1e-12, atol=0.0, equal_nan=True)
+        else:
+            assert torch.equal(a, b), k
+
+
+def _values(kind: str, n: int, rng) -> torch.Tensor:
+    if kind == "f64":  # integer-valued: the sums are exact in any order
+        v = rng.integers(-1000, 1000, n).astype(np.float64)
+        m = min(n, 8)
+        v[rng.choice(n, m, replace=False)] = np.resize([np.nan, -0.0, np.inf, -np.inf], m)
+        return torch.from_numpy(v)
+    if kind == "i64":
+        return torch.from_numpy(rng.integers(-(2**56), 2**56, n).astype(np.int64))
+    u = rng.integers(0, 2**58, n, dtype=np.uint64)
+    u[: n // 7] = np.uint64(2**63 + 99)  # bit 63 set: unsigned min/max and mean
+    return torch.from_numpy(u.view(np.int64).copy())
+
+
+@pytest.mark.parametrize("kind", ["f64", "i64", "u64"])
+@pytest.mark.parametrize("n,segments", [(0, 5), (1, 1), (2049, 7), (100_003, 5000),
+                                        (1_000_000, 300_000)])
+def test_grouped_stats_matches_plain(dev, kind, n, segments):
+    rng = np.random.default_rng(n + segments)
+    idx = torch.from_numpy(rng.integers(-3, segments + 3, n).astype(np.int32)).to(dev)
+    ok = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+    v = _values(kind, n, rng).to(dev)
+    unsigned = kind == "u64"
+    got = aggregate.grouped_stats(v, idx, ok, segments, unsigned=unsigned)
+    want = aggregate.grouped_stats_plain(v, idx, ok, segments, unsigned=unsigned)
+    _same_stats(got, want)
+    again = aggregate.grouped_stats(v, idx.long(), ok, segments, unsigned=unsigned)
+    for k in got:  # no atomics: bitwise repeatable, int32 and int64 ids alike
+        assert torch.equal(got[k].view(torch.int64), again[k].view(torch.int64)), k
+
+
+@pytest.mark.parametrize("n", [1, 4097, 300_001])
+def test_downsample_matches_plain(dev, n):
+    rng = np.random.default_rng(n)
+    t0, bucket_ms, ns, nb = 1_700_000_000_000, 60_000, 997, 10
+    ts = t0 + rng.integers(-2 * bucket_ms, (nb + 2) * bucket_ms, n).astype(np.int64)
+    ts[0] = t0 - 1  # floor division: bucket -1
+    sid = rng.integers(-1, ns + 1, n).astype(np.int32)
+    ok = rng.random(n) > 0.2
+    args = [torch.from_numpy(a).to(dev) for a in (ts, sid)]
+    v = _values("f64", n, rng).to(dev)
+    okt = torch.from_numpy(ok).to(dev)
+    got = aggregate.downsample(*args, v, okt, t0, bucket_ms, ns, nb)
+    want = aggregate.downsample_plain(*args, v, okt, t0, bucket_ms, ns, nb)
+    _same_stats(got, {k: t.reshape(ns, nb) for k, t in want.items()})
+
+
+def _scan_lanes(n: int, seed: int, presorted: bool):
+    cols, mask = _rows(n, seed, presorted)
+    rng = np.random.default_rng(seed + 1)
+    cols["v"] = rng.choice(np.array([np.nan, -0.0, 0.0, 0.5, -np.inf, 1.0]), n)
+    cols["side"] = rng.integers(-5, 5, n).astype(np.int32)
+    cols["flag"] = (rng.random(n) < 0.5).astype(np.uint8)
+    return cols, mask
+
+
+@pytest.mark.parametrize("dedup", [True, False])
+@pytest.mark.parametrize("presorted", [False, True])
+@pytest.mark.parametrize("how", ["none", "program", "mask"])
+@pytest.mark.parametrize("n", [0, 1, 4097, 300_001])
+def test_scan_kernel_matches_plain(dev, n, how, presorted, dedup):
+    cols, mask = _scan_lanes(n, n + 7, presorted)
+    keys, bounds, num_pk, names = sort_key_lanes(cols.__getitem__, SORT_KEYS, dev)
+    lanes = {k: torch.from_numpy(device_lane(a)).to(dev) for k, a in cols.items()}
+    prog, mask_t = None, None
+    if how == "program":
+        pred = F.Or(F.InSet("pk1", tuple(range(0, 400, 3))), F.Compare("v", "ne", 0.0))
+        prog = F.compile_program(pred, {k: a.dtype for k, a in cols.items()})
+    elif how == "mask":
+        mask_t = torch.from_numpy(mask.astype(np.uint8)).to(dev)
+    got = scan_ops.scan_kernel(lanes, keys, bounds, num_pk, prog, n, dedup, presorted, dev,
+                               mask=mask_t)
+    plain_mask = (F.eval_program_plain(prog, lanes, n) if prog is not None
+                  else mask_t if mask_t is not None else torch.ones(n, dtype=torch.bool,
+                                                                     device=dev))
+    want = scan_ops.scan_kernel_plain(lanes, keys, num_pk, plain_mask, dedup, presorted)
+    k = int(got[4].item())
+    assert k == int(want[4].item())
+    assert torch.equal(got[1][:k].cpu(), want[1][:k].cpu())
+    for name in lanes:
+        a, b = got[0][name][:k].cpu(), want[0][name][:k].cpu()
+        if a.dtype == torch.float64:
+            a, b = a.view(torch.int64), b.view(torch.int64)  # NaN payloads, -0.0
+        assert torch.equal(a, b), name
+    assert torch.equal(got[2].cpu(), want[2].cpu()) and torch.equal(got[3].cpu(), want[3].cpu())

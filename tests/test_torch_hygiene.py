@@ -113,8 +113,8 @@ def test_entry_point_without_device_raises_on_cpu_box(no_card, name):
 
 
 def test_plain_versions_do_not_count_launches():
+    from horaedb_tpu_torch.ops import aggregate, merge, scan
     from horaedb_tpu_torch.ops import filter as F
-    from horaedb_tpu_torch.ops import merge
     from horaedb_tpu_torch.ops.blockagg import sorted_segment_min_max, sorted_segment_sum_count
     from horaedb_tpu_torch.ops.sort import sort_permutation
 
@@ -129,10 +129,14 @@ def test_plain_versions_do_not_count_launches():
     merge.index_merge_mask([key], [(1, 5)], 1, torch.ones(3, dtype=torch.uint8), True, False)
     prog = F.compile_program(F.Compare("k", "gt", 1), {"k": np.dtype(np.int64)})
     merge.index_merge_filter([key], [(1, 5)], 1, prog, {"k": key}, 3, True, False, "cpu")
+    scan.scan_kernel({"k": key}, [key], [(1, 5)], 1, prog, 3, True, False, "cpu")
+    aggregate.grouped_stats(v, k, None, 2)
+    aggregate.downsample(key, k, v, None, 0, 2, 1, 4)
     assert launch_counts() == before
     assert set(before) == set(KERNELS) == {"sort_perm", "block_sum_count", "block_min_max",
                                            "packed_merge", "index_merge_mask",
-                                           "index_merge_filter"}
+                                           "index_merge_filter", "scan_kernel", "downsample",
+                                           "grouped_stats"}
 
 
 @pytest.mark.parametrize("text", ["0", "1500", "2h", "1d2h3m4s5ms", "1.5h", "90s", "250ms"])
@@ -157,5 +161,6 @@ def test_build_command_targets_sm90a_without_fast_math(name, monkeypatch):
     for src in _build.SOURCES[name]:
         assert (_build.CSRC / src).exists()
         assert (str(_build.CSRC / src) in cmd) == src.endswith(".cu")
-    assert ("predicate.cu" in _build.SOURCES[name]) == (name == "index_merge_filter")
+    assert ("predicate.cu" in _build.SOURCES[name]) == (name in ("index_merge_filter",
+                                                                  "scan_kernel"))
     assert _build._lib_path(name).parent == ROOT / "horaedb_tpu_torch" / "_build"

@@ -20,7 +20,9 @@ import pytest
 from horaedb_tpu.objstore import LocalStore as JLocalStore
 from horaedb_tpu.ops import filter as JF
 from horaedb_tpu.storage import ObjectBasedStorage as JaxStorage
+from horaedb_tpu.storage import StorageConfig as JStorageConfig
 from horaedb_tpu.storage import TimeRange as JTimeRange
+from horaedb_tpu.storage import UpdateMode as JUpdateMode
 from horaedb_tpu.storage import WriteRequest as JWriteRequest
 from horaedb_tpu_torch.engine_query import query_downsample
 from horaedb_tpu_torch.objstore import MemStore
@@ -28,7 +30,6 @@ from horaedb_tpu_torch.ops import filter as F
 from horaedb_tpu_torch.storage import ObjectBasedStorage, StorageConfig, TimeRange, UpdateMode
 from horaedb_tpu_torch.storage import WriteRequest
 from horaedb_tpu_torch.storage.carry import open_local_root
-from horaedb_tpu_torch.storage.read import NotPortedError
 
 SEGMENT_MS = 2 * 3600 * 1000
 T0 = 100 * SEGMENT_MS
@@ -83,12 +84,12 @@ def predicate(module):
                       module.Compare("ts", "lt", WINDOW[1]))
 
 
-async def jax_reference(directory, batches, subsets):
+async def jax_reference(directory, batches, subsets, config=None):
     """Grids per series subset from the JAX package, which leaves its SST
     tree in the LocalStore at `directory`."""
     eng = await JaxStorage.try_new(
         root="db", store=JLocalStore(directory), arrow_schema=ARROW_SCHEMA,
-        num_primary_keys=4, segment_duration_ms=SEGMENT_MS,
+        num_primary_keys=4, segment_duration_ms=SEGMENT_MS, config=config,
         enable_compaction_scheduler=False, start_background_merger=False,
     )
     try:
@@ -200,10 +201,18 @@ def test_overwrite_resolves_to_later_write():
     assert got["count"][0, 0] == 2 and got["sum"][0, 0] == 30.0
 
 
-def test_packed_pass_decline_raises_not_ported(reference):
-    with pytest.raises(NotPortedError, match="not ported yet: fused scan path"):
-        asyncio.run(port_query("write", reference, reference["ids"]["all"],
-                               StorageConfig(update_mode=UpdateMode.APPEND)))
+def test_packed_pass_decline_raises_not_ported(reference, tmp_path, monkeypatch):
+    """In append mode the packed pass declines and the query takes the
+    fused route (kernels scan_kernel, downsample, grouped_stats): its grids
+    equal the JAX package's, where every re-sent sample counts twice."""
+    monkeypatch.setenv("HORAEDB_AGG_IMPL", "scatter")
+    config = StorageConfig(update_mode=UpdateMode.APPEND)
+    (want,) = asyncio.run(jax_reference(str(tmp_path), reference["batches"],
+                                        [reference["ids"]["all"]],
+                                        JStorageConfig(update_mode=JUpdateMode.APPEND)))
+    (got,) = asyncio.run(port_query("write", reference, reference["ids"]["all"], config))
+    assert_grids(got, want)
+    assert got["count"].sum() > reference["grids"]["all"]["count"].sum()
 
 
 @pytest.mark.parametrize("scan_path", ["host", "device"])
