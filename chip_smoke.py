@@ -19,6 +19,12 @@ Phases, each of which exits non-zero on failure:
    values, NaN and -0.0, ids out of range, masked rows, empty cells, rows
    before t0, presorted and shuffled rows, dedup on and off, no predicate,
    a Compare, an InSet of 200 members, a host mask, u64 keys >= 2^63);
+   and the decode kernels decode_unpack, decode_dod, decode_xor and
+   decode_rle, bitwise on u64 views, on lanes at widths 0, 1, 17, 31 and
+   32, a middle page of width 33 (the host fills it), pages of 1, 2, 3,
+   4,096 and 10,000 rows, i64 extremes and wraps mod 2^64, NaN payloads,
+   +-0.0 and +-inf in f64 and f32, values >= 2^63, i4/u4 lanes, runs of 1
+   and a run across pages;
 3. the main paths at TSBS cpu-only scale (10,000 series, one field, 10 s
    interval, 4 h = two 2 h segments = 14.4M samples), stored as parquet
    SSTs and a manifest in a LocalStore under a temporary directory; the
@@ -51,11 +57,30 @@ Phases, each of which exits non-zero on failure:
       writes, repeated (tsid, ts) groups) scanned through
       `ObjectBasedStorage.scan` (scan_kernel), held bitwise against a numpy
       oracle that concatenates each group's bytes in (pk, write) order;
+   g. encoded (format-v2) SSTs: TSBS cpu-only at --scale=10000 with its
+      ten cpu fields (field_id 0-9), 10 s scrapes over a 1-hour window of
+      one 2 h segment = 36M rows, written in time order as a remote-write
+      client sends them (120 writes of three scrapes of every host and
+      field, then a 5 % re-send), with EncodingConfig(enabled=True) and
+      time_column="ts"; the codecs of each lane are printed and held to
+      the prediction (tsid rle, field_id dict at width 4, ts dod, value
+      raw); the 5-minute downsample of usage_user over all hosts (twice,
+      bitwise) and over 1,000 hosts under HORAEDB_DECODE_IMPL=device
+      (decode_unpack, decode_dod, decode_rle), host and raw, all equal and
+      equal to a numpy oracle, and once under auto (the calibration's
+      verdict and rows/s per codec); a raw scan with an InSet of 1,000
+      tsids, field_id == 0 and a ts range against the oracle and the raw
+      pin; every SST read must take the encoded branch (none under raw);
+   h. Prometheus `up` over the same 10,000 targets, value 1.0, the same
+      window and 120 writes (3.6M rows, the value lane xor at width 0):
+      avg_over_time(up[5m]) over all targets under device (decode_xor),
+      host and raw, against the oracle;
    every kernel must have launched on one of these paths; queries and a
    scan run under torch.profiler (and cProfile) for where the time goes;
 4. scan_kernel, downsample and grouped_stats against their plain versions
    at the main path's shapes, on the inputs the first fused query of 3e
-   gave them (kept from that run), and timed.
+   gave them (kept from that run), and the four decode kernels on the
+   largest lane each decoded on the device in 3g/3h, timed.
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result.
@@ -99,6 +124,19 @@ APPEND_SERIES = 50_000
 APPEND_TS = 10
 APPEND_WRITES = 8
 APPEND_ROWS = 125_000
+# phases 3g and 3h: encoded (format-v2) SSTs; TSBS cpu-only's ten cpu fields
+# (field_id 0-9) and Prometheus `up`, 10 s scrapes over a 1-hour window
+CPU_FIELDS = ("usage_user", "usage_system", "usage_idle", "usage_nice", "usage_iowait",
+              "usage_irq", "usage_softirq", "usage_steal", "usage_guest", "usage_guest_nice")
+ENC_WINDOW_MS = 3600 * 1000
+ENC_SCRAPES = ENC_WINDOW_MS // INTERVAL_MS
+ENC_WRITES = 120
+UP_METRIC_ID = 2
+# the codecs each lane of a 3g write should pick (worked out from the data:
+# runs of 30 rows per tsid, of 3 per field, 3 scrapes per (tsid, field))
+ENC_CODECS = {"metric_id": ("dict", 0), "tsid": ("rle", 0), "field_id": ("dict", 4),
+              "ts": ("dod", 16), "value": ("raw", 0), "__seq__": ("dict", 0),
+              "__reserved__": ("null", 0)}
 
 
 class SmokeFailure(Exception):
@@ -800,6 +838,216 @@ def fused_records(torch, cap: CaptureFused, dev) -> list[dict]:
     return records
 
 
+# -- phase 2, continued: the decode kernels ------------------------------------
+
+DECODE_NAMES = {"dict": "decode_unpack", "dod": "decode_dod", "xor": "decode_xor",
+                "rle": "decode_rle"}
+DECODE_REPLACES = {"dict": "horaedb_tpu/ops/decode.py:94", "dod": "horaedb_tpu/ops/decode.py:125",
+                   "xor": "horaedb_tpu/ops/decode.py:152", "rle": "horaedb_tpu/ops/decode.py:171"}
+
+
+def decode_cases(rng):
+    """(name, codec, array, page_rows, extra encoder args) of phase 2's
+    decode checks: widths 0, 1, 17, 31 and 32 on every bit-packed codec, a
+    middle page of width 33, pages of 1, 2, 3, 4,096 and 10,000 rows, wraps
+    mod 2^64, NaN payloads and +-0.0 and +-inf, values >= 2^63, i4/u4 lanes."""
+    i64 = np.iinfo(np.int64)
+
+    def dod_at(width: int, n: int = 9000) -> np.ndarray:
+        """Timestamps whose zigzag second differences need `width` bits."""
+        half = 1 << max(width - 1, 0)
+        dd = rng.integers(-half, half, n - 2) if width else np.zeros(n - 2, np.int64)
+        if width:
+            dd[n // 2] = -half  # zigzag(-2^(w-1)) = 2^w - 1
+        d = 15_000 + np.concatenate([[0], np.cumsum(dd)])
+        return T0 + np.concatenate([[0], np.cumsum(d)]).astype(np.int64)
+
+    def xor_at(width: int, n: int = 9000) -> np.ndarray:
+        low = rng.integers(0, 1 << width, n, dtype=np.uint64) if width else np.zeros(n, np.uint64)
+        if width:
+            low[::2] |= np.uint64(1 << (width - 1))
+            low[1::2] &= np.uint64((1 << (width - 1)) - 1)
+        return (np.uint64(0x4059_0000_0000_0000) ^ low).view(np.float64)
+
+    def dict_at(width: int, n: int = 9000) -> np.ndarray:
+        k = 1 << width
+        return (rng.permutation(np.arange(n) % k) * 7919).astype(np.int64)
+
+    w33 = np.zeros(3000, np.int64)
+    w33[1500] = 2**31  # zigzag 2^32: the middle page needs 33 bits
+    f32 = rng.normal(size=9000).astype(np.float32)
+    f32[:5] = [np.nan, -0.0, 0.0, np.inf, -np.inf]
+    f32[5] = np.array(0x7FC0_1234, np.uint32).view(np.float32)
+    nan_payloads = (np.uint64(0x7FF8_0000_0000_0000)
+                    | rng.integers(0, 1 << 20, 9000, dtype=np.uint64)).view(np.float64)
+    cases = [(f"dod width {w}", "dod", dod_at(w), 4096, ()) for w in (0, 1, 17, 31, 32)]
+    cases += [(f"xor f64 width {w}", "xor", xor_at(w), 4096, ()) for w in (0, 1, 17, 31, 32)]
+    cases += [(f"dict width {w}", "dict", dict_at(w, 9000 if w < 17 else 1 << 17), 4096,
+               (1 << max(w, 12),)) for w in (0, 1, 17)]
+    cases += [
+        ("dod middle page width 33", "dod", w33, 1000, ()),
+        ("dod pages of 4096 + 1 rows", "dod", dod_at(7, 4097), 4096, ()),
+        ("dod pages of 4096 + 2 rows", "dod", dod_at(7, 4098), 4096, ()),
+        ("dod pages of 4096 + 3 rows", "dod", dod_at(7, 4099), 4096, ()),
+        ("dod page_rows 10000", "dod", dod_at(9, 25_000), 10_000, ()),
+        ("dod i64 extremes", "dod", np.asarray([i64.min, 0, i64.max, -1, 1, i64.min + 1],
+                                               np.int64), 4096, ()),
+        ("dod wrap of test_encoding.py:329", "dod",
+         np.asarray([2**62, -(2**62), 2**62 - 7, 5], np.int64), 4096, ()),
+        ("dod wraps mod 2^64 inside the envelope", "dod", np.asarray(
+            [i64.max - 2, i64.max - 1, i64.max, i64.min, i64.min + 1], np.int64), 4096, ()),
+        ("xor f64 NaN payloads", "xor", nan_payloads, 4096, ()),
+        ("xor f64 +-0.0, +-inf, NaN", "xor", np.tile([0.0, -0.0, np.inf, -np.inf, np.nan], 900),
+         4096, ()),
+        ("xor f32 NaN payload, +-0.0, +-inf", "xor", f32, 4096, ()),
+        ("dict u64 >= 2^63", "dict", np.uint64(2**63) + rng.integers(0, 9, 9000).astype(
+            np.uint64) * np.uint64(2**59), 4096, (4096,)),
+        ("dict i4", "dict", rng.integers(-3, 3, 9000).astype(np.int32), 4096, (4096,)),
+        ("dict u4", "dict", rng.integers(2**31, 2**31 + 9, 9000).astype(np.uint32), 4096,
+         (4096,)),
+        ("rle u64 >= 2^63", "rle", np.repeat(np.uint64(2**64 - 1) - np.arange(
+            900, dtype=np.uint64) * np.uint64(2**50), 10), 4096, ()),
+        ("rle runs of length 1", "rle", rng.integers(-9, 9, 9000).astype(np.int64), 4096, ()),
+        ("rle one run across a page", "rle", np.concatenate(
+            [np.zeros(7, np.int64), np.full(9000, 5, np.int64), np.ones(3, np.int64)]), 4096, ()),
+        ("rle u4", "rle", np.repeat(np.arange(300, dtype=np.uint32) + np.uint32(2**31), 30),
+         4096, ()),
+    ]
+    return cases
+
+
+def check_decode_kernels(torch, rng, dev) -> None:
+    """Each decode kernel against its plain version on the same staged
+    pages, bitwise on u64 views, and each lane's device decode against the
+    array it encodes (pages outside the envelope come from the host)."""
+    from horaedb_tpu_torch.ops import decode
+    from horaedb_tpu_torch.storage import encoding as enc
+
+    widths = {}
+    for name, codec, arr, page_rows, extra in decode_cases(rng):
+        lane = getattr(enc, f"_encode_{codec}")(arr, page_rows, *extra)
+        lane.name = name
+        dt = np.dtype(lane.dtype)
+        on_dev = [p for p in lane.pages if decode.in_envelope(codec, dt, p, lane.dict_values)]
+        widths[name] = sorted({p.width for p in lane.pages})
+        if on_dev:
+            staged = decode.stage_pages(codec, dt, lane.payload, on_dev, lane.dict_values, dev)
+            got, want = decode.run_pages(staged), decode.run_pages_plain(staged)
+            torch.cuda.synchronize()
+            require(torch.equal(got.cpu(), want.cpu()), f"{DECODE_NAMES[codec]} != plain on "
+                                                        f"{name!r}")
+        out = enc.decode_lane(lane, impl="device", device=dev)
+        require(out.dtype == arr.dtype and np.array_equal(out.view(np.uint8), arr.view(np.uint8)),
+                f"device decode of {name!r} differs from its input")
+        require(len(on_dev) == sum(p.width <= 32 for p in lane.pages),
+                f"{name!r}: the envelope is width <= 32")
+    for name, want in (("dod width 17", [17]), ("xor f64 width 31", [31]),
+                       ("dict width 17", [17]), ("dod middle page width 33", [0, 33]),
+                       ("xor f64 width 32", [32])):
+        require(widths[name] == want, f"{name!r} encoded at widths {widths[name]}")
+    for codec in DECODE_NAMES:  # a lane of no pages, and a page of no rows
+        require(decode.decode_pages(codec, "<i8" if codec != "xor" else "<f8", b"", [], [1],
+                                    dev).shape == (0,), f"{codec}: no pages")
+
+
+class CaptureDecode:
+    """Keeps, per codec, the staged pages of the largest decode launched
+    inside the block while `on` is set: the main path's own inputs, for
+    phase 4 (the calibration's synthetic lanes are left out)."""
+
+    def __init__(self):
+        self.staged = {}
+        self.on = False
+
+    def __enter__(self):
+        from horaedb_tpu_torch.ops import decode
+
+        self.orig = decode.run_pages
+
+        def run(s):
+            old = self.staged.get(s.codec)
+            if self.on and (old is None or s.rows > old.rows):
+                self.staged[s.codec] = s
+            return self.orig(s)
+
+        decode.run_pages = run
+        return self
+
+    def __exit__(self, *exc):
+        from horaedb_tpu_torch.ops import decode
+
+        decode.run_pages = self.orig
+
+
+def decode_records(torch, cap: CaptureDecode, dev) -> list[dict]:
+    """Phase 4, continued: the four decode kernels against their plain
+    versions on the largest lane each decoded on the 3g/3h paths, timed,
+    with their library yardsticks (rle: repeat_interleave; dod: the plain
+    unpack and two cumsums; none computes unpack or xor)."""
+    from horaedb_tpu_torch.ops import decode
+
+    records = []
+    for codec, name in DECODE_NAMES.items():
+        require(codec in cap.staged, f"no {name} launch was captured on the encoded paths")
+        s = cap.staged[codec]
+        itemsize = s.dtype.itemsize
+        got, want = decode.run_pages(s), decode.run_pages_plain(s)
+        require(torch.equal(got.cpu(), want.cpu()), f"{name} != plain at the main path shape")
+        table = s.table.cpu().numpy()
+        rows, width = table[:, 1], table[:, 3]
+        args = {"dict": (s.words, s.table, s.dict_bits, s.rows),
+                "rle": (s.words, s.table, s.cum, s.rows, itemsize)}.get(
+                    codec, (s.words, s.table, s.rows, itemsize))
+        kern, plain = getattr(decode, name), getattr(decode, f"{name}_plain")
+        library, call = None, None
+        if codec == "rle":
+            words, cum = s.words.cpu().numpy(), s.cum.cpu().numpy()
+            vals, lens = [], []
+            for _out_off, _rows, wo, _w, runs, at in table:
+                w = words[wo:wo + runs * itemsize // 4]
+                vals.append(w.view(np.int64) if itemsize == 8 else w)
+                lens.append(np.diff(np.concatenate([[0], cum[at:at + runs]])))
+            vals_t = torch.from_numpy(np.concatenate(vals)).to(dev)
+            lens_t = torch.from_numpy(np.concatenate(lens)).to(dev)
+            rep = torch.repeat_interleave(vals_t, lens_t, output_size=s.rows)
+            require(torch.equal(rep.cpu(), got.cpu()), "repeat_interleave differs from decode_rle")
+
+            def library():
+                return torch.repeat_interleave(vals_t, lens_t, output_size=s.rows)
+            call = "repeat_interleave of the run values by their lengths"
+            in_bytes = int(table[:, 4].sum()) * (itemsize + 4)
+        else:
+            stream = {"dict": rows, "dod": np.maximum(rows - 2, 0),
+                      "xor": np.maximum(rows - 1, 0)}[codec]
+            in_bytes = float((stream * width).sum()) / 8
+            if codec == "dict":
+                in_bytes += s.dict_bits.numel() * itemsize
+        if codec == "dod":
+            _page, i, t = decode._row_pages(s.table, s.rows)
+            bit, wd, wo = (i - 2).clamp(min=0) * t[:, 3], t[:, 3], t[:, 2]
+
+            def library():
+                z = decode._unpack_plain(s.words, wo, bit, wd)
+                return torch.cumsum(torch.cumsum(z, 0), 0)
+            call = "the plain unpack + two cumsum (no segments, no zigzag)"
+        nb, kind = bound(in_bytes + s.rows * itemsize, 0)
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"horaedb_tpu_torch/ops/csrc/{name}.cu + bitunpack.cuh",
+            "replaces": DECODE_REPLACES[codec],
+            "shape": f"{s.rows} rows, {len(table)} pages, {s.dtype.str}, widths "
+                     f"{sorted(set(width.tolist()))}"
+                     + (f", {int(table[:, 4].sum())} runs" if codec == "rle" else ""),
+            "max_abs_err": 0.0,
+            "ms": cuda_ms(torch, lambda: kern(*args)),
+            "plain_ms": cuda_ms(torch, lambda: plain(*args)),
+            "bound_ms": nb, "bound_by": kind,
+            "library_ms": cuda_ms(torch, library) if library is not None else None,
+            "library_call": call,
+        })
+    return records
+
+
 # -- phase 3: the main paths ----------------------------------------------------
 
 def make_data(rng):
@@ -1233,14 +1481,262 @@ async def main_paths(torch, rng, dev, data, workdir) -> dict:
                                      "groups": table.num_rows, "s": secs}
     await app.close()
 
+    # g, h. encoded (format-v2) tables
+    with CaptureDecode() as dcap:
+        out["encoded"] = await encoded_paths(torch, rng, dev, store, workdir, counted, dcap)
     for name, count in launches.items():
         require(count > 0, f"kernel {name} never launched on a main path")
     out["kernel_launches"] = launches
     out["fused_capture"] = cap
+    out["decode_capture"] = dcap
     from horaedb_tpu_torch.storage.read import _LinkProfile
 
     out["link_profile"] = _LinkProfile.get(dev)
     return out
+
+
+def make_enc_data(rng):
+    """Phase 3g's grid as [host, field, scrape]: 10,000 hosts, the ten cpu
+    fields, 360 scrapes; the 5 % re-sent cells (flat indices) with their new
+    values, and the final values (last write wins)."""
+    tsids = np.unique(rng.integers(1, 2**64 - 1, NUM_SERIES * 2, dtype=np.uint64))
+    tsids = np.sort(rng.choice(tsids, NUM_SERIES, replace=False))
+    require(len(tsids) == NUM_SERIES, "tsid draw collided")
+    values = rng.uniform(0, 100, (NUM_SERIES, len(CPU_FIELDS), ENC_SCRAPES))
+    resend = rng.choice(values.size, int(values.size * RESEND_FRACTION), replace=False)
+    new_values = rng.uniform(0, 100, len(resend))
+    final = values.copy()
+    final.reshape(-1)[resend] = new_values
+    return tsids, values, resend, new_values, final
+
+
+def enc_batch(tsids, flat, vals, metric_id: int, fields: int):
+    """Cells of a [host, field, scrape] grid (flat indices) as one batch."""
+    import pyarrow as pa
+
+    h, rem = np.divmod(flat, fields * ENC_SCRAPES)
+    f, sc = np.divmod(rem, ENC_SCRAPES)
+    arrays = [np.full(len(flat), metric_id, np.uint64), tsids[h], f.astype(np.uint64),
+              T0 + sc.astype(np.int64) * INTERVAL_MS, vals]
+    return pa.RecordBatch.from_arrays([pa.array(a) for a in arrays], schema=arrow_schema(False))
+
+
+async def write_enc(storage, rng, tsids, values, metric_id, resend=None, new_values=None):
+    """120 writes in time order, each holding three scrapes of every host
+    and field in the order a remote-write client sends them (scrape, host,
+    field), then the re-send as one shuffled write."""
+    from horaedb_tpu_torch.storage import TimeRange, WriteRequest
+
+    hosts, fields, scrapes = values.shape
+    per = scrapes // ENC_WRITES
+    sl, h, f = (a.ravel() for a in np.meshgrid(np.arange(per), np.arange(hosts),
+                                               np.arange(fields), indexing="ij"))
+    base = (h * fields + f) * scrapes + sl
+    flat_values = values.reshape(-1)
+    seg = TimeRange(T0, T0 + SEGMENT_MS)
+    t = time.perf_counter()
+    written = 0
+    for w in range(ENC_WRITES):
+        cells = base + w * per
+        await storage.write(WriteRequest(enc_batch(tsids, cells, flat_values[cells], metric_id,
+                                                   fields), seg))
+        written += len(cells)
+    if resend is not None:
+        order = rng.permutation(len(resend))
+        await storage.write(WriteRequest(enc_batch(tsids, resend[order], new_values[order],
+                                                   metric_id, fields), seg))
+        written += len(resend)
+    return written, time.perf_counter() - t
+
+
+def enc_oracle(final, field: int, series=None) -> dict:
+    """5-minute grids of one field: every cell holds 30 consecutive scrapes."""
+    per_cell = BUCKET_MS // INTERVAL_MS
+    cells = final[:, field, :].reshape(final.shape[0], ENC_SCRAPES // per_cell, per_cell)
+    if series is not None:
+        cells = cells[series]
+    return {"sum": cells.sum(axis=2), "count": np.full(cells.shape[:2], float(per_cell)),
+            "min": cells.min(axis=2), "max": cells.max(axis=2)}
+
+
+def enc_scan_oracle(tsids, final, series, field: int, t_lo: int, t_hi: int) -> dict:
+    """Rows of `series` (sorted host indices) and one field with ts in
+    [t_lo, t_hi), in primary-key order."""
+    sc = np.flatnonzero((T0 + np.arange(ENC_SCRAPES) * INTERVAL_MS >= t_lo)
+                        & (T0 + np.arange(ENC_SCRAPES) * INTERVAL_MS < t_hi))
+    h = np.repeat(series, len(sc))
+    t = np.tile(sc, len(series))
+    return {"metric_id": np.full(len(h), METRIC_ID, np.uint64), "tsid": tsids[h],
+            "field_id": np.full(len(h), field, np.uint64),
+            "ts": T0 + t.astype(np.int64) * INTERVAL_MS, "value": final[h, field, t]}
+
+
+async def sidecar_lanes(store, root: str, storage) -> dict:
+    """Codec and page widths per lane of the first SST's sidecar."""
+    from horaedb_tpu_torch.storage import encoding as enc
+
+    first = min(storage.manifest.all_ssts(), key=lambda s: s.id)
+    sidecar = enc.decode_blob(await store.get(f"{root}/data/{first.id}.enc"))
+    return {n: (lane.codec, sorted({p.width for p in lane.pages}))
+            for n, lane in sidecar.lanes.items()}
+
+
+async def encoded_paths(torch, rng, dev, store, workdir, counted, cap) -> dict:
+    """Phases 3g and 3h: encoded tables written and read on the card under
+    every HORAEDB_DECODE_IMPL pin."""
+    import horaedb_tpu_torch as port
+    from horaedb_tpu_torch.engine_query import query_downsample
+    from horaedb_tpu_torch.ops import decode
+    from horaedb_tpu_torch.ops import filter as F
+    from horaedb_tpu_torch.storage import ObjectBasedStorage, ScanRequest, StorageConfig, TimeRange
+    from horaedb_tpu_torch.storage.config import EncodingConfig
+
+    out: dict = {}
+    window = TimeRange(T0, T0 + ENC_WINDOW_MS)
+
+    async def open_enc(root):
+        return await ObjectBasedStorage.try_new(
+            root, store, arrow_schema(False), 4, SEGMENT_MS,
+            config=StorageConfig(encoding=EncodingConfig(enabled=True)),
+            enable_compaction_scheduler=False, device=dev, time_column="ts")  # 121 writes: the
+        # manifest merger folds their deltas, as it would for any ingest
+
+    def query_pred(metric_id: int):
+        return F.And(F.Compare("metric_id", "eq", metric_id), F.Compare("field_id", "eq", 0),
+                     F.time_range_pred("ts", window.start, window.end))
+
+    async def pinned(name, impl, storage, fn, need=()):
+        """Run `fn` under one decode pin with the counts at 0; every SST read
+        must take the encoded branch (none under raw)."""
+        reader = storage.parquet_reader
+        reader.sst_reads = {"encoded": 0, "parquet": 0}
+        decode.reset_page_counts()
+        port.reset_launch_counts()
+        cap.on = impl == "device"
+        with EnvPin(HORAEDB_DECODE_IMPL=impl):
+            t = time.perf_counter()
+            res = await fn()
+            secs = time.perf_counter() - t
+        cap.on = False
+        counts = port.launch_counts()
+        counted(name, counts)
+        reads = dict(reader.sst_reads)
+        if impl == "raw":
+            require(reads["encoded"] == 0 and reads["parquet"] > 0, f"{name}: {reads}")
+        else:
+            require(reads["parquet"] == 0 and reads["encoded"] > 0,
+                    f"{name}: an SST read skipped the encoded branch: {reads}")
+        for k in need:
+            require(counts[k] > 0, f"{name}: the read did not launch {k}")
+        if impl in ("raw", "host"):
+            require(not any(counts[k] for k in DECODE_NAMES.values()),
+                    f"{name}: a decode kernel launched under {impl}")
+        return res, {"s": secs, "sst_reads": reads, "pages": decode.page_counts(),
+                     "launches": {k: v for k, v in counts.items() if v}}
+
+    # g. TSBS cpu-only, ten fields
+    t = time.perf_counter()
+    tsids, values, resend, new_values, final = make_enc_data(rng)
+    out["data_s"] = time.perf_counter() - t
+    cpu = await open_enc("cpu10")
+    port.reset_launch_counts()
+    rows, write_s = await write_enc(cpu, rng, tsids, values, METRIC_ID, resend, new_values)
+    torch.cuda.synchronize()
+    counted("enc_write", port.launch_counts())
+    del values
+    ssts = cpu.manifest.all_ssts()
+    require(all(s.meta.format_version == 2 for s in ssts), "an encoded write landed as v1")
+    lanes = await sidecar_lanes(store, "cpu10", cpu)
+    enc_bytes = sum(m.size for m in await store.list("cpu10/data") if m.path.endswith(".enc"))
+    out["cpu10"] = {"rows_written": rows, "write_s": write_s, "write_rows_per_s": rows / write_s,
+                    "ssts": len(ssts), "sst_bytes": sum(s.meta.size for s in ssts),
+                    "enc_bytes": enc_bytes, "lanes": lanes, "predicted": ENC_CODECS}
+    print(f"3g codecs per lane (codec, page widths): {lanes}", flush=True)
+    for n, (codec, width) in ENC_CODECS.items():
+        require(lanes[n][0] == codec and (codec != "dict" or lanes[n][1] == [width]),
+                f"3g lane {n}: {lanes[n]}, predicted {codec} at width {width}")
+    pred = query_pred(METRIC_ID)
+    subset = np.sort(rng.choice(NUM_SERIES, SUBSET, replace=False))
+    want, want_sub = enc_oracle(final, 0), enc_oracle(final, 0, subset)
+
+    async def queries():
+        return [await query_downsample(cpu, ids, window, BUCKET_MS, pred)
+                for ids in (tsids, tsids, tsids[subset])]
+
+    by_pin = {}
+    for impl in ("device", "host", "raw"):
+        need = ("decode_unpack", "decode_dod", "decode_rle") if impl == "device" else ()
+        grids, stat = await pinned(f"enc_query_{impl}", impl, cpu, queries, need)
+        check_grids(grids[0], want, f"3g all hosts, {impl}")
+        require(bitwise_equal(grids[0], grids[1]), f"3g repeat query under {impl} differs")
+        check_grids(grids[2], want_sub, f"3g 1,000 hosts, {impl}")
+        by_pin[impl] = {"stat": stat, "grids": grids}
+    for impl in ("host", "raw"):
+        for g, d in zip(by_pin[impl]["grids"], by_pin["device"]["grids"]):
+            require(bitwise_equal(g, d), f"3g grids under {impl} differ from device")
+    cache = f"{workdir}/decode_calib.json"
+    with EnvPin(HORAEDB_DECODE_CACHE=cache):
+        decode.reset_cache(memory_only=True)
+        auto, stat = await pinned("enc_query_auto", "auto", cpu, lambda: query_downsample(
+            cpu, tsids, window, BUCKET_MS, pred))
+        require(bitwise_equal(auto, by_pin["device"]["grids"][0]), "3g grids under auto differ")
+        calib = {}
+        for codec in decode.DEVICE_CODECS:
+            entry, source = decode.calibration_entry(codec, dev)
+            calib[codec] = {"impl": entry["impl"], "rows_per_s": entry["ab"], "n": entry["n"],
+                            "source": source}
+        decode.reset_cache(memory_only=True)
+    by_pin["auto"] = {"stat": stat}
+    out["cpu10"]["queries"] = {k: v["stat"] for k, v in by_pin.items()}
+    out["cpu10"]["calibration"] = calib
+    del by_pin
+    lo, hi = T0 + 600_000, T0 + ENC_WINDOW_MS - 600_000
+    inset = F.And(F.InSet("tsid", tuple(int(v) for v in tsids[subset])),
+                  F.Compare("field_id", "eq", 0), F.time_range_pred("ts", lo, hi))
+    expect = enc_scan_oracle(tsids, final, subset, 0, lo, hi)
+    scans = {}
+    for impl in ("device", "raw"):
+        need = ("decode_dod", "decode_rle") if impl == "device" else ()
+        table, stat = await pinned(f"enc_scan_{impl}", impl, cpu, lambda: timed_scan(
+            cpu, ScanRequest(TimeRange(T0, T0 + SEGMENT_MS), predicate=inset)), need)
+        require(table[0] is not None and lanes_equal(table_lanes(table[0]), expect),
+                f"3g InSet scan under {impl} differs from the oracle")
+        scans[impl] = stat
+    out["cpu10"]["scan_inset_1000"] = scans
+    out["cpu10"]["profile"] = await pinned_profile(torch, cpu, tsids, window, pred)
+    await cpu.close()
+    del final
+
+    # h. Prometheus `up`: a healthy fleet, 1.0 everywhere
+    up = await open_enc("up")
+    ones = np.ones((NUM_SERIES, 1, ENC_SCRAPES))
+    port.reset_launch_counts()
+    rows, write_s = await write_enc(up, rng, tsids, ones, UP_METRIC_ID)
+    torch.cuda.synchronize()
+    counted("up_write", port.launch_counts())
+    lanes = await sidecar_lanes(store, "up", up)
+    print(f"3h codecs per lane (codec, page widths): {lanes}", flush=True)
+    require(lanes["value"] == ("xor", [0]), f"3h value lane: {lanes['value']}")
+    up_want = enc_oracle(ones, 0)
+    up_pred = query_pred(UP_METRIC_ID)
+    up_q = {}
+    for impl in ("device", "host", "raw"):
+        need = ("decode_xor", "decode_dod", "decode_rle") if impl == "device" else ()
+        grids, stat = await pinned(f"up_query_{impl}", impl, up, lambda: query_downsample(
+            up, tsids, window, BUCKET_MS, up_pred), need)
+        check_grids(grids, up_want, f"3h avg_over_time(up[5m]), {impl}")
+        require(np.array_equal(grids["mean"], np.ones_like(grids["mean"])), "3h: mean != 1")
+        up_q[impl] = stat
+    out["up"] = {"rows_written": rows, "write_s": write_s, "lanes": lanes, "queries": up_q}
+    await up.close()
+    return out
+
+
+async def pinned_profile(torch, storage, ids, window, pred) -> dict:
+    """One encoded query (HORAEDB_DECODE_IMPL=device) under the profilers."""
+    with EnvPin(HORAEDB_DECODE_IMPL="device"):
+        _grids, summary = await profiled_query(torch, storage, ids, window, BUCKET_MS, pred)
+    return summary
 
 
 def host_top(host) -> list:
@@ -1351,11 +1847,13 @@ def main() -> int:
     data = make_data(rng)
     records = check_kernels(torch, rng, dev) + check_merge_kernels(torch, rng, dev, data)
     check_fused_kernels(torch, rng, dev)
+    check_decode_kernels(torch, rng, dev)
     print(f"phase 2: {time.perf_counter() - t_all:.1f} s", flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         result = asyncio.run(main_paths(torch, rng, dev, data, workdir))
     print(f"phase 3: {time.perf_counter() - t_all:.1f} s", flush=True)
     records += fused_records(torch, result.pop("fused_capture"), dev)
+    records += decode_records(torch, result.pop("decode_capture"), dev)
     result["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
     for r in records:
         r["launches"] = result["kernel_launches"][r["name"]]

@@ -14,6 +14,11 @@ runs at import: a CPU-only box imports every module.
 
 `LAUNCHES` counts, per catalog name, the wrapper calls that launched the
 kernel on the card (the plain CPU versions do not count).
+
+A failed build or launch raises `KernelError`, its own class, so that a
+caller that serves malformed input from another route (the encoded read
+falls back to parquet on a corrupt sidecar) can let it through: a kernel
+that does not build or launch is never hidden behind another route.
 """
 
 from __future__ import annotations
@@ -31,13 +36,14 @@ from horaedb_tpu_torch.common.error import HoraeError
 
 # catalog names are the JAX package's (`common/xprof.py` kernel names);
 # each maps to its sources: every `.cu` is compiled into one library, the
-# headers are hashed into its name. predicate.cu is kernel E, which runs
+# headers are hashed into its name. The four decode kernels share
+# bitunpack.cuh. predicate.cu is kernel E, which runs
 # inside index_merge_filter and scan_kernel and is not a catalog kernel of
 # its own. A downsample call launches two libraries, downsample (the cell
 # ids) and grouped_stats (the reduction), and counts once in each.
 KERNELS = ("sort_perm", "block_sum_count", "block_min_max", "packed_merge",
            "index_merge_mask", "index_merge_filter", "scan_kernel", "downsample",
-           "grouped_stats")
+           "grouped_stats", "decode_unpack", "decode_dod", "decode_xor", "decode_rle")
 SOURCES = {
     "sort_perm": ("sort_perm.cu", "radix.cuh"),
     "block_sum_count": ("block_sum_count.cu", "segreduce.cuh"),
@@ -48,6 +54,10 @@ SOURCES = {
     "scan_kernel": ("scan.cu", "predicate.cu", "compact.cuh", "radix.cuh"),
     "downsample": ("downsample.cu",),
     "grouped_stats": ("grouped_stats.cu", "radix.cuh", "segreduce.cuh"),
+    "decode_unpack": ("decode_unpack.cu", "bitunpack.cuh"),
+    "decode_dod": ("decode_dod.cu", "bitunpack.cuh"),
+    "decode_xor": ("decode_xor.cu", "bitunpack.cuh"),
+    "decode_rle": ("decode_rle.cu", "bitunpack.cuh"),
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -57,6 +67,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
 LAUNCHES = {name: 0 for name in KERNELS}
+
+class KernelError(HoraeError):
+    """A kernel did not build, load or launch."""
+
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -76,7 +90,7 @@ def nvcc_path() -> str:
     cand = Path(home) / "bin" / "nvcc"
     found = str(cand) if cand.exists() else shutil.which("nvcc")
     if not found:
-        raise HoraeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+        raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
     return found
 
 
@@ -118,7 +132,7 @@ def build_all(names=KERNELS) -> dict[str, float]:
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
     if errors:
-        raise HoraeError("kernel build failed:\n" + "\n".join(errors))
+        raise KernelError("kernel build failed:\n" + "\n".join(errors))
     return took
 
 
@@ -146,5 +160,5 @@ def scratch_bytes(name: str, fn_name: str, n: int) -> int:
 def check(name: str, rc: int) -> None:
     """Raise on a failed launch, else count it."""
     if rc != 0:
-        raise HoraeError(f"{name}: CUDA launch failed with cudaError {rc}")
+        raise KernelError(f"{name}: CUDA launch failed with cudaError {rc}")
     LAUNCHES[name] += 1

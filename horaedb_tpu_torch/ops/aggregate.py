@@ -60,20 +60,24 @@ def downsample_sorted(
     """[num_series, num_buckets] grids of sum, count, mean (and min, max)
     over host rows sorted by (series, ts), computed on `device`.
 
-    `valid` (optional bool) excludes rows without breaking the sorted runs:
-    excluded rows keep a monotone `series_idx`. Empty cells: sum and count
+    `valid` (optional bool) excludes rows. They leave on the host, before
+    the upload: an excluded row of a series outside the query carries the
+    clipped index of its neighbour, and kernels B and C need nondecreasing
+    cell ids (each cell's run is written once, so a cell id that came back
+    after another would lose its first run). Empty cells: sum and count
     0, mean NaN, min +inf, max -inf."""
     dev = resolve_device(device)
     num_cells = num_series * num_buckets
     ensure(num_series > 0 and num_buckets > 0, "empty grid")
     ensure(num_cells < 2**31, f"grid of {num_cells} cells exceeds int32 cell ids")
+    if valid is not None:
+        keep = np.asarray(valid, dtype=bool)
+        ts, series_idx, values = (np.asarray(a)[keep] for a in (ts, series_idx, values))
     ts_t = to_device(np.asarray(ts, dtype=np.int64), dev)
     sid_t = to_device(np.asarray(series_idx, dtype=np.int32), dev)
     val_t = to_device(np.asarray(values, dtype=np.float64), dev)
     bucket = bucket_of(ts_t, t0, bucket_ms)
     ok = (bucket >= 0) & (bucket < num_buckets) & (sid_t >= 0) & (sid_t < num_series)
-    if valid is not None:
-        ok &= to_device(np.asarray(valid, dtype=bool), dev)
     safe = masked_cell_keys(sid_t, bucket, num_series, num_buckets)
     s, c = sorted_segment_sum_count(
         safe, torch.where(ok, val_t, 0.0), num_cells, weights=ok.to(torch.float64)

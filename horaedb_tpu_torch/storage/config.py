@@ -5,8 +5,8 @@ Copied from the JAX package's `storage/config.py` (same names, same
 defaults): `UpdateMode`, `ParquetCompression`, `ColumnOptions`,
 `WriteConfig`, `EncodingConfig`, `ManifestConfig` and `StorageConfig`. The
 rollup, scheduler and cache knobs wait for the slices that port those
-layers; a config that asks for a layer the port lacks (bloom filters,
-encoded sidecars) is refused when storage opens.
+layers; a config that asks for a layer the port lacks (bloom filters) is
+refused when storage opens.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 import enum
 from dataclasses import dataclass, field
 
+from horaedb_tpu_torch.common.size_ext import ReadableSize
 from horaedb_tpu_torch.common.time_ext import ReadableDuration
 
 
@@ -57,11 +58,29 @@ class WriteConfig:
 
 @dataclass
 class EncodingConfig:
-    """Encoded-lane SST sidecars (format v2). The port writes format-v1
-    SSTs only, so `enabled` must stay False; the codec knobs wait for the
-    decode slice."""
+    """Encoded-lane SST sidecars (storage/encoding.py): the
+    compressed-domain scan's write side.
+
+    When enabled, every SST write also emits a `{id}.enc` sidecar holding
+    per-lane columnar encodings (dict/rle/dod/xor) with per-page zone
+    maps, and the SST is registered as format v2; readers evaluate
+    predicates on the encoded form and decode the kept pages through
+    ops/decode.py. Disabled tables write plain v1 SSTs. Per-lane codec
+    choice is by measured encoded size, never configured."""
 
     enabled: bool = False
+    # rows per encoded page (zone-map/pruning granule, shared across lanes)
+    page_rows: int = 4096
+    # dictionary-encoding cardinality ceiling per lane
+    max_dict: int = 4096
+    # SSTs below this row count skip the sidecar (the fixed header/page
+    # overhead outweighs any decode win on tiny registration batches)
+    min_rows: int = 256
+    # explicit lane allowlist; None encodes every eligible numeric lane
+    lanes: "list[str] | None" = None
+    # reader-side decoded-sidecar cache budget (LRU by resident bytes);
+    # 0 disables caching
+    sidecar_cache: ReadableSize = field(default_factory=lambda: ReadableSize.mb(32))
 
 
 @dataclass

@@ -3,7 +3,14 @@
 A port of the JAX package's `storage/read.py`:
 
   1. host: row-group-pruned parquet reads per SST (`ParquetReader.read_sst`),
-     fanned out over worker threads;
+     fanned out over worker threads. A format-v2 SST is read from its
+     `.enc` sidecar instead (`_read_encoded`): pages pruned on their zone
+     maps, the predicate evaluated on the encoded form (run skipping on
+     rle lanes, a dictionary rewrite on dict lanes), and the kept pages of
+     each lane decoded through the calibrated dispatcher
+     (`ops/decode.py::choose`): on the device by the four decode kernels,
+     or by the host funnel. `HORAEDB_DECODE_IMPL=raw` reads the parquet
+     object instead;
   2. merge: `_plan_and_merge` routes each segment's merge to the host
      (numpy: filter, stable sort, keep-last) or to the device, where one of
      three hand-written kernels returns only the survivors' row indices:
@@ -34,8 +41,10 @@ per UpdateMode; the filter runs BEFORE dedup, so a newest-version row
 rejected by the predicate exposes the older surviving version.
 
 Not ported yet, and refused with `NotPortedError` instead of running
-something else: binary primary keys, encoded (format v2) SSTs, the sharded
-multi-GPU merge, and device merges over non-integer sort keys.
+something else: binary primary keys, the sharded multi-GPU merge, and
+device merges over non-integer sort keys. Bloom-filter sidecars, the
+block and file-handle caches, and retention and tombstone masking of the
+JAX package's reader are not here either.
 """
 
 from __future__ import annotations
@@ -44,8 +53,10 @@ import asyncio
 import io
 import logging
 import os
+import struct
 import threading
 import time
+from collections import OrderedDict
 
 import numpy as np
 import pyarrow as pa
@@ -56,12 +67,15 @@ from horaedb_tpu_torch.backend import device_lane, host_lane, order_key, to_devi
 from horaedb_tpu_torch.common.error import HoraeError, NotPortedError
 from horaedb_tpu_torch.objstore import NotFound, ObjectStore
 from horaedb_tpu_torch.ops import aggregate as agg_ops
+from horaedb_tpu_torch.ops import decode as decode_ops
 from horaedb_tpu_torch.ops import filter as filter_ops
 from horaedb_tpu_torch.ops import merge as merge_ops
 from horaedb_tpu_torch.ops import scan as scan_ops
+from horaedb_tpu_torch.ops._build import KernelError
 from horaedb_tpu_torch.ops.blocks import PACK_SENTINEL, arrow_column_to_numpy, numpy_dtype
 from horaedb_tpu_torch.ops.filter import Predicate
 from horaedb_tpu_torch.ops.sort import num_digits
+from horaedb_tpu_torch.storage import encoding as enc_mod
 from horaedb_tpu_torch.storage.config import UpdateMode
 from horaedb_tpu_torch.storage.sst import SstFile, SstPathGenerator
 from horaedb_tpu_torch.storage.types import (
@@ -523,28 +537,63 @@ def _order_tables_by_first_key(tables: list, sort_keys) -> list:
 # ---------------------------------------------------------------------------
 
 
+# what a malformed sidecar raises: decode_blob's checks and its JSON
+# header (a missing or mistyped field), and page metadata that does not add
+# up (short payloads, dict ids past the dictionary, dictionary values
+# outside the lane's dtype). Only these let a read fall back to the parquet
+# object; a kernel that fails to build or launch (KernelError) and any CUDA
+# error propagate.
+_MALFORMED_SIDECAR = (HoraeError, ValueError, struct.error, KeyError, TypeError, IndexError,
+                      OverflowError)
+
+
 class ParquetReader:
-    """Per-SST parquet access and the per-segment scans. Merges run on
-    `device` (the plain versions when it is the CPU)."""
+    """Per-SST parquet and sidecar access and the per-segment scans.
+    Merges and decodes run on `device` (the plain versions when it is the
+    CPU). `sst_reads` counts SST reads by the branch they took (`encoded`
+    or `parquet`)."""
 
     def __init__(self, store: ObjectStore, sst_path_gen: SstPathGenerator,
                  schema: StorageSchema, device: torch.device,
-                 scan_block_rows: int = 32 * 1024 * 1024):
+                 scan_block_rows: int = 32 * 1024 * 1024,
+                 enc_cache_bytes: int = 32 * 1024 * 1024):
         self._store = store
         self._path_gen = sst_path_gen
         self._schema = schema
         self._device = device
         self._scan_block_rows = scan_block_rows
+        # decoded `.enc` sidecars, LRU by resident bytes, and the fetches in
+        # flight (single-flight: concurrent reads of one SST share a fetch)
+        self._enc_lock = threading.Lock()
+        self._enc_cache: OrderedDict[int, tuple] = OrderedDict()
+        self._enc_inflight: dict[int, tuple] = {}
+        self._enc_cache_bytes = 0
+        self._enc_cache_cap = enc_cache_bytes
+        self.sst_reads = {"encoded": 0, "parquet": 0}
 
     async def read_sst(self, sst: SstFile, columns: list[str] | None,
                        predicate: Predicate | None) -> pa.Table:
-        """One SST's projected columns, skipping row groups whose min/max
-        statistics cannot satisfy the predicate. Parquet decode runs in a
-        worker thread."""
-        if sst.meta.format_version >= 2:
-            raise NotPortedError(
-                f"not ported yet: encoded SST {sst.id} (format v{sst.meta.format_version}, "
-                "the decode slice)")
+        """One SST's projected columns. A format-v2 SST is served from its
+        encoded sidecar where the sidecar covers the columns (a missing or
+        malformed sidecar reads the parquet object, which stays
+        authoritative); otherwise row groups whose min/max statistics
+        cannot satisfy the predicate are skipped. Decode runs in a worker
+        thread."""
+        if sst.meta.format_version >= 2 and decode_ops.scan_mode() != "raw":
+            enc = await self._enc_sidecar(sst)
+            if enc is not None:
+                try:
+                    table = await asyncio.to_thread(self._read_encoded, enc, columns, predicate)
+                except KernelError:
+                    raise
+                except _MALFORMED_SIDECAR:
+                    logger.warning("encoded read failed for sst %d; reading parquet", sst.id,
+                                   exc_info=True)
+                    table = None
+                if table is not None:
+                    self.sst_reads["encoded"] += 1
+                    return table
+        self.sst_reads["parquet"] += 1
         path = self._path_gen.generate(sst.id)
         local = self._store.local_path(path)
         if local is not None:
@@ -563,6 +612,130 @@ class ParquetReader:
                 return _read_pruned(pf, columns, predicate)
 
         return await asyncio.to_thread(_read_bytes)
+
+    async def _enc_sidecar(self, sst: SstFile) -> "enc_mod.EncodedSst | None":
+        """The cached decoded `.enc` sidecar of a format-v2 SST, or None
+        (absent or corrupt: the parquet path covers it)."""
+        loop = asyncio.get_running_loop()
+        fut = None
+        while True:
+            with self._enc_lock:
+                hit = self._enc_cache.get(sst.id)
+                if hit is not None:
+                    self._enc_cache.move_to_end(sst.id)
+                    return hit[0]
+                flight = self._enc_inflight.get(sst.id)
+                if flight is None:
+                    fut = loop.create_future()
+                    self._enc_inflight[sst.id] = (loop, fut)
+                    break
+            f_loop, f_fut = flight
+            if f_loop is not loop:
+                break  # a caller on another loop: duplicate the fetch for this read
+            # single-flight: the leader resolves the future with its verdict
+            # (None on a transient failure: this read falls back to parquet)
+            return await f_fut
+        enc, cacheable = None, False
+        try:
+            enc, cacheable = await self._fetch_enc_sidecar(sst)
+        finally:
+            if fut is not None:
+                if cacheable:
+                    self._enc_cache_put(sst.id, enc)
+                with self._enc_lock:
+                    entry = self._enc_inflight.get(sst.id)
+                    if entry is not None and entry[1] is fut:
+                        del self._enc_inflight[sst.id]
+                if not fut.done():
+                    fut.set_result(enc)
+        if fut is None and cacheable:
+            self._enc_cache_put(sst.id, enc)
+        return enc
+
+    def _enc_cache_put(self, sst_id: int, enc) -> None:
+        if self._enc_cache_cap <= 0:
+            return
+        nbytes = 64 if enc is None else enc.footprint_bytes() + 64
+        with self._enc_lock:
+            if sst_id not in self._enc_cache:
+                self._enc_cache[sst_id] = (enc, nbytes)
+                self._enc_cache_bytes += nbytes
+                while self._enc_cache_bytes > self._enc_cache_cap and self._enc_cache:
+                    _, (_, nb) = self._enc_cache.popitem(last=False)
+                    self._enc_cache_bytes -= nb
+
+    async def _fetch_enc_sidecar(self, sst: SstFile):
+        """One store fetch and decode of an SST's `.enc` object: (sidecar or
+        None, cacheable). A transient store failure is not cacheable (the
+        SST is immutable; a cached None would send it to parquet for the
+        entry's lifetime); NotFound and corrupt bytes are deterministic
+        verdicts and are."""
+        try:
+            data = await self._store.get(self._path_gen.generate_enc(sst.id))
+        except NotFound:
+            return None, True
+        except Exception:  # noqa: BLE001 - a transient store failure
+            logger.warning("enc sidecar fetch failed for sst %d (transient; reading parquet)",
+                           sst.id)
+            return None, False
+        try:
+            enc = enc_mod.decode_blob(data)
+            if enc.num_rows != sst.meta.num_rows:
+                raise HoraeError(f"enc sidecar rows {enc.num_rows} != sst {sst.meta.num_rows}")
+        except _MALFORMED_SIDECAR:
+            logger.warning("unreadable enc sidecar for sst %d", sst.id)
+            enc = None
+        return enc, True
+
+    def _read_encoded(self, enc: "enc_mod.EncodedSst", columns: list[str] | None,
+                      predicate: Predicate | None) -> pa.Table | None:
+        """One SST read served from its encoded sidecar: per-page zone
+        pruning, the predicate on the encoded form, then the decode of the
+        kept pages of each lane through the dispatcher's impl on this
+        reader's device. None when the sidecar does not cover the columns
+        (the caller reads parquet). The predicate filters rows here, before
+        the merge, which drops only rows the merge's filter would drop."""
+        schema = self._schema.arrow_schema
+        names = [f.name for f in schema if columns is None or f.name in columns]
+        if any(n not in enc.lanes for n in names):
+            return None
+        fields = [schema.field(n) for n in names]
+        out_schema = pa.schema(fields)
+        keep_pages, _ = enc_mod.prune_pages(enc, predicate)
+        if not keep_pages:
+            return out_schema.empty_table()
+
+        def lane_decode(n: str) -> np.ndarray:
+            lane = enc.lanes[n]
+            rows = sum(lane.pages[p].rows for p in keep_pages)
+            impl = decode_ops.choose(lane.codec, rows, self._device)
+            return enc_mod.decode_lane(lane, keep_pages, impl=impl, device=self._device)
+
+        decoded: dict[str, np.ndarray] = {}
+        mask = None
+        if predicate is not None:
+            mask = enc_mod.encoded_mask(enc, predicate, keep_pages, None, decoded,
+                                        decode=lane_decode)
+            if mask is not None and bool(mask.all()):
+                mask = None  # nothing rejected: skip the take
+        sel = np.nonzero(mask)[0] if mask is not None else None
+        if sel is not None and len(sel) == 0:
+            return out_schema.empty_table()
+        arrays = []
+        for n, f in zip(names, fields):
+            lane = enc.lanes[n]
+            if lane.codec == "null":
+                count = len(sel) if sel is not None else sum(
+                    lane.pages[p].rows for p in keep_pages)
+                arrays.append(pa.nulls(count, f.type))
+                continue
+            arr = decoded.get(n)
+            if arr is None:
+                arr = lane_decode(n)
+            if sel is not None:
+                arr = arr[sel]
+            arrays.append(_np_to_arrow(arr, f.type))
+        return pa.Table.from_arrays(arrays, schema=out_schema)
 
     async def _read_tables(self, ssts: list[SstFile], read_names: list[str],
                            predicate: Predicate | None) -> list[pa.Table]:

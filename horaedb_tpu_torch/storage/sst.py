@@ -5,7 +5,8 @@ A copy of the JAX package's `storage/sst.py`; the invariants are the same:
   nanosecond wall clock, and an id doubles as the write sequence used for
   dedup, so a later write always carries the higher sequence;
 - `ensure_id_above` moves the counter past ids loaded from a store;
-- the data path layout is `{prefix}/data/{id}.sst`.
+- the data path layout is `{prefix}/data/{id}.sst`, and a format-v2 SST's
+  encoded-lane sidecar is `{prefix}/data/{id}.enc`.
 The compaction marks and TTL helpers wait for the compaction slice.
 """
 
@@ -58,8 +59,8 @@ def ensure_id_above(floor: int) -> None:
 @dataclass(frozen=True)
 class FileMeta:
     """SST metadata carried in the manifest. `format_version` 2 marks an
-    SST with an encoded-lane sidecar, which the port does not read yet;
-    `encodings` names each lane's codec there."""
+    SST with an encoded-lane sidecar; `encodings` names each lane's codec
+    there."""
 
     max_sequence: int
     num_rows: int
@@ -112,9 +113,15 @@ class SstFile:
 
 @dataclass(frozen=True)
 class SstPathGenerator:
-    """`{prefix}/data/{id}.sst`."""
+    """`{prefix}/data/{id}.sst` and its sidecars."""
 
     prefix: str
 
     def generate(self, file_id: int) -> str:
         return f"{self.prefix}/{PREFIX_PATH}/{file_id}.sst"
+
+    def generate_enc(self, file_id: int) -> str:
+        """Encoded-lane sidecar of a format-v2 SST (storage/encoding.py):
+        per-lane columnar encodings + zone maps the compressed-domain scan
+        reads instead of the parquet columns."""
+        return f"{self.prefix}/{PREFIX_PATH}/{file_id}.enc"

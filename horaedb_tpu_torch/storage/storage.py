@@ -6,19 +6,24 @@ the same object layout, so either package opens a root the other wrote:
     {root}/manifest/snapshot          binary snapshot (manifest/encoding.py)
     {root}/manifest/delta/{id}        protobuf deltas
     {root}/data/{id}.sst              sorted parquet SSTs
+    {root}/data/{id}.enc              encoded-lane sidecar of a format-v2 SST
 
 - write: the segment check, the primary-key sort (kernel A on the card,
   run in a worker thread, skipped when the batch is already sorted), the
   builtin columns, a parquet encode off the event loop (streamed to the
-  store for large tables), then the manifest delta commits the SST;
+  store for large tables), with encoding enabled the `.enc` sidecar
+  (storage/encoding.py) after the SST object lands, then the manifest
+  delta commits the SST (format v2 with its lane codecs when the sidecar
+  was written);
 - scan: per-segment scans (storage/read.py), segments old -> new, with the
   next segment's read overlapping the consumer.
 
-Not ported yet: the compaction scheduler, bloom-filter and encoded-lane
-sidecars (asking for any of them is refused when storage opens instead of
-quietly doing nothing), the epoch fence, read-only replica views,
-retention masking and the CPU executors of the JAX package's `try_new`
-(those parameters do not exist here).
+Not ported yet: the compaction scheduler and bloom-filter sidecars
+(asking for either is refused when storage opens instead of quietly doing
+nothing), the epoch fence, read-only replica views, retention masking and
+tombstone deletes (which `time_column` enables in the JAX package), and
+the CPU executors of the JAX package's `try_new` (those parameters do not
+exist here).
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from horaedb_tpu_torch.common.error import HoraeError, NotPortedError, context, 
 from horaedb_tpu_torch.objstore import NotFound, ObjectStore
 from horaedb_tpu_torch.ops import sort as sort_ops
 from horaedb_tpu_torch.ops.blocks import arrow_column_to_numpy
+from horaedb_tpu_torch.storage import encoding as enc_mod
 from horaedb_tpu_torch.storage.config import StorageConfig
 from horaedb_tpu_torch.storage.manifest import Manifest
 from horaedb_tpu_torch.storage.read import ParquetReader, _is_binary_like
@@ -88,8 +94,6 @@ def _refuse_unported(config: StorageConfig, enable_compaction_scheduler: bool) -
     if write.enable_bloom_filter or any(
             getattr(o, "enable_bloom_filter", None) for o in (write.column_options or {}).values()):
         asked.append("bloom-filter sidecars")
-    if config.encoding.enabled:
-        asked.append("encoded-lane sidecars (format v2 SSTs)")
     if asked:
         raise NotPortedError("not ported yet: " + "; ".join(asked))
 
@@ -112,15 +116,27 @@ class ObjectBasedStorage:
         enable_compaction_scheduler: bool = True,
         start_background_merger: bool = True,
         device=DEFAULT_DEVICE,
+        time_column: str | None = None,
     ) -> "ObjectBasedStorage":
-        """Open (or create) the table at `root` in `store`; merges and the
-        write sort run on `device` ("cuda" by default, which raises where
-        there is no card; "cpu" runs the kernels' plain versions). Opening
-        folds leftover manifest deltas and reclaims orphan SST objects."""
+        """Open (or create) the table at `root` in `store`; merges, the
+        write sort and the decode kernels run on `device` ("cuda" by
+        default, which raises where there is no card; "cpu" runs the
+        kernels' plain versions). Opening folds leftover manifest deltas
+        and reclaims orphan SST objects.
+
+        `time_column`: the schema column holding the row's timestamp. The
+        encoder keeps `dict` off that lane (a time-ordered lane of a few
+        distinct values would otherwise encode as dict, not dod)."""
         config = config or StorageConfig()
         _refuse_unported(config, enable_compaction_scheduler)
+        if time_column is not None:
+            ensure(time_column in arrow_schema.names, f"time_column {time_column!r} not in schema")
         self = object.__new__(cls)
         self._device = resolve_device(device)
+        self._time_column = time_column
+        # file_id -> (format_version, encodings) of a just-written SST,
+        # consumed by the FileMeta of its write
+        self._pending_enc: dict[int, tuple] = {}
         self._root = root.strip("/")
         self._store = store
         self._config = config
@@ -137,7 +153,8 @@ class ObjectBasedStorage:
         self._path_gen = SstPathGenerator(self._root)
         await self._gc_orphan_ssts()
         self._reader = ParquetReader(store, self._path_gen, self._schema, self._device,
-                                     scan_block_rows=config.scan_block_rows)
+                                     scan_block_rows=config.scan_block_rows,
+                                     enc_cache_bytes=config.encoding.sidecar_cache.as_bytes())
         return self
 
     async def close(self) -> None:
@@ -207,8 +224,10 @@ class ObjectBasedStorage:
                    f"time range of one write must fall in one segment, "
                    f"range: [{req.time_range.start}, {req.time_range.end})")
         result = await self.write_batch(req.batch)
+        fmt, encodings = self.pop_enc_meta(result.id)
         meta = FileMeta(max_sequence=result.seq, num_rows=req.batch.num_rows,
-                        size=result.size, time_range=req.time_range)
+                        size=result.size, time_range=req.time_range,
+                        format_version=fmt, encodings=encodings)
         await self._manifest.add_file(result.id, meta)
 
     async def write_batch(self, batch: pa.RecordBatch) -> WriteResult:
@@ -285,7 +304,8 @@ class ObjectBasedStorage:
         in the store; returns the object's size. Small tables encode in one
         worker-thread call and one put; large ones stream: a producer thread
         encodes into bounded chunks that the store writes as they come, so
-        host memory stays O(row group + chunk)."""
+        host memory stays O(row group + chunk). With encoding enabled, the
+        `.enc` sidecar follows the SST object on both routes."""
         path = self._path_gen.generate(file_id)
         max_rg = self._config.write.max_row_group_size
         # the manifest carries num_rows and size as u32
@@ -302,8 +322,45 @@ class ObjectBasedStorage:
             ensure(len(blob) < 2**32, f"sst too large for manifest format: {len(blob)}")
             with context(f"write sst {path}"):
                 await self._store.put(path, blob)
+            await self._write_enc_sidecar(file_id, path, table)
             return len(blob)
-        return await self._write_sst_streamed(path, table, kwargs, max_rg)
+        size = await self._write_sst_streamed(path, table, kwargs, max_rg)
+        await self._write_enc_sidecar(file_id, path, table)
+        return size
+
+    def pop_enc_meta(self, file_id: int) -> tuple[int, tuple]:
+        """(format_version, encodings) of a just-written SST, consumed once
+        by the FileMeta of its write."""
+        return self._pending_enc.pop(file_id, (enc_mod.SST_FORMAT_V1, ()))
+
+    async def _write_enc_sidecar(self, file_id: int, path: str, table: pa.Table) -> None:
+        """The encoded-lane sidecar, after the SST object lands and before
+        the manifest can reference it: a registered v2 SST always has its
+        sidecar. The encode and the blob run off the event loop. A failed
+        encode or put reclaims the SST object (best effort) and raises;
+        the pending entry is recorded last, so a failed write never
+        strands one."""
+        cfg = self._config.encoding
+        if not cfg.enabled or table.num_rows < cfg.min_rows:
+            return
+
+        def _encode_and_pack():
+            e = enc_mod.encode_table(table, cfg.page_rows, cfg.max_dict, self._time_column,
+                                     cfg.lanes)
+            return (e, enc_mod.encode_blob(e)) if e is not None else (None, None)
+
+        try:
+            enc, blob = await asyncio.to_thread(_encode_and_pack)
+            if enc is None:
+                return
+            await self._store.put(self._path_gen.generate_enc(file_id), blob)
+        except BaseException:
+            try:
+                await self._store.delete(path)
+            except Exception:  # noqa: BLE001 - orphan cleanup is best-effort
+                logger.warning("orphaned sst object %s after enc sidecar failure", path)
+            raise
+        self._pending_enc[file_id] = (enc_mod.SST_FORMAT_V2, enc.descriptor())
 
     async def _write_sst_streamed(self, path: str, table: pa.Table, kwargs: dict,
                                   max_rg: int) -> int:

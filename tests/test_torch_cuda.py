@@ -62,6 +62,25 @@ def test_segment_kernels_match_plain(dev, n, cells):
         assert bool(((a == b) | (a.isnan() & b.isnan())).all())
 
 
+def test_downsample_sorted_excluded_series_match_the_host(dev):
+    """Rows of series outside the query keep the clipped index of a
+    neighbour (the scan's dense series map), so their cell ids repeat a kept
+    series' cells; the grids must still equal the plain versions'."""
+    rng = np.random.default_rng(6)
+    per = 360
+    # hosts A (kept, 0), B (excluded, shares 1), C (kept, 1), D and E (excluded, past the end)
+    sid = np.repeat(np.array([0, 1, 1, 1, 1], np.int32), per)
+    valid = np.repeat(np.array([True, False, True, False, False]), per)
+    ts = np.tile(np.arange(per) * 10_000, 5).astype(np.int64)
+    v = rng.uniform(0, 100, len(ts))
+    got = downsample_sorted(ts, sid, v, 0, 300_000, 2, 12, valid=valid, device=dev)
+    want = downsample_sorted(ts, sid, v, 0, 300_000, 2, 12, valid=valid, device="cpu")
+    for key in ("count", "min", "max"):
+        assert torch.equal(got[key].cpu(), want[key])
+    assert torch.equal(got["count"].cpu(), torch.full((2, 12), 30.0, dtype=torch.float64))
+    torch.testing.assert_close(got["sum"].cpu(), want["sum"], rtol=1e-12, atol=0.0)
+
+
 def test_downsample_is_bitwise_repeatable(dev):
     rng = np.random.default_rng(5)
     sid = np.repeat(np.arange(300), 700).astype(np.int32)
@@ -263,3 +282,67 @@ def test_scan_kernel_matches_plain(dev, n, how, presorted, dedup):
             a, b = a.view(torch.int64), b.view(torch.int64)  # NaN payloads, -0.0
         assert torch.equal(a, b), name
     assert torch.equal(got[2].cpu(), want[2].cpu()) and torch.equal(got[3].cpu(), want[3].cpu())
+
+
+def _decode_lanes():
+    """(codec, array, page_rows, extra encoder args): every kernel at widths
+    0, 1, 17, 31/32, a width-33 page among device pages, pages of 1-3 rows
+    and more than a block, wraps mod 2^64, NaN payloads, u64 >= 2^63, i4/u4."""
+    rng = np.random.default_rng(21)
+    i64 = np.iinfo(np.int64)
+    w32 = np.zeros(3000, np.int64)
+    w32[2::3] = -(2**31)
+    w33 = np.zeros(3000, np.int64)
+    w33[1500] = 2**31
+    nan_low = (np.uint64(0x7FF8_0000_0000_0000) | rng.integers(
+        0, 1 << 31, 9000, dtype=np.uint64)).view(np.float64)
+    f32 = rng.normal(size=9000).astype(np.float32)
+    f32[:4] = [np.nan, -0.0, np.inf, -np.inf]
+    return [
+        ("dod", 1_700_000_000_000 + np.arange(9003) * 10_000 + rng.integers(-5, 6, 9003), 4096,
+         ()),
+        ("dod", w32, 1000, ()),
+        ("dod", w33, 1000, ()),
+        ("dod", np.arange(25_000, dtype=np.int64) * 7 + np.arange(25_000) % 5, 10_000, ()),
+        ("dod", np.asarray([i64.max - 1, i64.max, i64.min, i64.min + 1, 0, 2**62, i64.min],
+                           np.int64), 4096, ()),
+        ("xor", nan_low, 4096, ()),
+        ("xor", np.ones(9001), 4096, ()),
+        ("xor", f32, 4096, ()),
+        ("dict", rng.integers(0, 2, 9000).astype(np.int64), 4096, (4096,)),
+        ("dict", rng.permutation(1 << 17).astype(np.int64), 4096, (1 << 17,)),
+        ("dict", np.uint64(2**63) + rng.integers(0, 7, 9000).astype(np.uint64), 4096, (4096,)),
+        ("dict", rng.integers(-3, 3, 9000).astype(np.int32), 4096, (4096,)),
+        ("rle", np.repeat(np.uint64(2**64 - 1) - np.arange(900, dtype=np.uint64), 11), 4096, ()),
+        ("rle", rng.integers(-9, 9, 9000).astype(np.int64), 4096, ()),
+        ("rle", np.repeat(np.arange(300, dtype=np.uint32) + np.uint32(2**31), 30), 4096, ()),
+    ]
+
+
+@pytest.mark.parametrize("case", range(15))
+def test_decode_kernels_match_plain(dev, case):
+    from horaedb_tpu_torch.ops import decode
+    from horaedb_tpu_torch.storage import encoding as enc
+
+    codec, arr, page_rows, extra = _decode_lanes()[case]
+    lane = getattr(enc, f"_encode_{codec}")(arr, page_rows, *extra)
+    lane.name = "x"
+    dt = np.dtype(lane.dtype)
+    pages = [p for p in lane.pages if decode.in_envelope(codec, dt, p, lane.dict_values)]
+    s = decode.stage_pages(codec, dt, lane.payload, pages, lane.dict_values, dev)
+    itemsize = dt.itemsize
+    if codec == "dict":
+        got, bad = decode.decode_unpack(s.words, s.table, s.dict_bits, s.rows)
+        want, pbad = decode.decode_unpack_plain(s.words, s.table, s.dict_bits, s.rows)
+        assert int(bad.item()) == int(pbad.item()) == 0
+    elif codec == "rle":
+        got = decode.decode_rle(s.words, s.table, s.cum, s.rows, itemsize)
+        want = decode.decode_rle_plain(s.words, s.table, s.cum, s.rows, itemsize)
+    else:
+        kern = getattr(decode, f"decode_{codec}")
+        got = kern(s.words, s.table, s.rows, itemsize)
+        want = getattr(decode, f"decode_{codec}_plain")(s.words, s.table, s.rows, itemsize)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+    out = enc.decode_lane(lane, impl="device", device=dev)
+    assert out.dtype == arr.dtype and np.array_equal(out.view(np.uint8), arr.view(np.uint8))

@@ -87,6 +87,7 @@ def _entry_points():
 
     from horaedb_tpu_torch.objstore import MemStore
     from horaedb_tpu_torch.ops.aggregate import downsample_sorted
+    from horaedb_tpu_torch.ops.decode import decode_page_device
     from horaedb_tpu_torch.ops.sort import sort_permutation
     from horaedb_tpu_torch.storage import ObjectBasedStorage
     from horaedb_tpu_torch.storage.carry import open_local_root
@@ -102,18 +103,19 @@ def _entry_points():
         "sort_permutation": lambda: sort_permutation([np.arange(4, dtype=np.uint64)]),
         "downsample_sorted": lambda: downsample_sorted(z, z.astype(np.int32), z * 1.0, 0, 10,
                                                        num_series=1, num_buckets=1),
+        "decode_page_device": lambda: decode_page_device("dod", "<i8", b"", 2, 0, 5, 1, None),
     }
 
 
 @pytest.mark.parametrize("name", ["try_new", "open_local_root", "sort_permutation",
-                                  "downsample_sorted"])
+                                  "downsample_sorted", "decode_page_device"])
 def test_entry_point_without_device_raises_on_cpu_box(no_card, name):
     with pytest.raises(HoraeError, match="no CUDA device"):
         _entry_points()[name]()
 
 
 def test_plain_versions_do_not_count_launches():
-    from horaedb_tpu_torch.ops import aggregate, merge, scan
+    from horaedb_tpu_torch.ops import aggregate, decode, merge, scan
     from horaedb_tpu_torch.ops import filter as F
     from horaedb_tpu_torch.ops.blockagg import sorted_segment_min_max, sorted_segment_sum_count
     from horaedb_tpu_torch.ops.sort import sort_permutation
@@ -132,11 +134,18 @@ def test_plain_versions_do_not_count_launches():
     scan.scan_kernel({"k": key}, [key], [(1, 5)], 1, prog, 3, True, False, "cpu")
     aggregate.grouped_stats(v, k, None, 2)
     aggregate.downsample(key, k, v, None, 0, 2, 1, 4)
+    words = torch.tensor([0x55, 0], dtype=torch.int32)
+    table = torch.tensor([[0, 3, 0, 1, 0, 0]], dtype=torch.int64)
+    decode.decode_unpack(words, table, torch.tensor([7, 9]), 3)
+    decode.decode_dod(words, table, 3, 8)
+    decode.decode_xor(words, table, 3, 4)
+    decode.decode_rle(words, torch.tensor([[0, 3, 0, 0, 1, 0]]), torch.tensor([3]), 3, 4)
     assert launch_counts() == before
     assert set(before) == set(KERNELS) == {"sort_perm", "block_sum_count", "block_min_max",
                                            "packed_merge", "index_merge_mask",
                                            "index_merge_filter", "scan_kernel", "downsample",
-                                           "grouped_stats"}
+                                           "grouped_stats", "decode_unpack", "decode_dod",
+                                           "decode_xor", "decode_rle"}
 
 
 @pytest.mark.parametrize("text", ["0", "1500", "2h", "1d2h3m4s5ms", "1.5h", "90s", "250ms"])

@@ -497,6 +497,8 @@ def test_root_with_tombstones_is_refused():
 
 @pytest.mark.parametrize("ask", ["scheduler", "bloom", "column_bloom", "encoding"])
 def test_unported_options_are_refused(ask):
+    """The scheduler and bloom sidecars stay refused; encoding is ported:
+    the table opens and a write lands an `.enc` sidecar beside its SST."""
     kw = {"enable_compaction_scheduler": ask == "scheduler", "start_background_merger": False,
           "device": "cpu"}
     cfg = tstorage.StorageConfig()
@@ -508,12 +510,32 @@ def test_unported_options_are_refused(ask):
         cfg.write.column_options = {"pk1": ColumnOptions(enable_bloom_filter=True)}
     elif ask == "encoding":
         cfg.encoding.enabled = True
+        cfg.encoding.min_rows = 1
+
+        async def run():
+            store = tobjstore.MemStore()
+            eng = await tstorage.ObjectBasedStorage.try_new(
+                "db", store, SCHEMA, 2, SEGMENT_MS, config=cfg, **kw)
+            await write(PORT, eng, batch([1, 2], [0, 0], [10, 10], [1.0, 2.0]), 10, 11)
+            sst = eng.manifest.all_ssts()[0]
+            await eng.close()
+            return sst, sorted(m.path for m in await store.list("db/data"))
+
+        sst, paths = asyncio.run(run())
+        assert sst.meta.format_version == 2
+        assert [lane for lane, _codec in sst.meta.encodings] == SCHEMA.names + [
+            "__seq__", "__reserved__"]
+        assert paths == [f"db/data/{sst.id}.enc", f"db/data/{sst.id}.sst"]
+        return
     with pytest.raises(NotPortedError, match="not ported yet"):
         asyncio.run(tstorage.ObjectBasedStorage.try_new(
             "db", tobjstore.MemStore(), SCHEMA, 2, SEGMENT_MS, config=cfg, **kw))
 
 
 def test_encoded_sst_and_sharded_route_are_refused(monkeypatch):
+    """A format-v2 SST whose `.enc` object is missing reads through parquet,
+    equal to its v1 read (the parquet object is authoritative, as in the
+    JAX package); the sharded route and a bad route name stay refused."""
     async def run():
         eng = await open_engine(PORT, tobjstore.MemStore())
         await write(PORT, eng, batch([1, 2], [0, 0], [10, 10], [1.0, 2.0]), 10, 11)
@@ -521,8 +543,9 @@ def test_encoded_sst_and_sharded_route_are_refused(monkeypatch):
         v2 = tstorage.SstFile(sst.id, tstorage.FileMeta(
             sst.meta.max_sequence, sst.meta.num_rows, sst.meta.size, sst.meta.time_range,
             format_version=2))
-        with pytest.raises(NotPortedError, match="encoded SST"):
-            await eng.parquet_reader.read_sst(v2, None, None)
+        v1_read = await eng.parquet_reader.read_sst(sst, None, None)
+        assert (await eng.parquet_reader.read_sst(v2, None, None)).equals(v1_read)
+        assert eng.parquet_reader.sst_reads == {"encoded": 0, "parquet": 2}
         monkeypatch.setenv("HORAEDB_SCAN_PATH", "sharded")
         with pytest.raises(NotPortedError, match="sharded"):
             await collect(PORT, eng)
