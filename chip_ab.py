@@ -1,0 +1,177 @@
+#!/usr/bin/env python3
+"""A/B timings on one GPU, at the shapes of chip_smoke.py.
+
+    python3 chip_ab.py reduce [--root DIR] [--seed N]
+    python3 chip_ab.py id-cache [--seed N]
+
+`reduce` builds and times, with chip_smoke's CUDA-event timer, the kernels
+that share `horaedb_tpu_torch/ops/csrc/segreduce.cuh`:
+- block_sum_count (kernel B) and block_min_max (kernel C) at phase 4's
+  shape (chip_smoke.main_path_segment_inputs) and at phase 2's few cells
+  of many rows (chip_smoke.long_run_inputs);
+- grouped_stats at that long-run shape, and grouped_stats and downsample
+  at the fused query's shape of phase 3e (FUSED_SERIES series x
+  FUSED_WINDOW_MS / FUSED_BUCKET_MS buckets, the rows of the window and
+  its re-send in (series, ts) order).
+`--root DIR` imports `horaedb_tpu_torch` from DIR (another checkout, such
+as a `git archive` of a parent commit unpacked where .gitignore lists it)
+and builds its kernels there; the shapes and the timer always come from
+the chip_smoke.py beside this script. Run the trees in one call, in the
+order parent, change, change, parent.
+
+`id-cache` writes TSBS cpu-only payloads (phase 3i's hosts and payloads,
+10,000 hosts x 10 fields x 3 scrapes) through `MetricEngine.write_payload`
+on the card: the first payload registers the series, then blocks of three
+payloads with the engine's id cache on, off, off and on (off: a mapping
+that never hits, so every payload runs the registration probes of the
+JAX engine's slow path). Each payload carries new timestamps.
+
+Each mode prints the card's name and power limit, then one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def load_smoke():
+    """chip_smoke.py beside this script, whatever --root puts first."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def reduce_times(torch, cs, rng, dev) -> dict:
+    from horaedb_tpu_torch.ops import _build, aggregate, blockagg
+
+    _build.build_all(("block_sum_count", "block_min_max", "grouped_stats", "downsample"))
+    out = {}
+    for name, (k, v, cells) in (("main", cs.main_path_segment_inputs(rng)),
+                                ("long_runs", cs.long_run_inputs(rng))):
+        kt, vt = torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev)
+        ok = torch.ones_like(vt, dtype=torch.bool)
+        out[f"{name}_shape"] = f"{len(k)} rows, {cells} cells"
+        out[f"{name}_block_sum_count_ms"] = cs.cuda_ms(
+            torch, lambda: blockagg.sorted_segment_sum_count(kt, vt, cells))
+        out[f"{name}_block_min_max_ms"] = cs.cuda_ms(
+            torch, lambda: blockagg.sorted_segment_min_max(kt, vt, cells, valid=ok))
+        if name == "long_runs":
+            out[f"{name}_grouped_stats_ms"] = cs.cuda_ms(
+                torch, lambda: aggregate.grouped_stats(vt, kt, None, cells))
+        del kt, vt, ok
+
+    series = cs.FUSED_SERIES
+    buckets = cs.FUSED_WINDOW_MS // cs.FUSED_BUCKET_MS
+    per = round(cs.FUSED_WINDOW_MS // cs.INTERVAL_MS * (1 + cs.RESEND_FRACTION))
+    n = series * per
+    sid = torch.arange(series, dtype=torch.int32, device=dev).repeat_interleave(per)
+    ts = torch.arange(per, dtype=torch.int64, device=dev).repeat(series) * (cs.FUSED_WINDOW_MS // per)
+    vals = torch.from_numpy(rng.uniform(0, 100, n)).to(dev)
+    flat = sid * buckets + (ts // cs.FUSED_BUCKET_MS).to(torch.int32)
+    out["fused_shape"] = f"{n} rows, {series} series x {buckets} buckets"
+    out["fused_grouped_stats_ms"] = cs.cuda_ms(
+        torch, lambda: aggregate.grouped_stats(vals, flat, None, series * buckets), iters=5)
+    out["fused_downsample_ms"] = cs.cuda_ms(
+        torch, lambda: aggregate.downsample(ts, sid, vals, None, 0, cs.FUSED_BUCKET_MS, series,
+                                            buckets), iters=5)
+    return out
+
+
+class NeverHit(dict):
+    """An id cache that never hits and keeps nothing."""
+
+    def get(self, key, default=None):
+        return default
+
+    def __setitem__(self, key, value):
+        pass
+
+
+async def id_cache_times(torch, cs, rng, dev) -> dict:
+    from horaedb_tpu_torch.engine import MetricEngine
+    from horaedb_tpu_torch.objstore import LocalStore
+    from horaedb_tpu_torch.serving import ServingTierConfig
+
+    tags, _rack = cs.engine_hosts(rng)
+    writer = cs.PayloadWriter(tags, cs.CPU_FIELDS)
+    values = rng.uniform(0, 100, (len(tags) * len(cs.CPU_FIELDS), cs.ENGINE_PER_PAYLOAD))
+    out = {"series_per_payload": int(values.shape[0]),
+           "samples_per_payload": int(values.size), "on_s": [], "off_s": []}
+    with tempfile.TemporaryDirectory(prefix="chip_ab_") as workdir:
+        eng = await MetricEngine.open("ab", LocalStore(workdir), enable_compaction=False,
+                                      serving=ServingTierConfig(enabled=False), device=dev)
+        cache = eng._ids_by_key
+        p = 0
+
+        async def write(n: int) -> list:
+            nonlocal p
+            secs = []
+            for _ in range(n):
+                ts = cs.T0 + (np.arange(cs.ENGINE_PER_PAYLOAD) + cs.ENGINE_PER_PAYLOAD * p) \
+                    * cs.INTERVAL_MS
+                payload = writer.payload(values, ts)
+                t = time.perf_counter()
+                written = await eng.write_payload(payload)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+                cs.require(written == values.size, f"payload {p}: {written} samples")
+                p += 1
+            return secs
+
+        out["first_s"] = (await write(1))[0]
+        for on in (True, False, False, True):
+            eng._ids_by_key = cache if on else NeverHit()
+            out["on_s" if on else "off_s"] += await write(3)
+        await eng.close()
+    for k in ("on", "off"):
+        out[f"{k}_mean_s"] = float(np.mean(out[f"{k}_s"]))
+        out[f"{k}_samples_per_s"] = values.size / out[f"{k}_mean_s"]
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
+    ap.add_argument("mode", choices=("reduce", "id-cache"))
+    ap.add_argument("--root", default=None, help="import horaedb_tpu_torch from this checkout")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    cs = load_smoke()
+    if args.root is not None:
+        sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device", file=sys.stderr)
+        return 2
+    import horaedb_tpu_torch
+
+    card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+    print(card, flush=True)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(args.seed)
+    if args.mode == "reduce":
+        out = reduce_times(torch, cs, rng, dev)
+    else:
+        out = asyncio.run(id_cache_times(torch, cs, rng, dev))
+    out.update(mode=args.mode, package=os.path.dirname(horaedb_tpu_torch.__file__), card=card)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

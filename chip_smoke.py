@@ -24,7 +24,14 @@ Phases, each of which exits non-zero on failure:
    32, a middle page of width 33 (the host fills it), pages of 1, 2, 3,
    4,096 and 10,000 rows, i64 extremes and wraps mod 2^64, NaN payloads,
    +-0.0 and +-inf in f64 and f32, values >= 2^63, i4/u4 lanes, runs of 1
-   and a run across pages;
+   and a run across pages; and stacked_downsample, bitwise on every grid
+   (sums as u64 views) against its plain version on CPU copies, with
+   B = 1, B = 16 with empty lanes, an all-masked lane, rows before t0 and
+   past the grid, sid out of range, NaN and +-inf, a t0 per lane and runs
+   straddling 8- and 2048-row boundaries, and one query stacked in lane 5
+   of 16 against its solo reduction (downsample_sorted, kernels B and C);
+   and kernels B, C and grouped_stats on 12 cells of 86,400 rows each
+   (runs that segreduce.cuh folds block-wide), checked and timed;
 3. the main paths at TSBS cpu-only scale (10,000 series, one field, 10 s
    interval, 4 h = two 2 h segments = 14.4M samples), stored as parquet
    SSTs and a manifest in a LocalStore under a temporary directory; the
@@ -75,12 +82,30 @@ Phases, each of which exits non-zero on failure:
       window and 120 writes (3.6M rows, the value lane xor at width 0):
       avg_over_time(up[5m]) over all targets under device (decode_xor),
       host and raw, against the oracle;
+   i. the metric engine and the query batcher: TSBS cpu-only --scale=10000
+      with its ten host tags, the ten cpu fields as ten Prometheus metrics
+      (cpu_usage_user ... cpu_usage_guest_nice), 10 s scrapes over 30
+      minutes of one 2 h segment = 18M samples through
+      `MetricEngine.write_payload` in 60 remote-write payloads; burst A, a
+      16-panel dashboard (one rack a panel, racks of 65-128 hosts, 1-minute
+      buckets, one union scan), and burst B, TSBS single-groupby-5-8-1 from
+      three clients (15 queries, hostname=~ matchers), each issued
+      together (asyncio.gather) and answering bitwise equal to the same
+      queries under HORAEDB_BATCH=off and equal to a numpy oracle; at the
+      documented 2 ms batching window (docs/example.toml) burst A must make
+      one stacked_downsample launch that every panel rode, and burst B's
+      launches and solo members are reported; burst B then runs again with
+      a window of twice its matchers' measured resolution time, which
+      must make one launch that every query rode (the matchers resolve in
+      worker threads, so their arrivals spread past 2 ms); a lone query
+      must take the solo route; burst A runs again under torch.profiler;
    every kernel must have launched on one of these paths; queries and a
    scan run under torch.profiler (and cProfile) for where the time goes;
 4. scan_kernel, downsample and grouped_stats against their plain versions
    at the main path's shapes, on the inputs the first fused query of 3e
-   gave them (kept from that run), and the four decode kernels on the
-   largest lane each decoded on the device in 3g/3h, timed.
+   gave them (kept from that run), the four decode kernels on the
+   largest lane each decoded on the device in 3g/3h, and stacked_downsample
+   on burst A's launch inputs, timed.
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result.
@@ -244,6 +269,51 @@ def main_path_segment_inputs(rng):
     k = (sid * num_buckets + bucket).astype(np.int32)
     v = rng.uniform(0, 100, len(k))
     return k, v, NUM_SERIES * num_buckets
+
+
+# few cells of many rows: 1-day buckets over 1 s scrapes hold 86,400 rows a
+# cell; segreduce.cuh folds such runs block-wide in chunks from their heads
+LONG_RUN_CELLS = 12
+LONG_RUN_ROWS = 86_400
+
+
+def long_run_inputs(rng):
+    """Kernel B/C inputs with few cells of many rows: LONG_RUN_CELLS runs of
+    LONG_RUN_ROWS rows sorted by cell id, uniform values."""
+    k = np.repeat(np.arange(LONG_RUN_CELLS, dtype=np.int32), LONG_RUN_ROWS)
+    return k, rng.uniform(0, 100, len(k)), LONG_RUN_CELLS
+
+
+def check_long_runs(torch, rng, dev) -> dict:
+    """Kernels B, C and grouped_stats on long_run_inputs against their plain
+    versions (counts, min, max exact; sums rtol 1e-12), and their times."""
+    from horaedb_tpu_torch.ops import blockagg
+    from horaedb_tpu_torch.ops.aggregate import grouped_stats, grouped_stats_plain
+
+    k, v, cells = long_run_inputs(rng)
+    kt, vt = torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev)
+    okt = torch.ones(len(k), dtype=torch.bool, device=dev)
+    s, c = blockagg.sorted_segment_sum_count(kt, vt, cells)
+    ps, pc = blockagg.sum_count_plain(kt, vt, torch.ones_like(vt), cells)
+    mn, mx = blockagg.sorted_segment_min_max(kt, vt, cells, valid=okt)
+    pmn, pmx = blockagg.min_max_plain(kt, vt, okt, cells)
+    g = grouped_stats(vt, kt, None, cells)
+    want = grouped_stats_plain(vt, kt, okt, cells)
+    require(torch.equal(c, pc) and close_sums(torch, s, ps), "long runs: kernel B != plain")
+    require(torch.equal(mn, pmn) and torch.equal(mx, pmx), "long runs: kernel C != plain")
+    require(close_sums(torch, g["sum"], want["sum"])
+            and all(torch.equal(g[x], want[x]) for x in ("count", "min", "max")),
+            "long runs: grouped_stats != plain")
+    out = {"shape": f"{len(k)} rows, {cells} cells of {LONG_RUN_ROWS} rows",
+           "block_sum_count_ms": cuda_ms(
+               torch, lambda: blockagg.sorted_segment_sum_count(kt, vt, cells)),
+           "block_min_max_ms": cuda_ms(
+               torch, lambda: blockagg.sorted_segment_min_max(kt, vt, cells, valid=okt)),
+           "grouped_stats_ms": cuda_ms(torch, lambda: grouped_stats(vt, kt, None, cells))}
+    print(f"long runs ({out['shape']}): B {out['block_sum_count_ms']:.4f} ms, "
+          f"C {out['block_min_max_ms']:.4f} ms, grouped_stats {out['grouped_stats_ms']:.4f} ms",
+          flush=True)
+    return out
 
 
 def check_kernels(torch, rng, dev) -> list[dict]:
@@ -1484,11 +1554,15 @@ async def main_paths(torch, rng, dev, data, workdir) -> dict:
     # g, h. encoded (format-v2) tables
     with CaptureDecode() as dcap:
         out["encoded"] = await encoded_paths(torch, rng, dev, store, workdir, counted, dcap)
+
+    # i. the metric engine and the query batcher
+    out["engine"] = await engine_paths(torch, rng, dev, workdir, counted)
     for name, count in launches.items():
         require(count > 0, f"kernel {name} never launched on a main path")
     out["kernel_launches"] = launches
     out["fused_capture"] = cap
     out["decode_capture"] = dcap
+    out["stacked_capture"] = out["engine"].pop("capture")
     from horaedb_tpu_torch.storage.read import _LinkProfile
 
     out["link_profile"] = _LinkProfile.get(dev)
@@ -1739,6 +1813,519 @@ async def pinned_profile(torch, storage, ids, window, pred) -> dict:
     return summary
 
 
+
+# -- phase 3i: the metric engine and the query batcher -------------------------
+# TSBS cpu-only --scale=10000 with its ten host tags; the ten cpu fields as
+# ten Prometheus metrics; 10 s scrapes for 30 minutes of one 2 h segment,
+# sent as 60 remote-write payloads of three scrapes each
+
+ENGINE_SCRAPES = 180
+ENGINE_PER_PAYLOAD = 3
+ENGINE_WINDOW_MS = ENGINE_SCRAPES * INTERVAL_MS
+ENGINE_BUCKET_MS = 60_000
+ENGINE_MAX_DELAY_MS = 2  # [metric_engine.query.batching] max_delay, docs/example.toml
+TSBS_REGIONS = {
+    "us-east-1": ("us-east-1a", "us-east-1b", "us-east-1c", "us-east-1e"),
+    "us-west-1": ("us-west-1a", "us-west-1b"),
+    "us-west-2": ("us-west-2a", "us-west-2b", "us-west-2c"),
+    "eu-west-1": ("eu-west-1a", "eu-west-1b", "eu-west-1c"),
+    "eu-central-1": ("eu-central-1a", "eu-central-1b"),
+    "ap-southeast-1": ("ap-southeast-1a", "ap-southeast-1b"),
+    "ap-southeast-2": ("ap-southeast-2a", "ap-southeast-2b"),
+    "ap-northeast-1": ("ap-northeast-1a", "ap-northeast-1c"),
+    "sa-east-1": ("sa-east-1a", "sa-east-1b", "sa-east-1c"),
+}
+BURST_A_PANELS = 16
+BURST_B_CLIENTS, BURST_B_METRICS, BURST_B_HOSTS = 3, 5, 8
+
+
+def engine_hosts(rng) -> tuple[list, np.ndarray]:
+    """TSBS cpu-only's ten host tags for NUM_SERIES hosts, drawn from the
+    seed as TSBS draws them; the label list of host h (name-sorted, without
+    __name__) and each host's rack."""
+    regions = list(TSBS_REGIONS)
+    region = rng.integers(0, len(regions), NUM_SERIES)
+    rack = rng.integers(0, 100, NUM_SERIES)
+    picks = {k: rng.integers(0, n, NUM_SERIES) for k, n in
+             (("dc", 4), ("os", 3), ("arch", 2), ("team", 4), ("service", 20),
+              ("version", 2), ("env", 3))}
+    tags = []
+    for h in range(NUM_SERIES):
+        r = regions[region[h]]
+        dcs = TSBS_REGIONS[r]
+        t = {b"hostname": b"host_%d" % h, b"region": r.encode(),
+             b"datacenter": dcs[picks["dc"][h] % len(dcs)].encode(), b"rack": b"%d" % rack[h],
+             b"os": (b"Ubuntu16.10", b"Ubuntu16.04LTS", b"Ubuntu15.10")[picks["os"][h]],
+             b"arch": (b"x64", b"x86")[picks["arch"][h]],
+             b"team": (b"SF", b"NYC", b"LON", b"CHI")[picks["team"][h]],
+             b"service": b"%d" % picks["service"][h],
+             b"service_version": b"%d" % picks["version"][h],
+             b"service_environment": (b"production", b"staging", b"test")[picks["env"][h]]}
+        tags.append(sorted(t.items()))
+    return tags, rack
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while n >= 0x80:
+        out.append((n & 0x7F) | 0x80)
+        n >>= 7
+    out.append(n)
+    return bytes(out)
+
+
+class PayloadWriter:
+    """Remote-write payloads of every (host, field) series with three
+    samples each, encoded straight to protobuf wire bytes: each series'
+    label bytes are laid into a template once, and each payload writes only
+    its 3 x 18 sample bytes per series (value as fixed64, timestamp as a
+    6-byte varint, which holds for 2^35 <= ts < 2^42)."""
+
+    SAMPLE = 18  # 0x12 0x10 | 0x09 f64 | 0x10 varint(6)
+
+    def __init__(self, tags: list, fields: tuple):
+        pieces, starts = [], []
+        body_samples = ENGINE_PER_PAYLOAD * self.SAMPLE
+        pos = 0
+        for lab in tags:
+            for f in fields:
+                labels = b"".join(
+                    b"\x0a" + _varint(len(m)) + m
+                    for m in (b"\x0a" + _varint(len(k)) + k + b"\x12" + _varint(len(v)) + v
+                              for k, v in [(b"__name__", b"cpu_" + f.encode())] + lab))
+                head = b"\x0a" + _varint(len(labels) + body_samples) + labels
+                pieces.append(head)
+                starts.append(pos + len(head))
+                pos += len(head) + body_samples
+        self.template = np.frombuffer(b"".join(
+            p + b"\x00" * body_samples for p in pieces), dtype=np.uint8).copy()
+        self.slots = (np.asarray(starts, np.int64)[:, None]
+                      + np.arange(body_samples, dtype=np.int64)).ravel()
+
+    def payload(self, values: np.ndarray, ts: np.ndarray) -> bytes:
+        """values: [series, 3] f64; ts: [3] int64, one per scrape."""
+        n = values.shape[0]
+        require(int(ts.min()) >= 2**35 and int(ts.max()) < 2**42, "timestamp varint width")
+        block = np.empty((n, ENGINE_PER_PAYLOAD, self.SAMPLE), np.uint8)
+        block[:, :, 0], block[:, :, 1], block[:, :, 2] = 0x12, 0x10, 0x09
+        block[:, :, 3:11] = np.ascontiguousarray(values).view(np.uint8).reshape(
+            n, ENGINE_PER_PAYLOAD, 8)
+        block[:, :, 11] = 0x10
+        groups = (ts[:, None] >> (7 * np.arange(6))) & 0x7F
+        groups[:, :5] |= 0x80
+        block[:, :, 12:] = groups.astype(np.uint8)[None]
+        self.template[self.slots] = block.reshape(-1)
+        return self.template.tobytes()
+
+
+def engine_oracle(values: np.ndarray, field: int, hosts: np.ndarray) -> dict:
+    """1-minute grids of one field over `hosts` (in answer order): six
+    scrapes a cell."""
+    per = ENGINE_BUCKET_MS // INTERVAL_MS
+    cells = values[hosts, field, :].reshape(len(hosts), ENGINE_SCRAPES // per, per)
+    return {"sum": cells.sum(axis=2), "count": np.full(cells.shape[:2], float(per)),
+            "min": cells.min(axis=2), "max": cells.max(axis=2)}
+
+
+def same_answer(got, want) -> bool:
+    """Engine answers (tsids, grids) bitwise equal: floats as u64 views,
+    NaN-aware for the mean (empty cells)."""
+    if (got is None) != (want is None):
+        return False
+    if got is None:
+        return True
+    if got[0] != want[0]:
+        return False
+    for k in ("sum", "count", "min", "max"):
+        if not np.array_equal(np.asarray(got[1][k]).view(np.uint64),
+                              np.asarray(want[1][k]).view(np.uint64)):
+            return False
+    gm, wm = np.asarray(got[1]["mean"]), np.asarray(want[1]["mean"])
+    return bool(np.array_equal(np.isnan(gm), np.isnan(wm))
+                and np.array_equal(np.where(np.isnan(gm), 0.0, gm).view(np.uint64),
+                                   np.where(np.isnan(wm), 0.0, wm).view(np.uint64)))
+
+
+class CaptureStacked:
+    """Keeps the arguments of the first stacked_downsample call made inside
+    the block (burst A's launch), for phase 4."""
+
+    def __init__(self):
+        self.args = None
+
+    def __enter__(self):
+        from horaedb_tpu_torch.ops import aggregate as agg
+
+        self.orig = agg.stacked_downsample
+
+        def stacked(*a, **k):
+            if self.args is None:
+                self.args = (a, k)
+            return self.orig(*a, **k)
+
+        agg.stacked_downsample = stacked
+        return self
+
+    def __exit__(self, *exc):
+        from horaedb_tpu_torch.ops import aggregate as agg
+
+        agg.stacked_downsample = self.orig
+
+
+async def engine_paths(torch, rng, dev, workdir, counted) -> dict:
+    """Phase 3i: the TSBS cpu-only dashboard through MetricEngine and the
+    query batcher (module docstring)."""
+    import asyncio
+
+    import horaedb_tpu_torch as port
+    from horaedb_tpu_torch.common.hash import seahash_many
+    from horaedb_tpu_torch.common.time_ext import ReadableDuration
+    from horaedb_tpu_torch.engine import MetricEngine, QueryRequest
+    from horaedb_tpu_torch.engine.types import metric_id_of, series_key_of
+    from horaedb_tpu_torch.objstore import LocalStore
+    from horaedb_tpu_torch.server import batching
+    from horaedb_tpu_torch.serving import ServingTierConfig
+    from horaedb_tpu_torch.storage import scanstats
+
+    out: dict = {}
+    t = time.perf_counter()
+    tags, rack = engine_hosts(rng)
+    host_tsid = seahash_many([series_key_of(lab) for lab in tags])
+    require(len(np.unique(host_tsid)) == NUM_SERIES, "host tsids collided")
+    tsid_host = {int(x): h for h, x in enumerate(host_tsid)}
+    values = rng.uniform(0, 100, (NUM_SERIES, len(CPU_FIELDS), ENGINE_SCRAPES))
+    writer = PayloadWriter(tags, CPU_FIELDS)
+    out["data_s"] = time.perf_counter() - t
+
+    eng = await MetricEngine.open("tsbs_engine", LocalStore(f"{workdir}/engine"),
+                                  enable_compaction=False,
+                                  serving=ServingTierConfig(enabled=False), device=dev)
+    port.reset_launch_counts()
+    ts0 = T0 + np.arange(ENGINE_SCRAPES, dtype=np.int64) * INTERVAL_MS
+    flat = values.reshape(NUM_SERIES * len(CPU_FIELDS), ENGINE_SCRAPES)
+    written, build_s = 0, 0.0
+    t = time.perf_counter()
+    for p in range(ENGINE_SCRAPES // ENGINE_PER_PAYLOAD):
+        sl = slice(p * ENGINE_PER_PAYLOAD, (p + 1) * ENGINE_PER_PAYLOAD)
+        tb = time.perf_counter()
+        payload = writer.payload(flat[:, sl], ts0[sl])
+        build_s += time.perf_counter() - tb
+        written += await eng.write_payload(payload)
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t - build_s
+    counted("engine_write", port.launch_counts())
+    del writer, payload
+    require(written == values.size, f"engine write: {written} samples of {values.size}")
+    data = eng.data_table
+    out["write"] = {"samples": written, "payloads": ENGINE_SCRAPES // ENGINE_PER_PAYLOAD,
+                    "write_s": write_s, "samples_per_s": written / write_s,
+                    "payload_build_s": build_s, "data_ssts": len(data.manifest.all_ssts()),
+                    "data_sst_bytes": sum(s.meta.size for s in data.manifest.all_ssts()),
+                    "series": sum(eng.series_count(b"cpu_" + f.encode()) for f in CPU_FIELDS)}
+    print(f"3i write: {written} samples in {write_s:.2f} s through write_payload "
+          f"({written / write_s:.0f} samples/s; payload encoding {build_s:.2f} s apart)",
+          flush=True)
+    mids = {}
+    for f in CPU_FIELDS:
+        name = b"cpu_" + f.encode()
+        hit = eng.metric_mgr.get(name)
+        require(hit is not None and hit[0] == metric_id_of(name), f"metric id of {name}")
+        require(eng.series_count(name) == NUM_SERIES, f"series of {name}")
+        mids[f] = hit[0]
+
+    window = (T0, T0 + ENGINE_WINDOW_MS)
+    batcher = batching.GLOBAL_BATCHER
+    batcher.configure(batching.BatchingConfig(
+        max_delay=ReadableDuration.millis(ENGINE_MAX_DELAY_MS)))
+
+    def check_answer(req, got, field: int, what: str):
+        mid = mids[CPU_FIELDS[field]]
+        want_ids = sorted(eng.index_mgr.find_tsids(mid, req.filters, req.matchers))
+        require(got is not None and got[0] == want_ids, f"{what}: tsid order")
+        hosts = np.array([tsid_host[x] for x in got[0]])
+        check_grids(got[1], engine_oracle(values, field, hosts), what)
+
+    async def solo(reqs, name):
+        answers, secs = [], []
+        port.reset_launch_counts()
+        with EnvPin(HORAEDB_BATCH="off"):
+            for r in reqs:
+                t = time.perf_counter()
+                answers.append(await eng.query(r))
+                secs.append(time.perf_counter() - t)
+        counts = port.launch_counts()
+        counted(name, counts)
+        require(counts["stacked_downsample"] == 0, f"{name}: a solo query launched stacked")
+        return answers, secs
+
+    async def burst(reqs, name):
+        """All members issued together, each under its own collector. The
+        dashboard holds one batcher token across the burst (as
+        the JAX package's tests do), so the first panel, too, waits for its
+        company instead of taking the lone-query path."""
+        notes = [None] * len(reqs)
+
+        async def one(i):
+            with scanstats.scan_stats() as st:
+                r = await eng.query(reqs[i])
+            notes[i] = dict(st.counts)
+            return r
+
+        port.reset_launch_counts()
+        tok = batcher.begin()
+        try:
+            t = time.perf_counter()
+            got = await asyncio.gather(*(one(i) for i in range(len(reqs))))
+            wall = time.perf_counter() - t
+        finally:
+            batcher.end(tok)
+        counts = port.launch_counts()
+        counted(name, counts)
+        return got, notes, wall, counts
+
+    def batch_families() -> dict:
+        return {fam: {"/".join(f"{k}={v}" for k, v in labels) + suffix: value
+                      for suffix, labels, value in getattr(batching, fam).samples()
+                      if not suffix.endswith("_bucket")}
+                for fam in ("BATCH_QUERIES", "BATCH_LAUNCHES", "BATCH_GROUP_SIZE",
+                            "BATCH_PAD_WASTE", "BATCH_WINDOW_WAIT")}
+
+    # burst A: a 16-panel dashboard, one rack a panel, all in class 128
+    per_rack = np.bincount(rack, minlength=100)
+    racks = [r for r in range(100) if 65 <= per_rack[r] <= 128][:BURST_A_PANELS]
+    require(len(racks) == BURST_A_PANELS, f"only {len(racks)} racks hold 65-128 hosts")
+    reqs_a = [QueryRequest(metric=b"cpu_usage_user", start_ms=window[0], end_ms=window[1],
+                           bucket_ms=ENGINE_BUCKET_MS, filters=[(b"rack", b"%d" % r)])
+              for r in racks]
+    solo_a, solo_a_s = await solo(reqs_a, "engine_solo_a")
+    with CaptureStacked() as cap:
+        got_a, notes_a, wall_a, counts_a = await burst(reqs_a, "engine_burst_a")
+    require(counts_a["stacked_downsample"] == 1,
+            f"burst A: stacked_downsample launched {counts_a['stacked_downsample']} times; "
+            f"notes {notes_a}")
+    for i, (req, g, w, n) in enumerate(zip(reqs_a, got_a, solo_a, notes_a)):
+        require(n.get("batched_with") == BURST_A_PANELS, f"burst A panel {i}: notes {n}")
+        require(same_answer(g, w), f"burst A panel {i}: differs from its HORAEDB_BATCH=off run")
+        check_answer(req, g, 0, f"burst A panel {i} (rack {racks[i]})")
+    (ts_b, _sid, _v, _ok, _t0, bucket_ms), kw = cap.args
+    union_route = sorted(k for k in ("index_merge_filter", "index_merge_mask", "packed_merge",
+                                     "scan_kernel") if counts_a[k])
+    out["burst_a"] = {"panels": BURST_A_PANELS, "racks": racks,
+                      "hosts": int(per_rack[racks].sum()), "wall_s": wall_a,
+                      "solo_sum_s": sum(solo_a_s), "solo_s": solo_a_s,
+                      "stacked_shape": list(ts_b.shape), "spad": kw["num_series"],
+                      "buckets": kw["num_buckets"], "notes": notes_a[0],
+                      "union_scan_route": union_route,
+                      "launches": {k: v for k, v in counts_a.items() if v}}
+    print(f"3i burst A: {BURST_A_PANELS} panels, {int(per_rack[racks].sum())} hosts, wall "
+          f"{wall_a:.3f} s against {sum(solo_a_s):.3f} s for the solo queries; stacked "
+          f"[B, R] = {list(ts_b.shape)}, S = {kw['num_series']}, T = {kw['num_buckets']}; "
+          f"union scan route {union_route}", flush=True)
+
+    # the same burst under torch.profiler: device busy share
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got_p, _n, wall_p, _c = await burst(reqs_a, "engine_burst_a_profiled")
+        torch.cuda.synchronize()
+    for g, w in zip(got_p, got_a):
+        require(same_answer(g, w), "burst A under the profiler differs")
+    out["burst_a"]["profile"] = device_summary(prof, wall_p)
+
+    # burst B: TSBS single-groupby-5-8-1, three clients
+    reqs_b, fields_b = [], []
+    for _client in range(BURST_B_CLIENTS):
+        hosts = rng.choice(NUM_SERIES, BURST_B_HOSTS, replace=False)
+        rx = b"|".join(b"host_%d" % h for h in sorted(hosts))
+        for f in range(BURST_B_METRICS):
+            reqs_b.append(QueryRequest(metric=b"cpu_" + CPU_FIELDS[f].encode(),
+                                       start_ms=window[0], end_ms=window[1],
+                                       bucket_ms=ENGINE_BUCKET_MS,
+                                       matchers=[(b"hostname", "re", rx)]))
+            fields_b.append(f)
+    solo_b, solo_b_s = await solo(reqs_b, "engine_solo_b")
+
+    def check_b(got, notes, what):
+        for i, (req, g, w) in enumerate(zip(reqs_b, got, solo_b)):
+            require(same_answer(g, w), f"{what} query {i}: differs from its HORAEDB_BATCH=off run")
+            check_answer(req, g, fields_b[i], f"{what} query {i}")
+        return sorted(n.get("batched_with", 0) for n in notes)
+
+    # at the documented window: whatever groups the arrivals form
+    got_b, notes_b, wall_b, counts_b = await burst(reqs_b, "engine_burst_b")
+    rode_b = check_b(got_b, notes_b, "burst B")
+    out["burst_b"] = {"queries": len(reqs_b), "max_delay_ms": ENGINE_MAX_DELAY_MS,
+                      "wall_s": wall_b, "solo_sum_s": sum(solo_b_s), "batched_with": rode_b,
+                      "launches": {k: v for k, v in counts_b.items() if v}}
+    print(f"3i burst B ({ENGINE_MAX_DELAY_MS} ms window): {len(reqs_b)} queries, wall "
+          f"{wall_b:.3f} s against {sum(solo_b_s):.3f} s for the solo queries; "
+          f"{counts_b['stacked_downsample']} stacked launches, batched_with {rode_b}", flush=True)
+
+    # the matchers' resolution, serially, sizes the window that gathers them
+    t = time.perf_counter()
+    for r in reqs_b:
+        eng._resolve_query(r.metric, r.filters, r.matchers)
+    resolve_s = time.perf_counter() - t
+    wide_ms = max(ENGINE_MAX_DELAY_MS, round(2e3 * resolve_s))
+    batcher.configure(batching.BatchingConfig(max_delay=ReadableDuration.millis(wide_ms)))
+    try:
+        got_w, notes_w, wall_w, counts_w = await burst(reqs_b, "engine_burst_b_wide")
+    finally:
+        batcher.configure(batching.BatchingConfig(
+            max_delay=ReadableDuration.millis(ENGINE_MAX_DELAY_MS)))
+    require(counts_w["stacked_downsample"] == 1,
+            f"burst B ({wide_ms} ms window): stacked_downsample launched "
+            f"{counts_w['stacked_downsample']} times; notes {notes_w}")
+    require(check_b(got_w, notes_w, f"burst B ({wide_ms} ms window)") == [len(reqs_b)] * len(reqs_b),
+            f"burst B ({wide_ms} ms window): notes {notes_w}")
+    out["burst_b_wide"] = {"max_delay_ms": wide_ms, "resolve_s": resolve_s, "wall_s": wall_w,
+                           "notes": notes_w[0],
+                           "launches": {k: v for k, v in counts_w.items() if v}}
+    print(f"3i burst B ({wide_ms} ms window, twice the {resolve_s:.3f} s its 15 matchers take "
+          f"to resolve one after another): wall {wall_w:.3f} s, one stacked launch", flush=True)
+
+    # a lone query: the solo route, no window
+    port.reset_launch_counts()
+    with scanstats.scan_stats() as st:
+        t = time.perf_counter()
+        lone = await eng.query(reqs_a[0])
+        lone_s = time.perf_counter() - t
+    counts = port.launch_counts()
+    counted("engine_lone", counts)
+    require(st.counts.get("batched_with") == 1 and "batch_window" not in st.seconds,
+            f"lone query: notes {st.counts}")
+    require(counts["stacked_downsample"] == 0 and counts["block_sum_count"] > 0,
+            f"lone query: launches {counts}")
+    require(same_answer(lone, solo_a[0]), "lone query differs from its solo run")
+    out["lone"] = {"s": lone_s, "notes": dict(st.counts),
+                   "launches": {k: v for k, v in counts.items() if v}}
+    out["batch_families"] = batch_families()
+    print(f"3i horaedb_batch_*: {json.dumps(out['batch_families'])}", flush=True)
+    await eng.close()
+    out["capture"] = cap
+    return out
+
+
+def check_stacked_kernel(torch, rng, dev) -> None:
+    """Phase 2: stacked_downsample against its plain version on CPU copies
+    (each cell's rows summed in the kernel's association there), bitwise on every grid,
+    sums as u64 views; and one query stacked at a non-zero lane offset
+    against its solo reduction (downsample_sorted, kernels B and C)."""
+    from horaedb_tpu_torch.ops import aggregate as agg
+
+    def lanes(B, R, S, T, fill=0.8):
+        ts = rng.integers(-2000, (T + 2) * 1000, (B, R)).astype(np.int64)
+        sid = rng.integers(-1, S + 1, (B, R)).astype(np.int32)
+        v = rng.uniform(-1e3, 1e3, (B, R))
+        ok = rng.random((B, R)) < fill
+        t0 = rng.integers(-500, 500, B).astype(np.int64)
+        return [ts + t0[:, None], sid, v, ok, t0, S, T]
+
+    cases = {"B=1": lanes(1, 4096, 40, 12)}
+    c = lanes(16, 2048, 64, 30)
+    c[3][3:] = False
+    cases["B=16, empty lanes"] = c
+    c = lanes(4, 3000, 8, 5)
+    c[3][1] = False
+    c[2].flat[rng.choice(c[2].size, 30, replace=False)] = np.resize([np.nan, np.inf, -np.inf],
+                                                                     30)
+    cases["an all-masked lane, NaN and +-inf, rows before t0 and past the grid, sid out of "
+          "range, a t0 per lane"] = c
+    B, R = 3, 6151
+    sid = np.zeros((B, R), np.int32)
+    sid[:, 2500:] = 1
+    cases["runs straddling 8- and 2048-row boundaries"] = [
+        np.tile(np.arange(R, dtype=np.int64) % 1000, (B, 1)), sid, rng.uniform(0, 1, (B, R)),
+        np.ones((B, R), bool), np.zeros(B, np.int64), 2, 1]
+    for name, (ts, sid, v, ok, t0, S, T) in cases.items():
+        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in (ts, sid, v, ok, t0)]
+        got = agg.stacked_downsample(*(a.to(dev) for a in host), 1000, S, T)
+        want = agg.stacked_downsample(*host, 1000, S, T)
+        torch.cuda.synchronize()
+        for k in ("sum", "count", "min", "max", "mean"):
+            require(np.array_equal(got[k].cpu().numpy().view(np.uint64),
+                                   want[k].numpy().view(np.uint64)),
+                    f"stacked_downsample != plain on {name!r}: {k}")
+    # stacked == solo, bitwise, at lane 5 of 16
+    S, T, bucket_ms, t0 = 100, 30, 60_000, T0
+    per = rng.integers(0, 3 * T, S)
+    sid = np.repeat(np.arange(S, dtype=np.int32), per)
+    ts = t0 + rng.integers(0, T * bucket_ms, len(sid)).astype(np.int64)
+    order = np.lexsort((ts, sid))
+    sid, ts = sid[order], ts[order]
+    v = rng.uniform(0, 100, len(sid))
+    solo = agg.downsample_sorted(ts, sid, v, t0, bucket_ms, S, T, device=dev)
+    B, R, lane = 16, 8192, 5
+    arrs = [np.zeros((B, R), np.int64), np.zeros((B, R), np.int32), np.zeros((B, R)),
+            np.zeros((B, R), bool), np.full(B, t0, np.int64)]
+    for q in range(B):
+        n = len(ts) if q == lane else int(rng.integers(0, R))
+        arrs[0][q, :n] = ts if q == lane else t0 + rng.integers(0, T * bucket_ms, n)
+        arrs[1][q, :n] = sid if q == lane else np.sort(rng.integers(0, 128, n))
+        arrs[2][q, :n] = v if q == lane else rng.uniform(0, 100, n)
+        arrs[3][q, :n] = True
+    got = agg.stacked_downsample(*(torch.from_numpy(a).to(dev) for a in arrs), bucket_ms, 128, T)
+    for k in ("sum", "count", "min", "max", "mean"):
+        require(np.array_equal(got[k][lane, :S].cpu().numpy().view(np.uint64),
+                               solo[k].cpu().numpy().view(np.uint64)),
+                f"stacked_downsample at lane {lane} != downsample_sorted (solo): {k}")
+
+
+def stacked_records(torch, cap: CaptureStacked, dev) -> list[dict]:
+    """Phase 4: stacked_downsample against its plain version on burst A's
+    own launch inputs, timed."""
+    from horaedb_tpu_torch.ops import aggregate as agg
+
+    require(cap.args is not None, "burst A made no stacked launch")
+    (ts, sid, values, valid, t0, bucket_ms), kw = cap.args
+    ns, nbk = kw["num_series"], kw["num_buckets"]
+    got = agg.stacked_downsample(ts, sid, values, valid, t0, bucket_ms, ns, nbk)
+    want = agg.stacked_downsample(*(a.cpu() for a in (ts, sid, values, valid, t0)), bucket_ms,
+                                  ns, nbk)
+    for k in ("sum", "count", "min", "max", "mean"):
+        require(np.array_equal(got[k].cpu().numpy().view(np.uint64),
+                               want[k].numpy().view(np.uint64)),
+                f"stacked_downsample != plain at burst A's shape: {k}")
+    err = abs_err(torch, got["sum"].cpu(), want["sum"])
+    b, r = ts.shape
+    cells = b * ns * nbk
+    real = int(valid.sum())
+    # the library yardstick: two index_add_ and two scatter_reduce over the
+    # same flat ids (rows outside their grid at a sentinel cell)
+    bucket = torch.div(ts - t0[:, None], bucket_ms, rounding_mode="floor")
+    ok = valid & (bucket >= 0) & (bucket < nbk) & (sid >= 0) & (sid < ns)
+    lane = torch.arange(b, device=dev)[:, None]
+    idx = torch.where(ok, lane * ns * nbk + sid.long() * nbk + bucket, cells).reshape(-1)
+    flat_v = values.reshape(-1)
+    ones = torch.ones_like(flat_v)
+
+    def library():
+        torch.zeros(cells + 1, dtype=flat_v.dtype, device=dev).index_add_(0, idx, flat_v)
+        torch.zeros(cells + 1, dtype=flat_v.dtype, device=dev).index_add_(0, idx, ones)
+        torch.full((cells + 1,), torch.inf, dtype=flat_v.dtype, device=dev).scatter_reduce_(
+            0, idx, flat_v, "amin", include_self=True)
+        torch.full((cells + 1,), -torch.inf, dtype=flat_v.dtype, device=dev).scatter_reduce_(
+            0, idx, flat_v, "amax", include_self=True)
+
+    # each padded row read once (ts 8 B, sid 4 B, value 8 B, valid 1 B), the
+    # five f64 grids written once
+    nb, kind = bound(b * r * (8 + 4 + 8 + 1) + cells * 40, 0)
+    return [{
+        "name": "stacked_downsample", "route": "cuda",
+        "source": "horaedb_tpu_torch/ops/csrc/stacked_downsample.cu + grouped_stats.cu",
+        "replaces": "horaedb_tpu/ops/aggregate.py:281",
+        "shape": f"[B, R] = [{b}, {r}] padded rows ({real} real), {b} x {ns} series x {nbk} "
+                 f"buckets = {cells} cells",
+        "max_abs_err": err,
+        "ms": cuda_ms(torch, lambda: agg.stacked_downsample(ts, sid, values, valid, t0,
+                                                            bucket_ms, ns, nbk)),
+        "plain_ms": cuda_ms(torch, lambda: agg.stacked_downsample_plain(
+            ts, sid, values, valid, t0, bucket_ms, ns, nbk), iters=5, warmup=1),
+        "bound_ms": nb, "bound_by": kind, "library_ms": cuda_ms(torch, library),
+        "library_call": "index_add_ x2 + scatter_reduce amin/amax over the flat cell ids",
+    }]
+
+
 def host_top(host) -> list:
     import pstats
 
@@ -1848,12 +2435,16 @@ def main() -> int:
     records = check_kernels(torch, rng, dev) + check_merge_kernels(torch, rng, dev, data)
     check_fused_kernels(torch, rng, dev)
     check_decode_kernels(torch, rng, dev)
+    check_stacked_kernel(torch, rng, dev)
+    long_runs = check_long_runs(torch, np.random.default_rng([args.seed, 1]), dev)
     print(f"phase 2: {time.perf_counter() - t_all:.1f} s", flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         result = asyncio.run(main_paths(torch, rng, dev, data, workdir))
+    result["long_runs"] = long_runs
     print(f"phase 3: {time.perf_counter() - t_all:.1f} s", flush=True)
     records += fused_records(torch, result.pop("fused_capture"), dev)
     records += decode_records(torch, result.pop("decode_capture"), dev)
+    records += stacked_records(torch, result.pop("stacked_capture"), dev)
     result["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
     for r in records:
         r["launches"] = result["kernel_launches"][r["name"]]

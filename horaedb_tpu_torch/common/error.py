@@ -2,8 +2,9 @@
 the `.context()` wrapper.
 
 A copy of the JAX package's `common/error.py` core (the retry taxonomy is
-left out until a slice with a remote object store needs it), plus
-`NotPortedError` for the routes this port does not have yet.
+left out until a slice with a remote object store needs it) and its
+`DeadlineExceeded`, plus `NotPortedError` for the routes this port does
+not have yet.
 """
 
 from __future__ import annotations
@@ -30,6 +31,21 @@ class HoraeError(Exception):
 class NotPortedError(HoraeError):
     """A route or option of the JAX package that the port lacks so far. It
     raises instead of quietly running something else in its place."""
+
+
+class DeadlineExceeded(HoraeError):
+    """The end-to-end deadline of the request driving this work expired
+    (common/deadline.py carries the token; the query path checks it
+    cooperatively). Not retryable: under the same expired deadline an
+    identical retry cannot succeed."""
+
+    def __init__(self, msg: str, cause: BaseException | None = None,
+                 budget_s: float | None = None,
+                 elapsed_s: float | None = None, at: str = ""):
+        super().__init__(msg, cause=cause)
+        self.budget_s = budget_s
+        self.elapsed_s = elapsed_s
+        self.at = at
 
 
 def ensure(cond: bool, msg: str) -> None:

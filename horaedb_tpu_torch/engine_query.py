@@ -1,7 +1,9 @@
-"""The downsample query of the port: per-segment scans folded in segment order.
+"""The downsample query over one table: per-segment scans folded in segment order.
 
-A port of the engine's solo pushdown
-(`horaedb_tpu/engine/data.py::_query_downsample_pushdown`): each segment
+The storage-level form of the engine's solo pushdown
+(`engine/data.py::_query_downsample_pushdown`, which the metric engine
+runs with its semaphore, deadline checks and reorder buffer), for a caller
+that holds a table and a predicate: each segment
 of the selected SSTs reduces to grids
 (`ParquetReader.scan_segment_downsample`: the packed route; the fused
 route of kernels `scan_kernel`, `downsample` and `grouped_stats` where the

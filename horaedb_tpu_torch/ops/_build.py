@@ -40,10 +40,12 @@ from horaedb_tpu_torch.common.error import HoraeError
 # bitunpack.cuh. predicate.cu is kernel E, which runs
 # inside index_merge_filter and scan_kernel and is not a catalog kernel of
 # its own. A downsample call launches two libraries, downsample (the cell
-# ids) and grouped_stats (the reduction), and counts once in each.
+# ids) and grouped_stats (the reduction), and counts once in each; so does
+# a stacked_downsample call.
 KERNELS = ("sort_perm", "block_sum_count", "block_min_max", "packed_merge",
            "index_merge_mask", "index_merge_filter", "scan_kernel", "downsample",
-           "grouped_stats", "decode_unpack", "decode_dod", "decode_xor", "decode_rle")
+           "grouped_stats", "decode_unpack", "decode_dod", "decode_xor", "decode_rle",
+           "stacked_downsample")
 SOURCES = {
     "sort_perm": ("sort_perm.cu", "radix.cuh"),
     "block_sum_count": ("block_sum_count.cu", "segreduce.cuh"),
@@ -58,6 +60,7 @@ SOURCES = {
     "decode_dod": ("decode_dod.cu", "bitunpack.cuh"),
     "decode_xor": ("decode_xor.cu", "bitunpack.cuh"),
     "decode_rle": ("decode_rle.cu", "bitunpack.cuh"),
+    "stacked_downsample": ("stacked_downsample.cu",),
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

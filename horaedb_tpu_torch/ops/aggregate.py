@@ -9,7 +9,10 @@ A port of `horaedb_tpu/ops/aggregate.py`:
   `downsample`) over UNSORTED rows, the fused scan route's reduction:
   `csrc/grouped_stats.cu` and `csrc/downsample.cu` on CUDA tensors, the
   plain versions beside them (`masked_segment_stats`, `masked_minmax`,
-  index_add_ and scatter_reduce) on CPU ones.
+  index_add_ and scatter_reduce) on CPU ones;
+- `stacked_downsample` (kernel `stacked_downsample`, `csrc/
+  stacked_downsample.cu`, then `grouped_stats`): the grids of a stack of
+  coalesced queries in one launch, the query batcher's device lane.
 Float values accumulate in f64 on the card: the H100 has native FP64 and
 the reduction is memory-bound (the JAX package's f32 rule was for the
 TPU's lack of FP64). Integer values sum exactly in 64 bits: signed in
@@ -28,7 +31,11 @@ import torch
 from horaedb_tpu_torch.backend import DEFAULT_DEVICE, resolve_device, to_device
 from horaedb_tpu_torch.common.error import HoraeError, ensure
 from horaedb_tpu_torch.ops import _build
-from horaedb_tpu_torch.ops.blockagg import sorted_segment_min_max, sorted_segment_sum_count
+from horaedb_tpu_torch.ops.blockagg import (
+    fold_sums,
+    sorted_segment_min_max,
+    sorted_segment_sum_count,
+)
 
 
 def bucket_of(ts: torch.Tensor, t0: int, bucket_ms: int) -> torch.Tensor:
@@ -133,12 +140,15 @@ def masked_segment_stats(values: torch.Tensor, idx: torch.Tensor, valid: torch.T
                          num_segments: int, with_minmax: bool = True, unsigned: bool = False):
     """(sum, count, min|None, max|None) per segment, by index_add_ and
     scatter_reduce; `idx` must already route invalid rows to num_segments.
-    Sums and counts keep the accumulator lane's type (`_value_lane`)."""
+    Sums and counts keep the accumulator lane's type (`_value_lane`); f64
+    sums are associated as the kernel associates them (`fold_sums`),
+    integer sums wrap in any order."""
     vals, _ = _value_lane(values, unsigned)
     i = idx.long()
     m = num_segments + 1
-    s = torch.zeros(m, dtype=vals.dtype, device=vals.device).index_add_(
-        0, i, torch.where(valid, vals, torch.zeros((), dtype=vals.dtype)))[:-1]
+    masked = torch.where(valid, vals, torch.zeros((), dtype=vals.dtype))
+    s = (fold_sums(masked, i, m) if vals.dtype.is_floating_point else
+         torch.zeros(m, dtype=vals.dtype, device=vals.device).index_add_(0, i, masked))[:-1]
     c = torch.zeros(m, dtype=vals.dtype, device=vals.device).index_add_(
         0, i, valid.to(vals.dtype))[:-1]
     if not with_minmax:
@@ -262,4 +272,80 @@ def downsample(ts: torch.Tensor, series_idx: torch.Tensor, values: torch.Tensor,
                 t0, bucket_ms, num_series, num_buckets, n, cell.data_ptr(), stream)
     _build.check("downsample", rc)
     flat = grouped_stats(values, cell, None, cells, unsigned)
+    return {k: v.reshape(shape) for k, v in flat.items()}
+
+
+# -- stacked_downsample: the query batcher's device lane -----------------------
+
+def stacked_downsample_plain(ts, series_idx, values, valid, t0, bucket_ms: int,
+                             num_series: int, num_buckets: int) -> dict[str, torch.Tensor]:
+    """Plain version of kernel `stacked_downsample`, the JAX function's
+    arithmetic on [B, R] lanes: flat id `lane * S * T + sid * T + bucket`,
+    rows outside their grid to the sentinel B * S * T, then the masked
+    scatters (each cell's rows in row order, summed in the kernel's
+    association, `fold_sums`)."""
+    nb, cells = t0.shape[0], num_series * num_buckets
+    bucket = torch.div(ts - t0[:, None], bucket_ms, rounding_mode="floor").to(torch.int32)
+    ok = (valid.bool() & (bucket >= 0) & (bucket < num_buckets)
+          & (series_idx >= 0) & (series_idx < num_series))
+    lane = torch.arange(nb, dtype=torch.int64, device=ts.device)[:, None]
+    safe = (torch.clamp(series_idx.long(), 0, num_series - 1) * num_buckets
+            + torch.clamp(bucket.long(), 0, num_buckets - 1))
+    flat = torch.where(ok, lane * cells + safe, nb * cells)
+    s, c, mn, mx = masked_segment_stats(values.reshape(-1), flat.reshape(-1), ok.reshape(-1),
+                                        nb * cells)
+    shape = (nb, num_series, num_buckets)
+    s, c = s.reshape(shape), c.reshape(shape)
+    return {"sum": s, "count": c, "min": mn.reshape(shape), "max": mx.reshape(shape),
+            "mean": s / c}
+
+
+_STACKED_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+    ctypes.c_int32, ctypes.c_int32, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+    ctypes.c_void_p,
+]
+
+
+def stacked_downsample(ts: torch.Tensor, series_idx: torch.Tensor, values: torch.Tensor,
+                       valid: torch.Tensor, t0: torch.Tensor, bucket_ms: int, num_series: int,
+                       num_buckets: int) -> dict[str, torch.Tensor]:
+    """Downsample grids of a STACK of B coalesced queries in one launch:
+    [B, R] row lanes (ts int64, series_idx int32, values f64, valid bool),
+    a [B] int64 `t0` per query; [B, num_series, num_buckets] grids of sum,
+    count, min, max and mean. Query b's cells take exactly its own in-grid
+    rows in row order, so its grid is bitwise equal to its solo reduction.
+    Kernel `stacked_downsample` writes the flat cell ids and kernel
+    `grouped_stats` reduces them (one launch counted in each) on CUDA
+    tensors; `stacked_downsample_plain` on CPU ones."""
+    dev = ts.device
+    ensure(ts.dim() == 2, f"stacked_downsample: ts must be [B, R], got {tuple(ts.shape)}")
+    b, r = ts.shape
+    for name, t, dt in (("ts", ts, torch.int64), ("series_idx", series_idx, torch.int32),
+                        ("values", values, torch.float64), ("valid", valid, torch.bool)):
+        ensure(t.shape == (b, r) and t.dtype == dt and t.is_contiguous() and t.device == dev,
+               f"stacked_downsample: {name} must be a contiguous {dt} [{b}, {r}] on {dev}, "
+               f"got {t.dtype}{tuple(t.shape)} on {t.device}")
+    ensure(t0.shape == (b,) and t0.dtype == torch.int64 and t0.device == dev,
+           f"stacked_downsample: t0 must be int64 [{b}] on {dev}")
+    ensure(bucket_ms > 0, f"stacked_downsample: bucket_ms must be positive, got {bucket_ms}")
+    cells = num_series * num_buckets
+    ensure(num_series > 0 and num_buckets > 0 and b * cells < 2**31,
+           f"stacked_downsample: {b} x {num_series} x {num_buckets} cells exceed int32 ids")
+    if dev.type == "cpu":
+        return stacked_downsample_plain(ts, series_idx, values, valid, t0, bucket_ms,
+                                        num_series, num_buckets)
+    if dev.type != "cuda":
+        raise HoraeError(f"stacked_downsample: unsupported device {dev}")
+    ensure(r > 0, "stacked_downsample: empty row lanes")
+    cell = torch.empty(b * r, dtype=torch.int32, device=dev)
+    fn = _build.kernel("stacked_downsample", "stacked_downsample_cells_launch",
+                       _STACKED_ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(ts.data_ptr(), series_idx.data_ptr(), valid.data_ptr(), t0.data_ptr(), bucket_ms,
+                num_series, num_buckets, b, r, cell.data_ptr(), stream)
+    _build.check("stacked_downsample", rc)
+    flat = grouped_stats(values.reshape(-1), cell, None, b * cells)
+    shape = (b, num_series, num_buckets)
     return {k: v.reshape(shape) for k, v in flat.items()}

@@ -27,7 +27,6 @@ from horaedb_tpu_torch.ops import _build
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
     ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p,
 ]
 
 
@@ -50,13 +49,11 @@ def _launch(name: str, fn_name: str, k, v, aux, num_cells: int):
     dev = k.device
     out_a = torch.empty(num_cells, dtype=torch.float64, device=dev)
     out_b = torch.empty(num_cells, dtype=torch.float64, device=dev)
-    nbytes = _build.scratch_bytes(name, f"{name}_scratch_bytes", k.shape[0])
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     fn = _build.kernel(name, fn_name, _ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(k.data_ptr(), v.data_ptr(), aux.data_ptr(), k.shape[0], num_cells,
-                out_a.data_ptr(), out_b.data_ptr(), scratch.data_ptr(), stream)
+                out_a.data_ptr(), out_b.data_ptr(), stream)
     _build.check(name, rc)
     return out_a, out_b
 
@@ -65,13 +62,45 @@ def _in_range(k: torch.Tensor, num_cells: int) -> torch.Tensor:
     return (k >= 0) & (k < num_cells)
 
 
+# segreduce.cuh's association of a run's f64 sum (its header): a run of up
+# to LONG_RUN rows folds left to right; a longer one folds chunks of CHUNK
+# rows counted from its head, then groups of GROUP_CHUNKS chunk partials,
+# then the group partials, each left to right
+LONG_RUN, CHUNK, GROUP_CHUNKS = 256, 16, 32
+
+
+def fold_sums(x: torch.Tensor, idx: torch.Tensor, m: int) -> torch.Tensor:
+    """Per-cell sums of float `x` over int64 ids `idx` in [0, m), each
+    cell's rows taken in row order as one run and associated as kernels B
+    and grouped_stats associate it. index_add_ folds in row order on the
+    CPU: once into chunk partials, once into group partials, once into
+    the cells."""
+    n = idx.shape[0]
+    out = torch.zeros(m, dtype=x.dtype, device=x.device)
+    if n == 0:
+        return out
+    order = torch.argsort(idx, stable=True)
+    sk, sx = idx[order], x[order]
+    count = torch.bincount(sk, minlength=m)
+    start = (torch.cumsum(count, 0) - count)[sk]
+    rank = torch.arange(n, device=x.device) - start
+    long = count[sk] > LONG_RUN
+    span = CHUNK * GROUP_CHUNKS
+    chunk = start + torch.where(long, rank // CHUNK, 0)
+    group = start + torch.where(long, rank // span, 0)
+    partial = torch.zeros(n, dtype=x.dtype, device=x.device).index_add_(0, chunk, sx)
+    head = torch.where(long, rank % CHUNK == 0, rank == 0)
+    grouped = torch.zeros(n, dtype=x.dtype, device=x.device).index_add_(
+        0, group[head], partial[chunk[head]])
+    head = torch.where(long, rank % span == 0, rank == 0)
+    return out.index_add_(0, sk[head], grouped[group[head]])
+
+
 def sum_count_plain(k, v, w, num_cells: int):
-    """Plain version of kernel B: index_add_ over the in-range ids."""
+    """Plain version of kernel B: `fold_sums` over the in-range ids."""
     keep = _in_range(k, num_cells)
     idx = k[keep].long()
-    s = torch.zeros(num_cells, dtype=v.dtype, device=v.device).index_add_(0, idx, v[keep])
-    c = torch.zeros(num_cells, dtype=w.dtype, device=w.device).index_add_(0, idx, w[keep])
-    return s, c
+    return fold_sums(v[keep], idx, num_cells), fold_sums(w[keep], idx, num_cells)
 
 
 def min_max_plain(k, v, valid, num_cells: int):

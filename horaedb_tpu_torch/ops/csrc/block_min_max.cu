@@ -39,16 +39,12 @@ struct MinMax {
 }  // namespace
 
 // k: int32[n] sorted; v: f64[n]; valid: bool/uint8[n]; out_min, out_max:
-// f64[num_cells]; scratch: block_min_max_scratch_bytes(n) bytes.
+// f64[num_cells].
 extern "C" int block_min_max_launch(const void* k, const void* v, const void* valid,
                                     int64_t n, int32_t num_cells, void* out_min,
-                                    void* out_max, void* scratch, void* stream) {
+                                    void* out_max, void* stream) {
     const MinMax op{static_cast<const double*>(v), static_cast<const uint8_t*>(valid),
                     static_cast<double*>(out_min), static_cast<double*>(out_max)};
     return seg::launch(static_cast<const int32_t*>(k), n, (int64_t)num_cells, op,
-                       static_cast<seg::Pair*>(scratch), static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int64_t block_min_max_scratch_bytes(int64_t n) {
-    return seg::scratch_bytes<seg::Pair>(n);
+                       static_cast<cudaStream_t>(stream));
 }

@@ -9,8 +9,10 @@
 // value (8 B) and the weight (8 B), and per cell it writes sum and count
 // (16 B); the work is one add per row per lane, far below the FP64 rate.
 // Design: the segmented reduction of segreduce.cuh. Each row is read once,
-// each cell written once, no atomics (the grid is bitwise repeatable, as
-// the partial-grid fold and stacked==solo depend on), and no density limit:
+// each cell written once, no atomics, and each cell's sum is the left fold
+// of its rows in row order (the grid is bitwise repeatable and independent
+// of where a run sits, as the partial-grid fold and stacked==solo depend
+// on), and no density limit:
 // the TPU form's one-hot rank budget and its scatter fallback do not carry
 // over.
 #include "segreduce.cuh"
@@ -35,17 +37,12 @@ struct SumCount {
 }  // namespace
 
 // k: int32[n] sorted; v: f64[n] (0 on excluded rows); w: f64[n] count
-// weight (0 on excluded rows); out_sum, out_count: f64[num_cells];
-// scratch: block_sum_count_scratch_bytes(n) bytes.
+// weight (0 on excluded rows); out_sum, out_count: f64[num_cells].
 extern "C" int block_sum_count_launch(const void* k, const void* v, const void* w,
                                       int64_t n, int32_t num_cells, void* out_sum,
-                                      void* out_count, void* scratch, void* stream) {
+                                      void* out_count, void* stream) {
     const SumCount op{static_cast<const double*>(v), static_cast<const double*>(w),
                       static_cast<double*>(out_sum), static_cast<double*>(out_count)};
     return seg::launch(static_cast<const int32_t*>(k), n, (int64_t)num_cells, op,
-                       static_cast<seg::Pair*>(scratch), static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int64_t block_sum_count_scratch_bytes(int64_t n) {
-    return seg::scratch_bytes<seg::Pair>(n);
+                       static_cast<cudaStream_t>(stream));
 }

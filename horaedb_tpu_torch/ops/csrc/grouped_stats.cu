@@ -19,8 +19,9 @@
 //   2. the LSD radix passes of radix.cuh over the digits of num_segments
 //      only (3 passes at 10M segments), stable, carrying the row index;
 //   3. the segmented reduction of segreduce.cuh over the sorted keys, each
-//      row's value loaded through the carried index; the dropped rows sort
-//      last and never reach a segment;
+//      row's value loaded through the carried index, each segment's sum the
+//      left fold of its rows in input order (the sort is stable); the
+//      dropped rows sort last and never reach a segment;
 //   4. one elementwise pass over the segments writes the mean.
 #include <type_traits>
 
@@ -121,7 +122,6 @@ struct Scratch {
     uint64_t* ua;
     uint64_t* ub;
     int32_t* hist;
-    void* carry;  // segreduce's per-tile heads and tails
 };
 
 Scratch carve(void* p, int64_t n) {
@@ -138,7 +138,6 @@ Scratch carve(void* p, int64_t n) {
     s.ua = reinterpret_cast<uint64_t*>(take(8 * m));
     s.ub = reinterpret_cast<uint64_t*>(take(8 * m));
     s.hist = reinterpret_cast<int32_t*>(take(radix::hist_bytes(n)));
-    s.carry = take(seg::scratch_bytes<Stats<double>>(n));
     return s;
 }
 
@@ -150,8 +149,7 @@ int run(const void* values, int64_t n, int64_t num_segments, const Scratch& sc, 
     const GroupedOp<KIND, T> op{static_cast<const T*>(values), b.pa, static_cast<T*>(out_sum),
                                 static_cast<T*>(out_count), static_cast<double*>(out_min),
                                 static_cast<double*>(out_max)};
-    const int rc = seg::launch(static_cast<const uint64_t*>(b.ua), n, num_segments, op,
-                               static_cast<Stats<T>*>(sc.carry), s);
+    const int rc = seg::launch(static_cast<const uint64_t*>(b.ua), n, num_segments, op, s);
     if (rc != 0) return rc;
     if (num_segments > 0) {
         mean_kernel<KIND, T><<<radix::blocks_for(num_segments, 256), 256, 0, s>>>(
@@ -166,8 +164,7 @@ int run(const void* values, int64_t n, int64_t num_segments, const Scratch& sc, 
 extern "C" int64_t grouped_stats_scratch_bytes(int64_t n) {
     const int64_t m = n > 0 ? n : 1;
     auto pad = [](int64_t bytes) { return ((bytes + 255) / 256) * 256; };
-    return 2 * pad(4 * m) + 2 * pad(8 * m) + pad(radix::hist_bytes(n)) +
-           pad(seg::scratch_bytes<Stats<double>>(n));
+    return 2 * pad(4 * m) + 2 * pad(8 * m) + pad(radix::hist_bytes(n));
 }
 
 // values: n values of `kind` (0 f64, 1 int64, 2 uint64 bits in int64);

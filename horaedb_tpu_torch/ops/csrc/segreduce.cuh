@@ -2,28 +2,48 @@
 // block_sum_count.cu, block_min_max.cu and grouped_stats.cu.
 //
 // Rows arrive sorted by cell id, so every cell is one contiguous run. Each
-// block reduces one tile of TILE rows; each thread owns ITEMS consecutive
-// rows of it. A thread first reduces its rows (restarting at every run
-// head), a block-wide segmented scan over the thread aggregates then hands
-// every thread the partial of the run that enters its first row, and a
-// second walk over the rows finishes each run at its last row.
+// block takes one tile of TILE rows: its threads flag the run heads among
+// the tile's rows and pack their positions into shared memory in row order
+// (a ballot per warp and round). A run belongs to the block of the tile
+// that holds its head; a run entering a tile from an earlier one is that
+// tile's.
 //
-// A run that ends inside its tile writes its cell directly. A run that
-// touches a tile edge AND continues past it (the neighbouring row outside
-// the tile has the same id) goes to a per-tile carry instead: `head` for
-// the tile's first run, `tail` for its last. A second small kernel
-// (fold_kernel) joins the carries in tile order: the tile where a run
-// starts owns it and adds the heads of the following tiles in turn.
+// A short run (at most LONG rows) is folded by one thread: thread j takes
+// the tile's j-th run and folds it left to right, ((r0 + r1) + r2) + ...,
+// up to the next head (the tile's last run continues past the tile while
+// its id holds). A long run would serialise one thread for its whole
+// length, so the block folds it instead, in chunks of CHUNK rows counted
+// from the run's head: each thread folds one chunk left to right, the
+// first lane of each warp folds its warp's 32 chunk partials left to right
+// (a group of 32 * CHUNK rows), and thread 0 folds the group partials
+// into the run's total left to right, round after round of THREADS chunks
+// (ROUND rows) until the id changes.
 //
-// No atomics anywhere: each cell is written by exactly one thread, and
-// every partial is combined in a fixed order, so a grid is bitwise equal
-// from run to run. Ids outside [0, num_cells) are dropped. Rows that a
-// mask excludes either keep their in-range id and only carry an identity
-// element (weight 0, or +inf/-inf), so they never break a run, or carry an
-// id >= num_cells and sort to the end.
+// Either way the association of a cell's f64 sum depends on nothing but
+// the run's own rows in row order (its length picks the scheme, its head
+// places the chunks), never on where the run sits in the buffer. A query
+// reduced alone and the same query stacked at another offset among others
+// (the query batcher's stacked_downsample) give bitwise equal sums. For
+// runs of up to LONG rows the order is the JAX package's CPU order (a
+// sequential scatter-add in row order); longer runs differ from it in the
+// last bits only. A tree over threads and tiles would associate a run's
+// rows by their offset from thread and tile boundaries instead.
+//
+// No atomics anywhere: each cell is written by exactly one thread, so a
+// grid is bitwise equal from run to run. Ids outside [0, num_cells) are
+// dropped. Rows that a mask excludes either keep their in-range id and
+// only carry an identity element (weight 0, or +inf/-inf), so they never
+// break a run, or carry an id >= num_cells and sort to the end, where no
+// thread walks them.
+//
+// Cost: each row is loaded once, by the thread of its run (short runs) or
+// of its chunk (long runs). A short run takes up to LONG dependent steps in
+// one thread. A long run takes CHUNK + 32 + WARPS dependent steps per
+// ROUND rows in one block, so one cell of millions of rows keeps one block
+// busy while the others finish.
 //
 // The reduction is generic over an Op, which owns its inputs and outputs:
-//   using Acc;                      a plain struct (it lives in shared memory)
+//   using Acc;                      a plain struct
 //   static Acc identity();
 //   Acc load(int64_t pos) const;    the partial of sorted row `pos`
 //   static Acc combine(Acc x, Acc y);   x holds the earlier rows
@@ -39,10 +59,13 @@
 namespace seg {
 
 constexpr int THREADS = 256;
-constexpr int ITEMS = 8;
+constexpr int WARPS = THREADS / 32;
+constexpr int ITEMS = 16;
 constexpr int TILE = THREADS * ITEMS;
-
-__device__ inline int64_t imin(int64_t a, int64_t b) { return a < b ? a : b; }
+constexpr int LONG = 256;             // longer runs are folded by the block
+constexpr int SLOTS = TILE / LONG;    // long runs a tile can hold heads of
+constexpr int CHUNK = 16;             // rows a thread folds of a long run
+constexpr int ROUND = THREADS * CHUNK;  // rows the block folds of it at a time
 
 struct Pair {
     double a;
@@ -68,121 +91,139 @@ __device__ inline bool in_range(K key, int64_t num_cells) {
     return (int64_t)key >= 0 && (int64_t)key < num_cells;
 }
 
+// The block folds the long run whose head is `head` (see the header);
+// thread 0 stores the cell. Every thread of the block calls it.
 template <class Op, class K>
-__global__ void __launch_bounds__(THREADS)
-tile_kernel(const K* __restrict__ k, int64_t n, int64_t num_cells, Op op,
-            typename Op::Acc* __restrict__ head, typename Op::Acc* __restrict__ tail) {
+__device__ void fold_long(const K* __restrict__ k, int64_t n, int64_t head, const Op& op,
+                          typename Op::Acc* part, typename Op::Acc* group, int8_t* has,
+                          int8_t* more) {
     using Acc = typename Op::Acc;
-    __shared__ int flag_buf[2][THREADS];
-    __shared__ Acc agg_buf[2][THREADS];
-
     const int t = threadIdx.x;
-    const int64_t ts = (int64_t)blockIdx.x * TILE;
-    const int64_t te = imin(ts + TILE, n);
-    const int len = (int)(te - ts);
-    const int first = t * ITEMS;
-    const K key0 = k[ts];
-    const bool cross_back = ts > 0 && k[ts - 1] == key0;
-    const bool cross_fwd = te < n && k[te] == k[te - 1];
-
-    K keys[ITEMS];
-    Acc vals[ITEMS];
-#pragma unroll
-    for (int j = 0; j < ITEMS; ++j) {
-        const int r = first + j;
-        if (r < len) {
-            keys[j] = k[ts + r];
-            vals[j] = op.load(ts + r);
-        } else {
-            keys[j] = 0;
-            vals[j] = Op::identity();
-        }
-    }
-    const K prev_key = (first > 0 && first < len) ? k[ts + first - 1] : K(0);
-
-    // phase 1: aggregate of my rows after my last run head
-    bool flag = false;
-    bool have = false;
+    const int lane = t & 31;
+    const int w = t >> 5;
+    const K key = k[head];
     Acc acc = Op::identity();
-#pragma unroll
-    for (int j = 0; j < ITEMS; ++j) {
-        const int r = first + j;
-        if (r < len) {
-            const bool h = r == 0 || keys[j] != (j == 0 ? prev_key : keys[j - 1]);
-            acc = (h || !have) ? vals[j] : Op::combine(acc, vals[j]);
-            have = true;
-            flag = flag || h;
+    bool started = false;  // thread 0's: acc holds a group
+    for (int64_t base = head;; base += ROUND) {
+        // thread t folds chunk t of the round; rows past the run (another id,
+        // or past n) are loaded clamped and left out. Not unrolled:
+        // unrolling made step 2's short-run fold slower, presumably through
+        // the registers the whole kernel then holds.
+        const int64_t c0 = base + (int64_t)t * CHUNK;
+        Acc p = Op::identity();
+        bool hp = false;
+#pragma unroll 1
+        for (int j = 0; j < CHUNK; ++j) {
+            const int64_t q = c0 + j;
+            const int64_t qc = q < n ? q : n - 1;
+            const bool in = q < n && k[qc] == key;
+            const Acc x = op.load(qc);
+            if (in) p = hp ? Op::combine(p, x) : x;
+            hp = hp || in;
         }
-    }
-
-    // phase 2: inclusive segmented scan over threads (Hillis-Steele)
-    flag_buf[0][t] = flag;
-    agg_buf[0][t] = acc;
-    __syncthreads();
-    int src = 0;
-    for (int d = 1; d < THREADS; d <<= 1) {
-        int f = flag_buf[src][t];
-        Acc x = agg_buf[src][t];
-        if (t >= d) {
-            if (!f) x = Op::combine(agg_buf[src][t - d], x);
-            f = f || flag_buf[src][t - d];
-        }
-        flag_buf[src ^ 1][t] = f;
-        agg_buf[src ^ 1][t] = x;
+        part[t] = p;
+        has[t] = hp;
         __syncthreads();
-        src ^= 1;
-    }
-    const Acc carry = t > 0 ? agg_buf[src][t - 1] : Op::identity();
-
-    // phase 3: finish every run at its last row
-    Acc run = Op::identity();
-#pragma unroll
-    for (int j = 0; j < ITEMS; ++j) {
-        const int r = first + j;
-        if (r < len) {
-            const bool h = r == 0 || keys[j] != (j == 0 ? prev_key : keys[j - 1]);
-            if (h) {
-                run = vals[j];
-            } else {
-                run = Op::combine(j == 0 ? carry : run, vals[j]);
+        if (lane == 0) {
+            Acc g = Op::identity();
+            bool hg = false;
+            for (int i = 0; i < 32; ++i) {
+                if (!has[t + i]) break;  // the run ended in chunk t + i - 1
+                g = hg ? Op::combine(g, part[t + i]) : part[t + i];
+                hg = true;
             }
-            const bool last = r == len - 1;
-            const K next = last ? K(0) : (j + 1 < ITEMS ? keys[j + 1] : k[ts + r + 1]);
-            if (last || next != keys[j]) {
-                const K key = keys[j];
-                const bool cb = cross_back && key == key0;
-                const bool cf = cross_fwd && last;
-                if (cb) head[blockIdx.x] = run;
-                if (cf) tail[blockIdx.x] = run;
-                if (!cb && !cf && in_range(key, num_cells)) op.store((int64_t)key, run);
-            }
+            group[w] = g;
+            has[THREADS + w] = hg;
         }
+        __syncthreads();
+        if (t == 0) {
+            for (int i = 0; i < WARPS; ++i) {
+                if (!has[THREADS + i]) break;
+                acc = started ? Op::combine(acc, group[i]) : group[i];
+                started = true;
+            }
+            const int64_t next = base + ROUND;
+            *more = next < n && k[next] == key;
+        }
+        __syncthreads();
+        const bool go = *more;
+        __syncthreads();  // part, has and more are reused next round
+        if (!go) break;
     }
+    if (t == 0) op.store((int64_t)key, acc);
 }
 
-// One thread per tile: a tile whose last run continues into the next tile
-// and started inside it owns that run and folds the following heads in
-// tile order.
 template <class Op, class K>
-__global__ void fold_kernel(const K* __restrict__ k, int64_t n, int64_t num_cells,
-                            int64_t num_tiles, Op op,
-                            const typename Op::Acc* __restrict__ head,
-                            const typename Op::Acc* __restrict__ tail) {
-    const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= num_tiles) return;
-    const int64_t ts = b * TILE;
-    const int64_t te = imin(ts + TILE, n);
-    if (!(te < n && k[te] == k[te - 1])) return;
-    const K key = k[te - 1];
-    if (k[ts] == key && ts > 0 && k[ts - 1] == key) return;  // started earlier
-    typename Op::Acc acc = tail[b];
-    for (int64_t c = b + 1; c < num_tiles; ++c) {
-        acc = Op::combine(acc, head[c]);
-        const int64_t cs = c * TILE;
-        const int64_t ce = imin(cs + TILE, n);
-        if (!(k[ce - 1] == key && ce < n && k[ce] == key)) break;
+__global__ void __launch_bounds__(THREADS)
+run_kernel(const K* __restrict__ k, int64_t n, int64_t num_cells, Op op) {
+    using Acc = typename Op::Acc;
+    __shared__ int32_t heads[TILE];
+    __shared__ int32_t warp_cnt[WARPS];
+    __shared__ int32_t longs[SLOTS];
+    __shared__ Acc part[THREADS];
+    __shared__ Acc group[WARPS];
+    __shared__ int8_t has[THREADS + WARPS];
+    __shared__ int8_t more;
+    const int t = threadIdx.x;
+    const int lane = t & 31;
+    const int w = t >> 5;
+    const int64_t ts = (int64_t)blockIdx.x * TILE;
+    const int64_t rest = n - ts;
+    const int len = rest < TILE ? (int)rest : TILE;
+    if (t < SLOTS) longs[t] = -1;
+
+    // 1. the tile's run heads, in row order: round r flags rows
+    //    r * THREADS + t (coalesced), a ballot ranks them within the warp
+    //    and the warp counts rank the warps
+    int total = 0;
+    for (int rnd = 0; rnd < ITEMS; ++rnd) {
+        const int r = rnd * THREADS + t;
+        bool head = false;
+        if (r < len) {
+            const int64_t row = ts + r;
+            head = row == 0 || k[row - 1] != k[row];
+        }
+        const unsigned ballot = __ballot_sync(0xffffffffu, head);
+        if (lane == 0) warp_cnt[w] = __popc(ballot);
+        __syncthreads();
+        int at = total;
+        for (int i = 0; i < WARPS; ++i) {
+            const int c = warp_cnt[i];
+            if (i < w) at += c;
+            total += c;
+        }
+        if (head) heads[at + __popc(ballot & ((1u << lane) - 1u))] = r;
+        __syncthreads();
     }
-    if (in_range(key, num_cells)) op.store((int64_t)key, acc);
+
+    // 2. thread h folds the tile's h-th run left to right: up to the next
+    //    head, and for the tile's last run on past the tile while the id
+    //    holds. A run of more than LONG rows is left to step 3 (two such
+    //    runs' heads lie more than LONG rows apart, so each gets its own
+    //    slot).
+    for (int h = t; h < total; h += THREADS) {
+        const int64_t row = ts + heads[h];
+        const K key = k[row];
+        if (!in_range(key, num_cells)) continue;
+        int64_t end = h + 1 == total ? ts + len : ts + heads[h + 1];
+        if (h + 1 == total) {
+            while (end < n && end - row <= LONG && k[end] == key) ++end;
+        }
+        if (end - row > LONG) {
+            longs[heads[h] / LONG] = heads[h];
+            continue;
+        }
+        Acc acc = op.load(row);
+        for (int64_t p = row + 1; p < end; ++p) acc = Op::combine(acc, op.load(p));
+        op.store((int64_t)key, acc);
+    }
+
+    // 3. the block folds the tile's long runs, one after another
+    __syncthreads();
+    for (int s = 0; s < SLOTS; ++s) {
+        const int hp = longs[s];
+        if (hp >= 0) fold_long(k, n, ts + hp, op, part, group, has, &more);
+    }
 }
 
 template <class Op>
@@ -191,30 +232,18 @@ __global__ void fill_kernel(Op op, int64_t m) {
     if (i < m) op.store(i, Op::identity());
 }
 
-// Bytes of `scratch` that launch() needs for n rows: 2 * ceil(n / TILE)
-// accumulators (heads, then tails). Each kernel exports it, so the
-// caller's allocation follows TILE.
-template <class Acc>
-inline int64_t scratch_bytes(int64_t n) {
-    const int64_t tiles = n > 0 ? (n + TILE - 1) / TILE : 1;
-    return 2 * tiles * (int64_t)sizeof(Acc);
-}
-
-// Fill, reduce, fold: all on `stream`, nothing synchronised. `scratch`
-// holds scratch_bytes<Op::Acc>(n) bytes.
+// Fill, then reduce: both on `stream`, nothing synchronised. The fill
+// writes every cell before the runs overwrite theirs (same stream, in
+// order), so empty cells read the identity.
 template <class Op, class K>
-int launch(const K* k, int64_t n, int64_t num_cells, const Op& op,
-           typename Op::Acc* scratch, cudaStream_t stream) {
+int launch(const K* k, int64_t n, int64_t num_cells, const Op& op, cudaStream_t stream) {
     if (num_cells > 0) {
         const int64_t blocks = (num_cells + 255) / 256;
         fill_kernel<Op><<<(unsigned)blocks, 256, 0, stream>>>(op, num_cells);
     }
     if (n > 0 && num_cells > 0) {
-        const int64_t tiles = (n + TILE - 1) / TILE;
-        tile_kernel<Op, K><<<(unsigned)tiles, THREADS, 0, stream>>>(
-            k, n, num_cells, op, scratch, scratch + tiles);
-        fold_kernel<Op, K><<<(unsigned)((tiles + 255) / 256), 256, 0, stream>>>(
-            k, n, num_cells, tiles, op, scratch, scratch + tiles);
+        const int64_t blocks = (n + TILE - 1) / TILE;
+        run_kernel<Op, K><<<(unsigned)blocks, THREADS, 0, stream>>>(k, n, num_cells, op);
     }
     return (int)cudaGetLastError();
 }

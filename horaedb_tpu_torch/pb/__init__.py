@@ -1,12 +1,14 @@
-"""Protobuf wire types of the manifest deltas.
+"""Protobuf wire types of the manifest deltas and of remote write.
 
-`sst_pb2.py` and `protos/sst.proto` are byte-identical copies of the JAX
-package's: the generated module registers `sst.proto` (package
-`horaedb_tpu.sst`) in protobuf's default descriptor pool, and a process
-that imports both packages loads the file once per copy. Identical bytes
-share one registration; any change would fail as a duplicate file.
+`sst_pb2.py`, `remote_write_pb2.py` and `protos/{sst,remote_write}.proto`
+are byte-identical copies of the JAX package's: each generated module
+registers its `.proto` file (packages `horaedb_tpu.sst` and
+`horaedb_tpu.remote_write`) in protobuf's default descriptor pool, and a
+process that imports both packages loads each file once per copy.
+Identical bytes share one registration; any change would fail as a
+duplicate file.
 """
 
-from horaedb_tpu_torch.pb import sst_pb2
+from horaedb_tpu_torch.pb import remote_write_pb2, sst_pb2
 
-__all__ = ["sst_pb2"]
+__all__ = ["remote_write_pb2", "sst_pb2"]

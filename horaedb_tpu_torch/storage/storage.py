@@ -203,6 +203,11 @@ class ObjectBasedStorage:
     def parquet_reader(self) -> ParquetReader:
         return self._reader
 
+    @property
+    def device(self) -> torch.device:
+        """The device the merges, sorts and reductions of this table run on."""
+        return self._device
+
     def select_ssts(self, time_range: TimeRange) -> list[SstFile]:
         """SSTs whose time range overlaps `time_range`."""
         return self._manifest.find_ssts(time_range)

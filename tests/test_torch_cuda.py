@@ -346,3 +346,190 @@ def test_decode_kernels_match_plain(dev, case):
     assert torch.equal(got.cpu(), want.cpu())
     out = enc.decode_lane(lane, impl="device", device=dev)
     assert out.dtype == arr.dtype and np.array_equal(out.view(np.uint8), arr.view(np.uint8))
+
+
+def _u64(t) -> np.ndarray:
+    return np.ascontiguousarray(t.cpu().numpy() if torch.is_tensor(t) else t).view(np.uint64)
+
+
+# runs straddling 8-row thread spans and 2048-row tiles of the reduction
+# as it stood before the left fold (segreduce.cuh)
+_RUN_LENS = [1, 7, 9, 300, 2047, 2500, 4099]
+
+
+def _fold(x: np.ndarray) -> float:
+    """segreduce.cuh's association of a run's f64 sum: a left fold of its
+    rows for runs of up to 256 rows; longer runs left-fold chunks of 16
+    rows counted from the head, then groups of 32 chunk partials, then the
+    group partials (np.add.accumulate adds in order)."""
+    if len(x) <= 256:
+        return np.add.accumulate(x)[-1]
+    chunks = np.array([np.add.accumulate(x[i:i + 16])[-1] for i in range(0, len(x), 16)])
+    groups = np.array([np.add.accumulate(chunks[i:i + 32])[-1]
+                       for i in range(0, len(chunks), 32)])
+    return np.add.accumulate(groups)[-1]
+
+
+@pytest.mark.parametrize("offset", [0, 3, 8, 2045, 2048, 2049, 6141])
+def test_segreduce_sums_are_left_folds_whatever_the_offset(dev, offset):
+    """The same cells, non-dyadic values, placed after `offset` rows of
+    another cell: kernel B and grouped_stats give every cell the left fold
+    of its own rows in row order (in chunks from the head past 256 rows,
+    `_fold`), bitwise, at every offset (a tree over threads and tiles
+    associates a run's rows by their offset instead)."""
+    from horaedb_tpu_torch.ops.aggregate import grouped_stats
+
+    rng = np.random.default_rng(31)
+    target = [rng.uniform(-1e3, 1e3, n) for n in _RUN_LENS]
+    prefix = np.random.default_rng(offset).uniform(-1e3, 1e3, offset)
+    k = np.concatenate([np.zeros(offset, np.int32)]
+                       + [np.full(n, i + 1, np.int32) for i, n in enumerate(_RUN_LENS)])
+    v = np.concatenate([prefix] + target)
+    want = np.array([_fold(t) for t in target])
+    cells = len(_RUN_LENS) + 1
+    kt, vt = torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev)
+    s, c = blockagg.sorted_segment_sum_count(kt, vt, cells)
+    g = grouped_stats(vt, kt, None, cells)
+    torch.cuda.synchronize()
+    assert np.array_equal(_u64(s)[1:], _u64(want))
+    assert np.array_equal(_u64(g["sum"])[1:], _u64(want))
+    assert c.cpu().tolist()[1:] == [float(n) for n in _RUN_LENS]
+
+
+# a few cells of 1e5 rows and more (1-day buckets over 1 s scrapes hold
+# 86,400 rows a cell), beside runs at the short/long threshold of 256 rows
+_LONG_RUN_LENS = [100_000, 86_400, 256, 257, 131_073, 3, 4096]
+
+
+@pytest.mark.parametrize("offset", [0, 5, 4095, 4397])
+def test_segreduce_long_runs_match_plain_whatever_the_offset(dev, offset):
+    """Few cells of many rows each, non-dyadic values with NaN and +-inf
+    in one cell and masked rows, after `offset` rows of another cell:
+    kernels B and C and grouped_stats give counts, min and max equal to
+    their plain versions and every sum equal to `_fold` of its own rows,
+    bitwise, at every offset."""
+    from horaedb_tpu_torch.ops.aggregate import grouped_stats, grouped_stats_plain
+
+    rng = np.random.default_rng(47)
+    target = [rng.uniform(-1e3, 1e3, n) for n in _LONG_RUN_LENS]
+    target[4][[7, 50_000, 131_072]] = [np.nan, np.inf, -np.inf]
+    prefix = np.random.default_rng(offset).uniform(-1e3, 1e3, offset)
+    k = np.concatenate([np.zeros(offset, np.int32)]
+                       + [np.full(n, i + 1, np.int32) for i, n in enumerate(_LONG_RUN_LENS)])
+    v = np.concatenate([prefix] + target)
+    ok = np.random.default_rng(offset + 1).random(len(v)) > 0.1
+    cells = len(_LONG_RUN_LENS) + 1
+    kt, vt, okt = (torch.from_numpy(a).to(dev) for a in (k, v, ok))
+    s, c = blockagg.sorted_segment_sum_count(kt, vt, cells)
+    mn, mx = blockagg.sorted_segment_min_max(kt, vt, cells, valid=okt)
+    pmn, pmx = blockagg.min_max_plain(kt, vt, okt, cells)
+    g = grouped_stats(vt, kt, okt, cells)
+    want = grouped_stats_plain(vt, kt, okt, cells)
+    torch.cuda.synchronize()
+
+    def same_sums(got, want):  # bitwise, and NaN where the other is NaN
+        got, want = got.cpu().numpy()[1:], np.asarray(want)
+        nan = np.isnan(want)
+        assert np.array_equal(np.isnan(got), nan)
+        assert np.array_equal(_u64(got[~nan]), _u64(want[~nan]))
+
+    def exact(got, want):
+        torch.testing.assert_close(got.cpu(), want.cpu(), rtol=0, atol=0, equal_nan=True)
+
+    same_sums(s, [_fold(t) for t in target])
+    assert c.cpu().tolist()[1:] == [float(n) for n in _LONG_RUN_LENS]
+    exact(mn, pmn)
+    exact(mx, pmx)
+    starts = np.cumsum([offset] + _LONG_RUN_LENS)
+    same_sums(g["sum"], [_fold(v[a:b][ok[a:b]]) if ok[a:b].any() else 0.0
+                         for a, b in zip(starts[:-1], starts[1:])])
+    for key in ("count", "min", "max"):
+        exact(g[key], want[key])
+
+
+def _one_query(rng, num_series, num_buckets, bucket_ms, t0):
+    """Rows of one downsample query sorted by (series, ts), uniform values."""
+    per = rng.integers(0, 3 * num_buckets, num_series)
+    sid = np.repeat(np.arange(num_series, dtype=np.int32), per)
+    ts = t0 + rng.integers(0, num_buckets * bucket_ms, len(sid)).astype(np.int64)
+    order = np.lexsort((ts, sid))
+    return ts[order], sid[order], rng.uniform(0, 100, len(sid))
+
+
+@pytest.mark.parametrize("lane", [0, 2, 15])
+def test_stacked_equals_solo_bitwise(dev, lane):
+    """One query through the solo route (downsample_sorted, kernels B and
+    C) and through stacked_downsample in lane `lane` of 16 (a non-zero
+    offset for lanes 2 and 15), among other queries and padding: every
+    grid bitwise equal, sums as u64 views."""
+    from horaedb_tpu_torch.ops.aggregate import downsample_sorted, stacked_downsample
+
+    rng = np.random.default_rng(lane)
+    S, T, bucket_ms, t0 = 100, 30, 60_000, 1_700_000_040_000
+    ts, sid, vals = _one_query(rng, S, T, bucket_ms, t0)
+    solo = downsample_sorted(ts, sid, vals, t0, bucket_ms, S, T, device=dev)
+    B, R, spad = 16, 8192, 128
+    ts_b = np.zeros((B, R), np.int64)
+    sid_b = np.zeros((B, R), np.int32)
+    val_b = np.zeros((B, R))
+    ok_b = np.zeros((B, R), bool)
+    t0_b = np.zeros(B, np.int64)
+    for q in range(B):
+        if q == lane:
+            qt, qs, qv, qt0 = ts, sid, vals, t0
+        else:
+            qt0 = t0 + int(q) * bucket_ms
+            qt, qs, qv = _one_query(rng, int(rng.integers(1, spad)), T, bucket_ms, qt0)
+        n = len(qt)
+        ts_b[q, :n], sid_b[q, :n], val_b[q, :n], ok_b[q, :n], t0_b[q] = qt, qs, qv, True, qt0
+    got = stacked_downsample(*(torch.from_numpy(a).to(dev) for a in (ts_b, sid_b, val_b, ok_b,
+                                                                       t0_b)),
+                             bucket_ms, spad, T)
+    torch.cuda.synchronize()
+    for key in ("sum", "count", "min", "max", "mean"):
+        assert np.array_equal(_u64(got[key][lane, :S]), _u64(solo[key])), key
+
+
+def _stacked_cases():
+    rng = np.random.default_rng(77)
+    out = {}
+
+    def lanes(B, R, S, T, fill=0.8):
+        ts = rng.integers(-2 * 1000, (T + 2) * 1000, (B, R)).astype(np.int64)
+        sid = rng.integers(-1, S + 1, (B, R)).astype(np.int32)
+        v = rng.uniform(-1e3, 1e3, (B, R))
+        ok = rng.random((B, R)) < fill
+        t0 = rng.integers(-500, 500, B).astype(np.int64)
+        return ts + t0[:, None], sid, v, ok, t0
+
+    out["B=1"] = (*lanes(1, 4096, 40, 12), 40, 12)
+    ts, sid, v, ok, t0 = lanes(16, 2048, 64, 30)
+    ok[3:] = False  # empty lanes past the third
+    out["B=16, empty lanes"] = (ts, sid, v, ok, t0, 64, 30)
+    ts, sid, v, ok, t0 = lanes(4, 3000, 8, 5)
+    ok[1] = False  # an all-masked lane
+    v.flat[rng.choice(v.size, 30, replace=False)] = np.resize([np.nan, np.inf, -np.inf], 30)
+    out["NaN, +-inf, a masked lane"] = (ts, sid, v, ok, t0, 8, 5)
+    # long runs straddling 8- and 2048-row boundaries at odd lane offsets
+    B, R = 3, 6151
+    sid = np.zeros((B, R), np.int32)
+    sid[:, 2500:] = 1
+    ts = np.tile(np.arange(R, dtype=np.int64) % 1000, (B, 1))
+    out["runs across tiles"] = (ts, sid, rng.uniform(0, 1, (B, R)), np.ones((B, R), bool),
+                                np.zeros(B, np.int64), 2, 1)
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(_stacked_cases()))
+def test_stacked_downsample_matches_plain(dev, case):
+    """Kernel against the plain version on CPU copies (each cell's rows
+    summed in the kernel's association there): bitwise, sums as u64 views."""
+    from horaedb_tpu_torch.ops.aggregate import stacked_downsample
+
+    ts, sid, v, ok, t0, S, T = _stacked_cases()[case]
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (ts, sid, v, ok, t0)]
+    got = stacked_downsample(*(a.to(dev) for a in args), 1000, S, T)
+    want = stacked_downsample(*args, 1000, S, T)
+    torch.cuda.synchronize()
+    for key in ("sum", "count", "min", "max", "mean"):
+        assert np.array_equal(_u64(got[key]), _u64(want[key])), key

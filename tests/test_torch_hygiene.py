@@ -1,9 +1,9 @@
 """Boundaries of the PyTorch/CUDA port (horaedb_tpu_torch).
 
-- Nothing in the port or in chip_smoke.py imports jax or the JAX package
-  (the card's machine has no jax; it has pyarrow and protobuf, which the
-  port's storage uses).
-- The port's protobuf module is a byte-identical copy of the JAX
+- Nothing in the port, chip_smoke.py or chip_ab.py imports jax or
+  the JAX package (the card's machine has no jax; it has pyarrow and
+  protobuf, which the port's storage uses).
+- The port's protobuf modules are byte-identical copies of the JAX
   package's, so one process can import both.
 - Entry points default to the card and raise where there is none, instead
   of running on the CPU; the plain versions run only when asked for.
@@ -47,7 +47,7 @@ def _forbidden(module: str) -> bool:
     return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
 
 
-@pytest.mark.parametrize("rel", PORT_FILES + ["chip_smoke.py"])
+@pytest.mark.parametrize("rel", PORT_FILES + ["chip_smoke.py", "chip_ab.py"])
 def test_no_forbidden_imports(rel):
     bad = [m for m in _imported_modules(ROOT / rel) if _forbidden(m)]
     assert not bad, f"{rel} imports {bad}"
@@ -60,7 +60,8 @@ def test_forbidden_rule_catches_the_reference_but_not_the_port():
     assert not _forbidden("pyarrow") and not _forbidden("google.protobuf")
 
 
-@pytest.mark.parametrize("rel", ["pb/sst_pb2.py", "pb/protos/sst.proto"])
+@pytest.mark.parametrize("rel", ["pb/sst_pb2.py", "pb/protos/sst.proto",
+                                 "pb/remote_write_pb2.py", "pb/protos/remote_write.proto"])
 def test_pb_copy_is_byte_identical(rel):
     port, reference = ROOT / "horaedb_tpu_torch" / rel, ROOT / "horaedb_tpu" / rel
     assert port.read_bytes() == reference.read_bytes()
@@ -74,6 +75,19 @@ def test_both_pb_copies_share_one_registration():
     assert jax_pb.ManifestUpdate.FromString(msg.SerializeToString()).to_deletes == [2**64 - 1]
 
 
+def test_both_remote_write_copies_share_one_registration():
+    from horaedb_tpu.pb import remote_write_pb2 as jax_pb
+    from horaedb_tpu_torch.pb import remote_write_pb2 as port_pb
+
+    msg = port_pb.WriteRequest()
+    lab = msg.timeseries.add().labels.add()
+    lab.name, lab.value = b"__name__", b"up"
+    got = jax_pb.WriteRequest.FromString(msg.SerializeToString())
+    assert got.timeseries[0].labels[0].value == b"up"
+    assert port_pb.DESCRIPTOR is jax_pb.DESCRIPTOR or \
+        port_pb.DESCRIPTOR.serialized_pb == jax_pb.DESCRIPTOR.serialized_pb
+
+
 @pytest.fixture
 def no_card():
     if torch.cuda.is_available():
@@ -85,8 +99,10 @@ def _entry_points():
 
     import pyarrow as pa
 
+    from horaedb_tpu_torch.engine import MetricEngine
     from horaedb_tpu_torch.objstore import MemStore
     from horaedb_tpu_torch.ops.aggregate import downsample_sorted
+    from horaedb_tpu_torch.serving import ServingTierConfig
     from horaedb_tpu_torch.ops.decode import decode_page_device
     from horaedb_tpu_torch.ops.sort import sort_permutation
     from horaedb_tpu_torch.storage import ObjectBasedStorage
@@ -104,11 +120,15 @@ def _entry_points():
         "downsample_sorted": lambda: downsample_sorted(z, z.astype(np.int32), z * 1.0, 0, 10,
                                                        num_series=1, num_buckets=1),
         "decode_page_device": lambda: decode_page_device("dod", "<i8", b"", 2, 0, 5, 1, None),
+        "MetricEngine.open": lambda: asyncio.run(MetricEngine.open(
+            "db", MemStore(), enable_compaction=False,
+            serving=ServingTierConfig(enabled=False))),
     }
 
 
 @pytest.mark.parametrize("name", ["try_new", "open_local_root", "sort_permutation",
-                                  "downsample_sorted", "decode_page_device"])
+                                  "downsample_sorted", "decode_page_device",
+                                  "MetricEngine.open"])
 def test_entry_point_without_device_raises_on_cpu_box(no_card, name):
     with pytest.raises(HoraeError, match="no CUDA device"):
         _entry_points()[name]()
@@ -140,12 +160,14 @@ def test_plain_versions_do_not_count_launches():
     decode.decode_dod(words, table, 3, 8)
     decode.decode_xor(words, table, 3, 4)
     decode.decode_rle(words, torch.tensor([[0, 3, 0, 0, 1, 0]]), torch.tensor([3]), 3, 4)
+    aggregate.stacked_downsample(key[None], k[None], v[None], torch.ones(1, 3, dtype=torch.bool),
+                                 torch.zeros(1, dtype=torch.int64), 2, 1, 4)
     assert launch_counts() == before
     assert set(before) == set(KERNELS) == {"sort_perm", "block_sum_count", "block_min_max",
                                            "packed_merge", "index_merge_mask",
                                            "index_merge_filter", "scan_kernel", "downsample",
                                            "grouped_stats", "decode_unpack", "decode_dod",
-                                           "decode_xor", "decode_rle"}
+                                           "decode_xor", "decode_rle", "stacked_downsample"}
 
 
 @pytest.mark.parametrize("text", ["0", "1500", "2h", "1d2h3m4s5ms", "1.5h", "90s", "250ms"])
