@@ -3,6 +3,7 @@
 
     python3 chip_ab.py reduce [--root DIR] [--seed N]
     python3 chip_ab.py id-cache [--seed N]
+    python3 chip_ab.py solo-fold [--root DIR] [--seed N]
 
 `reduce` builds and times, with chip_smoke's CUDA-event timer, the kernels
 that share `horaedb_tpu_torch/ops/csrc/segreduce.cuh`:
@@ -25,6 +26,15 @@ on the card: the first payload registers the series, then blocks of three
 payloads with the engine's id cache on, off, off and on (off: a mapping
 that never hits, so every payload runs the registration probes of the
 JAX engine's slow path). Each payload carries new timestamps.
+
+`solo-fold` times `ops/aggregate.py::downsample_sorted` end to end on the
+card (the host prologue, the upload, kernels B and C, the grids back to
+the host), host clock after a synchronise, on one 2 h segment of the
+TSBS grid (10,000 series x 720 rows, 48 buckets), the packed pass's fold:
+once with every row in the grid and once with the window starting an hour
+into the segment (half the rows outside the grid, on the host with
+`HORAEDB_AGG_IMPL=block` pinned, where the package has the dispatcher).
+Seven runs each after a warm-up; `--root` as for `reduce`.
 
 Each mode prints the card's name and power limit, then one JSON line.
 """
@@ -90,6 +100,34 @@ def reduce_times(torch, cs, rng, dev) -> dict:
     return out
 
 
+def solo_fold_times(torch, cs, rng, dev) -> dict:
+    from horaedb_tpu_torch.ops import aggregate
+
+    per = cs.SEGMENT_MS // cs.INTERVAL_MS
+    sid = np.repeat(np.arange(cs.NUM_SERIES, dtype=np.int32), per)
+    ts = cs.T0 + np.tile(np.arange(per, dtype=np.int64) * cs.INTERVAL_MS, cs.NUM_SERIES)
+    vals = rng.uniform(0, 100, len(ts))
+    buckets = cs.WINDOW_MS // cs.BUCKET_MS
+    out = {"shape": f"{len(ts)} rows, {cs.NUM_SERIES} series x {buckets} buckets"}
+    os.environ["HORAEDB_AGG_IMPL"] = "block"
+    for name, t0 in (("in_grid", cs.T0), ("half_outside", cs.T0 + cs.SEGMENT_MS // 2)):
+        def fold():
+            g = aggregate.downsample_sorted(ts, sid, vals, t0, cs.BUCKET_MS, cs.NUM_SERIES,
+                                            buckets, device=dev)
+            return {k: v.cpu().numpy() for k, v in g.items()}
+
+        fold()
+        secs = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fold()
+            secs.append(time.perf_counter() - t)
+        out[f"{name}_s"] = secs
+        out[f"{name}_median_s"] = float(np.median(secs))
+    return out
+
+
 class NeverHit(dict):
     """An id cache that never hits and keeps nothing."""
 
@@ -144,7 +182,7 @@ async def id_cache_times(torch, cs, rng, dev) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
-    ap.add_argument("mode", choices=("reduce", "id-cache"))
+    ap.add_argument("mode", choices=("reduce", "id-cache", "solo-fold"))
     ap.add_argument("--root", default=None, help="import horaedb_tpu_torch from this checkout")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -166,6 +204,8 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     if args.mode == "reduce":
         out = reduce_times(torch, cs, rng, dev)
+    elif args.mode == "solo-fold":
+        out = solo_fold_times(torch, cs, rng, dev)
     else:
         out = asyncio.run(id_cache_times(torch, cs, rng, dev))
     out.update(mode=args.mode, package=os.path.dirname(horaedb_tpu_torch.__file__), card=card)

@@ -32,6 +32,11 @@ Phases, each of which exits non-zero on failure:
    of 16 against its solo reduction (downsample_sorted, kernels B and C);
    and kernels B, C and grouped_stats on 12 cells of 86,400 rows each
    (runs that segreduce.cuh folds block-wide), checked and timed;
+   and lane_sum_count (n mod 8 != 0, ids < 0 and >= the cell count,
+   weights given and not, an empty input; counts exact, sums within
+   2^-20 x the cell's L1 mass), segment_last_value (ties, empty segments,
+   invalid rows, a u64 seq >= 2^63; bitwise) and kernel B's bf16 flag
+   (bitwise), against their plain versions;
 3. the main paths at TSBS cpu-only scale (10,000 series, one field, 10 s
    interval, 4 h = two 2 h segments = 14.4M samples), stored as parquet
    SSTs and a manifest in a LocalStore under a temporary directory; the
@@ -99,13 +104,34 @@ Phases, each of which exits non-zero on failure:
       must make one launch that every query rode (the matchers resolve in
       worker threads, so their arrivals spread past 2 ms); a lone query
       must take the solo route; burst A runs again under torch.profiler;
+   j. PromQL on 3i's engine before it closes, from a fresh calibration
+      file of the aggregation dispatcher (so the first pushdown calibrates
+      on the card, lane_sum_count included): `evaluate_range` of
+      Q1 avg_over_time(cpu_usage_user[5m]) at a 5 m step (TSBS
+      double-groupby-1's grid over all 10,000 hosts), Q2 max by (region)
+      (max_over_time(cpu_usage_system[1m])) at 1 m, Q3 max_over_time of 8
+      hosts by hostname=~ at 1 m (single-groupby-1-8-1), Q4 cpu_usage_user
+      > 90 at 5 m (high-cpu-all, raw path), Q5
+      last_over_time(cpu_usage_user[10m]) at 10 m (lastpoint-like, raw path)
+      and Q6 topk(5, Q1), each equal to a numpy oracle (max and selections
+      exact, means rtol 1e-12, the same series); the calibration entries
+      (rows/s of every device implementation, none rejected) and the
+      agg_impl_* notes printed; Q1 again under HORAEDB_AGG_IMPL = each
+      device name, bitwise equal to `block`'s grid, with no lane_sum_count
+      launch (f64 values);
+   k. the last write of each of 7.2M segments (a dedup shape like 3a's
+      segment, 5 % re-sent rows with a higher seq) through
+      segment_last_value's own entry point, held against the written
+      values; no engine or PromQL path calls it, as in the JAX package;
    every kernel must have launched on one of these paths; queries and a
    scan run under torch.profiler (and cProfile) for where the time goes;
 4. scan_kernel, downsample and grouped_stats against their plain versions
    at the main path's shapes, on the inputs the first fused query of 3e
    gave them (kept from that run), the four decode kernels on the
-   largest lane each decoded on the device in 3g/3h, and stacked_downsample
-   on burst A's launch inputs, timed.
+   largest lane each decoded on the device in 3g/3h, stacked_downsample
+   on burst A's launch inputs, lane_sum_count at the calibration's shapes
+   (2^18 rows into 16,384 and 524,288 cells) and segment_last_value on
+   3k's inputs, timed.
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result.
@@ -306,9 +332,9 @@ def check_long_runs(torch, rng, dev) -> dict:
             "long runs: grouped_stats != plain")
     out = {"shape": f"{len(k)} rows, {cells} cells of {LONG_RUN_ROWS} rows",
            "block_sum_count_ms": cuda_ms(
-               torch, lambda: blockagg.sorted_segment_sum_count(kt, vt, cells)),
+               torch, lambda: blockagg.block_sum_count(kt, vt, cells)),
            "block_min_max_ms": cuda_ms(
-               torch, lambda: blockagg.sorted_segment_min_max(kt, vt, cells, valid=okt)),
+               torch, lambda: blockagg.block_min_max(kt, vt, cells, valid=okt)),
            "grouped_stats_ms": cuda_ms(torch, lambda: grouped_stats(vt, kt, None, cells))}
     print(f"long runs ({out['shape']}): B {out['block_sum_count_ms']:.4f} ms, "
           f"C {out['block_min_max_ms']:.4f} ms, grouped_stats {out['grouped_stats_ms']:.4f} ms",
@@ -418,7 +444,7 @@ def check_kernels(torch, rng, dev) -> list[dict]:
         "source": "horaedb_tpu_torch/ops/csrc/block_sum_count.cu",
         "replaces": "horaedb_tpu/ops/blockagg.py:76", "shape": shape,
         "max_abs_err": abs_err(torch, s, ps),
-        "ms": cuda_ms(torch, lambda: blockagg.sorted_segment_sum_count(kt, vt, cells, weights=wt)),
+        "ms": cuda_ms(torch, lambda: blockagg.block_sum_count(kt, vt, cells, weights=wt)),
         "plain_ms": cuda_ms(torch, lambda: blockagg.sum_count_plain(kt, vt, wt, cells)),
         "bound_ms": nb, "bound_by": kind,
         "library_ms": cuda_ms(torch, lambda: torch.zeros(
@@ -431,7 +457,7 @@ def check_kernels(torch, rng, dev) -> list[dict]:
         "source": "horaedb_tpu_torch/ops/csrc/block_min_max.cu",
         "replaces": "horaedb_tpu/ops/blockagg.py:201", "shape": shape,
         "max_abs_err": max(abs_err(torch, mn, pmn), abs_err(torch, mx, pmx)),
-        "ms": cuda_ms(torch, lambda: blockagg.sorted_segment_min_max(kt, vt, cells, valid=okt)),
+        "ms": cuda_ms(torch, lambda: blockagg.block_min_max(kt, vt, cells, valid=okt)),
         "plain_ms": cuda_ms(torch, lambda: blockagg.min_max_plain(kt, vt, okt, cells)),
         "bound_ms": nb, "bound_by": kind,
         "library_ms": cuda_ms(torch, lambda: torch.full(
@@ -1118,6 +1144,188 @@ def decode_records(torch, cap: CaptureDecode, dev) -> list[dict]:
     return records
 
 
+# -- phase 2, continued: lane_sum_count, segment_last_value, kernel B's bf16 flag
+
+def lane_within_budget(torch, s, ps, k: np.ndarray, v: np.ndarray, cells: int) -> float:
+    """Largest |kernel - plain| of lane_sum_count sums, required within
+    2^-20 x the cell's L1 mass (f32 atomics add in no fixed order)."""
+    l1 = np.bincount(np.clip(k, 0, cells), weights=np.abs(v.astype(np.float64)),
+                     minlength=cells + 1)[:cells]
+    err = np.abs(s.cpu().numpy().astype(np.float64) - ps.cpu().numpy().astype(np.float64))
+    require(bool(np.all(err <= 2.0 ** -20 * l1)), "lane_sum_count sums beyond 2^-20 x L1")
+    return float(err.max()) if err.size else 0.0
+
+
+I64_MIN = -(2**63)
+
+
+def check_agg_kernels(torch, rng, dev) -> None:
+    """Phase 2: lane_sum_count (counts exact, sums within 2^-20 x L1) and
+    segment_last_value (bitwise, u64 views) against their plain versions on
+    CPU copies, on edge cases; kernel B's bf16 flag bitwise against its
+    plain version."""
+    from horaedb_tpu_torch.ops import aggregate as agg
+    from horaedb_tpu_torch.ops import blockagg
+
+    lane_cases = [("n % 8 = 3, ids < 0 and >= C", 1003, 50, False),
+                  ("weights, n % 8 = 5, ids < 0 and >= C", 10_005, 700, True),
+                  ("empty input", 0, 16, False), ("tail rows only", 6, 16, True),
+                  ("2^18 rows into 2^19 cells", 1 << 18, 1 << 19, True)]
+    for name, n, cells, weighted in lane_cases:
+        k = rng.integers(-3, cells + 3, n).astype(np.int32)
+        v = (rng.normal(size=n) * 100).astype(np.float32)
+        w = (rng.random(n) > 0.3).astype(np.float32) if weighted else None
+        host = [torch.from_numpy(a) for a in (k, v)]
+        hw = None if w is None else torch.from_numpy(w)
+        s, c = agg.lane_segment_sum_count(*(a.to(dev) for a in host), cells,
+                                          w=None if hw is None else hw.to(dev))
+        ps, pc = agg.lane_segment_sum_count(*host, cells, w=hw)
+        torch.cuda.synchronize()
+        require(s.dtype == torch.float32 and torch.equal(c.cpu(), pc),
+                f"lane_sum_count counts != plain on {name!r}")
+        lane_within_budget(torch, s, ps, k, v, cells)
+
+    n, segs = 1_000_003, 300_000
+    for name in ("ties", "empty segments", "invalid rows", "seq >= 2^63 (u64)", "no rows"):
+        vals = rng.normal(size=n)
+        vals[rng.choice(n, 60, replace=False)] = np.resize([np.nan, -0.0, np.inf, -np.inf], 60)
+        index = rng.integers(-2, segs + 2, n).astype(np.int32)
+        valid = rng.random(n) > (0.5 if name == "invalid rows" else 0.0)
+        seq = rng.integers(0, 4, n).astype(np.uint64)  # ties
+        m = segs
+        if name == "empty segments":
+            m = 8 * segs
+        elif name.startswith("seq"):
+            seq = seq + np.uint64(2**63) - np.where(rng.random(n) > 0.5, np.uint64(2),
+                                                    np.uint64(0))
+        elif name == "no rows":
+            vals, seq, index, valid = vals[:0], seq[:0], index[:0], valid[:0]
+        host = [torch.from_numpy(a) for a in (vals, agg.seq_as_int64(seq), index, valid)]
+        got = agg.segment_last_value(*(a.to(dev) for a in host), m)
+        want = agg.segment_last_value(*host, m)
+        torch.cuda.synchronize()
+        require(np.array_equal(got.cpu().numpy().view(np.uint64), want.numpy().view(np.uint64)),
+                f"segment_last_value != plain on {name!r}")
+
+    k = np.sort(rng.integers(0, 3000, 200_000)).astype(np.int32)
+    v = rng.normal(size=len(k)).astype(np.float32).astype(np.float64) * 1e3
+    host = [torch.from_numpy(a) for a in (k, v)]
+    got = blockagg.block_sum_count(*(a.to(dev) for a in host), 3000, bf16=True)
+    want = blockagg.block_sum_count(*host, 3000, bf16=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        require(np.array_equal(a.cpu().numpy().view(np.uint64), b.numpy().view(np.uint64)),
+                "block_sum_count with round_bf16 != plain")
+
+
+def last_write_path(torch, rng, dev, counted) -> tuple[dict, tuple]:
+    """Phase 3k: the last write of each segment at a dedup shape like phase
+    3a's segment (7.2M segments, 5 % re-sent rows with a higher seq, rows
+    shuffled) through segment_last_value, held against the values written
+    last. Returns the record and the inputs phase 4 times."""
+    import horaedb_tpu_torch as port
+    from horaedb_tpu_torch.ops import aggregate as agg
+
+    segs = NUM_SERIES * (SEGMENT_MS // INTERVAL_MS)
+    resend = int(rng.binomial(segs, RESEND_FRACTION))
+    again = rng.choice(segs, resend, replace=False)
+    index = np.concatenate([np.arange(segs), again]).astype(np.int32)
+    seq = np.concatenate([rng.integers(1, 2 * BATCHES_PER_SEGMENT + 1, segs),
+                          np.full(resend, 2 * BATCHES_PER_SEGMENT + 1)]).astype(np.int64)
+    vals = rng.uniform(0, 100, len(index))
+    perm = rng.permutation(len(index))
+    want = vals[:segs].copy()
+    want[again] = vals[segs:]
+    index, seq, vals = index[perm], seq[perm], vals[perm]
+    vt, st, it = (torch.from_numpy(a).to(dev) for a in (vals, seq, index))
+    okt = torch.ones(len(index), dtype=torch.bool, device=dev)
+    port.reset_launch_counts()
+    t = time.perf_counter()
+    got = agg.segment_last_value(vt, st, it, okt, segs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    counted("last_write", port.launch_counts())
+    require(np.array_equal(got.cpu().numpy(), want), "3k: not the last write of every segment")
+    print(f"3k last write of {segs} segments from {len(index)} rows in {secs:.4f} s", flush=True)
+    return ({"rows": len(index), "segments": segs, "resent": resend, "s": secs},
+            (vt, st, it, okt, segs, resend))
+
+
+def agg_records(torch, dev, last_write: tuple) -> list[dict]:
+    """Phase 4: lane_sum_count at the calibration's two shapes (2^18 rows
+    into 16,384 and 524,288 cells) and segment_last_value on phase 3k's
+    inputs, against their plain versions on the card, timed."""
+    from horaedb_tpu_torch.ops import agg_registry
+    from horaedb_tpu_torch.ops import aggregate as agg
+
+    records = []
+    shapes = {}
+    for klass in ("dense", "sparse"):
+        k, v, cells = agg_registry.calib_inputs(klass)
+        n = len(k)
+        kt, vt = torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev)
+        s, c = agg.lane_segment_sum_count(kt, vt, cells)
+        ps, pc = agg.lane_sum_count_plain(kt, vt, cells)
+        torch.cuda.synchronize()
+        require(torch.equal(c, pc), f"lane_sum_count counts != plain at {klass} shape")
+        err = lane_within_budget(torch, s, ps, k, v, cells)
+        kc = kt.long().clamp(0, cells)
+        ones = torch.ones_like(vt)
+
+        def library(kc=kc, vt=vt, ones=ones, cells=cells):
+            torch.zeros(cells + 1, dtype=torch.float32, device=dev).index_add_(0, kc, vt)
+            torch.zeros(cells + 1, dtype=torch.float32, device=dev).index_add_(0, kc, ones)
+
+        # each id, value and weight read once (12 B/row), sum and count
+        # written once (8 B/cell)
+        nb, kind = bound(n * 12 + cells * 8, 0)
+        shapes[klass] = {
+            "shape": f"{n} rows into {cells} cells (calibration, {klass})",
+            "max_abs_err": err,
+            "ms": cuda_ms(torch, lambda kt=kt, vt=vt, cells=cells:
+                          agg.lane_segment_sum_count(kt, vt, cells)),
+            "plain_ms": cuda_ms(torch, lambda kt=kt, vt=vt, cells=cells:
+                                agg.lane_sum_count_plain(kt, vt, cells)),
+            "bound_ms": nb, "bound_by": kind, "library_ms": cuda_ms(torch, library)}
+    records.append({"name": "lane_sum_count", "route": "cuda",
+                    "source": "horaedb_tpu_torch/ops/csrc/lane_sum_count.cu",
+                    "replaces": "horaedb_tpu/ops/aggregate.py:246", **shapes["dense"],
+                    "library_call": "index_add_ x2 (f32 value, weight) over the clipped ids",
+                    "sparse": shapes["sparse"]})
+
+    vt, st, it, okt, segs, resend = last_write
+    n = len(vt)
+    got = agg.segment_last_value(vt, st, it, okt, segs)
+    want = agg.segment_last_value_plain(vt, st, it, okt, segs)
+    torch.cuda.synchronize()
+    require(np.array_equal(got.cpu().numpy().view(np.uint64), want.cpu().numpy().view(np.uint64)),
+            "segment_last_value != plain at the dedup shape")
+    idx = it.long()
+    pos = torch.arange(n, device=dev)
+
+    def library():
+        mx = torch.full((segs,), I64_MIN, dtype=torch.int64, device=dev).scatter_reduce_(
+            0, idx, st, "amax")
+        best = torch.full((segs,), -1, dtype=torch.int64, device=dev).scatter_reduce_(
+            0, idx, torch.where(st == mx[idx], pos, -1), "amax")
+        return vt[best.clamp_(min=0)]
+
+    # each value, seq, index and mask read once (21 B/row), the value of
+    # each segment written once (8 B/segment)
+    nb, kind = bound(n * 21 + segs * 8, 0)
+    records.append({
+        "name": "segment_last_value", "route": "cuda",
+        "source": "horaedb_tpu_torch/ops/csrc/segment_last_value.cu",
+        "replaces": "horaedb_tpu/ops/aggregate.py:354",
+        "shape": f"{n} rows ({resend} re-sent with a higher seq), {segs} segments",
+        "max_abs_err": abs_err(torch, got, want),
+        "ms": cuda_ms(torch, lambda: agg.segment_last_value(vt, st, it, okt, segs)),
+        "plain_ms": cuda_ms(torch, lambda: agg.segment_last_value_plain(vt, st, it, okt, segs)),
+        "bound_ms": nb, "bound_by": kind, "library_ms": cuda_ms(torch, library),
+        "library_call": "scatter_reduce amax x2 (seq, then position) + a gather"})
+    return records
+
+
 # -- phase 3: the main paths ----------------------------------------------------
 
 def make_data(rng):
@@ -1557,6 +1765,9 @@ async def main_paths(torch, rng, dev, data, workdir) -> dict:
 
     # i. the metric engine and the query batcher
     out["engine"] = await engine_paths(torch, rng, dev, workdir, counted)
+
+    # k. the last write of each segment (segment_last_value)
+    out["last_write"], out["last_write_capture"] = last_write_path(torch, rng, dev, counted)
     for name, count in launches.items():
         require(count > 0, f"kernel {name} never launched on a main path")
     out["kernel_launches"] = launches
@@ -2201,8 +2412,166 @@ async def engine_paths(torch, rng, dev, workdir, counted) -> dict:
                    "launches": {k: v for k, v in counts.items() if v}}
     out["batch_families"] = batch_families()
     print(f"3i horaedb_batch_*: {json.dumps(out['batch_families'])}", flush=True)
+    # j. PromQL on the same engine, before it closes
+    out["promql"] = await promql_paths(torch, eng, values, tags, workdir, counted)
     await eng.close()
     out["capture"] = cap
+    return out
+
+
+# -- phase 3j: PromQL range queries over the engine, and the calibrated dispatcher
+
+PROMQL_QUERIES = {
+    # TSBS double-groupby-1's grid over one metric: every host, 5-minute steps
+    "Q1": ("avg_over_time(cpu_usage_user[5m])", 300_000),
+    "Q2": ("max by (region) (max_over_time(cpu_usage_system[1m]))", 60_000),
+    # TSBS single-groupby-1-8-1
+    "Q3": ('max_over_time(cpu_usage_user{hostname=~"host_(1|2|3|4|5|6|7|8)"}[1m])', 60_000),
+    # TSBS high-cpu-all: an instant selector (raw path) and a comparison
+    "Q4": ("cpu_usage_user > 90", 300_000),
+    # lastpoint-like: last_over_time with window == step (raw path)
+    "Q5": ("last_over_time(cpu_usage_user[10m])", 600_000),
+    "Q6": ("topk(5, avg_over_time(cpu_usage_user[5m]))", 300_000),
+}
+
+
+def promql_oracle(name: str, values: np.ndarray, regions: list) -> dict:
+    """Host (or region) -> per-step values of query `name` from the
+    generator's values [hosts, fields, scrapes] (field 0 usage_user, 1
+    usage_system; scrape i at T0 + i * INTERVAL_MS); steps run from
+    T0 + step to T0 + ENGINE_WINDOW_MS, and a step's window is the step
+    before it."""
+    per5, per1 = 300_000 // INTERVAL_MS, 60_000 // INTERVAL_MS
+    n = values.shape[0]
+    if name in ("Q1", "Q6"):
+        mean = values[:, 0].reshape(n, -1, per5).sum(axis=2) / per5
+        if name == "Q1":
+            return {f"host_{h}": mean[h] for h in range(n)}
+        top = np.argsort(-mean, axis=0, kind="stable")[:5]
+        keep = np.zeros(mean.shape, bool)
+        keep[top, np.arange(mean.shape[1])[None, :]] = True
+        return {f"host_{h}": np.where(keep[h], mean[h], np.nan)
+                for h in np.flatnonzero(keep.any(axis=1))}
+    if name == "Q2":
+        mx = values[:, 1].reshape(n, -1, per1).max(axis=2)
+        out = {}
+        for r in sorted(set(regions)):
+            out[r] = mx[[i for i in range(n) if regions[i] == r]].max(axis=0)
+        return out
+    if name == "Q3":
+        mx = values[1:9, 0].reshape(8, -1, per1).max(axis=2)
+        return {f"host_{h}": mx[h - 1] for h in range(1, 9)}
+    if name == "Q4":
+        idx = np.minimum(np.arange(1, ENGINE_WINDOW_MS // 300_000 + 1) * per5,
+                         values.shape[2] - 1)
+        inst = values[:, 0, idx]
+        hot = np.where(inst > 90, inst, np.nan)
+        return {f"host_{h}": hot[h] for h in range(n) if not np.isnan(hot[h]).all()}
+    per10 = 600_000 // INTERVAL_MS
+    last = values[:, 0, per10 - 1::per10]
+    return {f"host_{h}": last[h] for h in range(n)}
+
+
+def promql_answer(series, key: str) -> dict:
+    return {sv.labels[key]: sv.values for sv in series}
+
+
+def check_promql(name: str, series, want: dict) -> None:
+    key = "region" if name == "Q2" else "hostname"
+    got = promql_answer(series, key)
+    require(sorted(got) == sorted(want), f"3j {name}: the series set differs from the oracle "
+                                         f"({len(got)} against {len(want)})")
+    exact = name in ("Q2", "Q3", "Q4", "Q5")  # max and selections: exact; means: rtol
+    for k, w in want.items():
+        g = got[k]
+        if exact:
+            require(np.array_equal(g, w, equal_nan=True), f"3j {name}: {k} differs")
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-12, atol=0, equal_nan=True,
+                                       err_msg=f"3j {name}: {k} differs")
+
+
+async def promql_paths(torch, eng, values: np.ndarray, tags: list, workdir: str,
+                       counted) -> dict:
+    """Phase 3j: Q1-Q6 through `evaluate_range` on phase 3i's engine, from a
+    fresh calibration cache, each held against the numpy oracle; Q1 under
+    every device pin, bitwise equal to `block`'s grid."""
+    import horaedb_tpu_torch as port
+    from horaedb_tpu_torch.ops import agg_registry
+    from horaedb_tpu_torch.promql.eval import evaluate_range
+    from horaedb_tpu_torch.storage import scanstats
+
+    os.environ["HORAEDB_AGG_CACHE"] = f"{workdir}/agg_calib_3j.json"
+    os.environ.pop("HORAEDB_AGG_CALIB_N", None)
+    agg_registry.reset_cache(memory_only=True)
+    regions = [dict(lab)[b"region"].decode() for lab in tags]
+    out: dict = {"queries": {}}
+
+    async def run(expr: str, step: int):
+        with scanstats.scan_stats() as st:
+            t = time.perf_counter()
+            steps, series = await evaluate_range(eng, expr, T0 + step, T0 + ENGINE_WINDOW_MS,
+                                                 step)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        notes = {k: v for k, v in st.counts.items() if k.startswith(("agg_impl_", "promql_"))}
+        return steps, series, secs, notes
+
+    port.reset_launch_counts()
+    answers = {}
+    for name, (expr, step) in PROMQL_QUERIES.items():
+        steps, series, secs, notes = await run(expr, step)
+        require(not isinstance(series, float) and len(series) > 0, f"3j {name}: no answer")
+        check_promql(name, series, promql_oracle(name, values, regions))
+        answers[name] = series
+        out["queries"][name] = {"expr": expr, "step_ms": step, "steps": len(steps),
+                                "series": len(series), "s": secs, "notes": notes}
+        print(f"3j {name} {expr} (step {step // 1000} s): {len(series)} series x {len(steps)} "
+              f"steps in {secs:.3f} s; notes {notes}", flush=True)
+    counts = port.launch_counts()
+    counted("promql", counts)
+    for k in ("lane_sum_count", "block_sum_count", "block_min_max"):
+        require(counts[k] > 0, f"3j: the queries did not launch {k}")
+    entries = agg_registry._calib_cache.load().get("entries") or {}
+    platform = eng.device.type
+    device_names = agg_registry.sorted_impl_names(platform)
+    require(f"{platform}/sorted/dense" in entries and f"{platform}/sorted/sparse" in entries,
+            f"3j: the pushdowns did not calibrate both density classes on the card: "
+            f"{sorted(entries)}")
+    for key, entry in entries.items():
+        require(key.startswith(f"{platform}/"), f"3j: calibrated {key} off the card")
+        require(not entry["rejected"], f"3j: calibration {key} rejected {entry['rejected']}")
+        if "/sorted/" in key:
+            require(sorted(entry["ab"]) == sorted(device_names),
+                    f"3j: calibration {key} timed {sorted(entry['ab'])}")
+        print(f"3j calibration {key}: impl {entry['impl']}, rows/s {json.dumps(entry['ab'])}, "
+              f"rejected {entry['rejected']}", flush=True)
+    out["calibration"] = entries
+
+    # Q1 under every device pin: the grid of `block`, bitwise
+    expr, step = PROMQL_QUERIES["Q1"]
+
+    def stacked(series):
+        rows = promql_answer(series, "hostname")
+        return np.stack([rows[k] for k in sorted(rows)])
+
+    pins = {}
+    with EnvPin(HORAEDB_AGG_IMPL="block"):
+        _s, base, _t, _n = await run(expr, step)
+    for name in agg_registry.SORTED_IMPLS:
+        if agg_registry.SORTED_IMPLS[name].kind != "device":
+            continue
+        port.reset_launch_counts()
+        with EnvPin(HORAEDB_AGG_IMPL=name):
+            _s, series, secs, notes = await run(expr, step)
+        c = port.launch_counts()
+        require(c["lane_sum_count"] == 0, f"3j Q1 pinned to {name}: f64 reached lane_sum_count")
+        require(np.array_equal(stacked(series).view(np.uint64), stacked(base).view(np.uint64)),
+                f"3j Q1 pinned to {name}: not bitwise equal to block")
+        pins[name] = {"s": secs, "notes": notes}
+    out["q1_pins"] = pins
+    print(f"3j Q1 bitwise equal under every device pin: "
+          + ", ".join(f"{k} {v['s']:.3f} s" for k, v in pins.items()), flush=True)
     return out
 
 
@@ -2414,6 +2783,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    import shutil
+    import tempfile
+
+    # the aggregation dispatcher's calibration file, for the run only (3j
+    # starts another, fresh one)
+    calib_dir = tempfile.mkdtemp(prefix="chip_smoke_calib_")
+    os.environ["HORAEDB_AGG_CACHE"] = f"{calib_dir}/torch_agg_calib.json"
+    try:
+        return run_smoke(torch, args.seed)
+    finally:
+        shutil.rmtree(calib_dir, ignore_errors=True)
+
+
+def run_smoke(torch, seed: int) -> int:
+    """Phases 1 to 4 (module docstring) on cuda:0."""
     import asyncio
     import tempfile
 
@@ -2430,13 +2814,14 @@ def main() -> int:
           + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()), flush=True)
 
     dev = torch.device("cuda", 0)
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(seed)
     data = make_data(rng)
     records = check_kernels(torch, rng, dev) + check_merge_kernels(torch, rng, dev, data)
     check_fused_kernels(torch, rng, dev)
     check_decode_kernels(torch, rng, dev)
     check_stacked_kernel(torch, rng, dev)
-    long_runs = check_long_runs(torch, np.random.default_rng([args.seed, 1]), dev)
+    check_agg_kernels(torch, rng, dev)
+    long_runs = check_long_runs(torch, np.random.default_rng([seed, 1]), dev)
     print(f"phase 2: {time.perf_counter() - t_all:.1f} s", flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         result = asyncio.run(main_paths(torch, rng, dev, data, workdir))
@@ -2445,6 +2830,7 @@ def main() -> int:
     records += fused_records(torch, result.pop("fused_capture"), dev)
     records += decode_records(torch, result.pop("decode_capture"), dev)
     records += stacked_records(torch, result.pop("stacked_capture"), dev)
+    records += agg_records(torch, dev, result.pop("last_write_capture"))
     result["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
     for r in records:
         r["launches"] = result["kernel_launches"][r["name"]]

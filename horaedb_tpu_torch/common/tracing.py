@@ -1,7 +1,8 @@
 """Lightweight request tracing: contextvar-propagated span trees.
 
 A copy of the JAX package's `common/tracing.py`, trimmed to the spans the
-engine opens (`span`, `add_stage`) and the context variable they read.
+engine opens (`span`, `add_stage`), the attributes PromQL sets on them
+(`add_attr`) and the context variable they read.
 The root `trace()`, its sampling knobs, the recent-trace ring and the
 slow-trace warning come with the server, which opens the traces and
 serves them; until then no trace is active and both calls are one
@@ -75,6 +76,13 @@ def span(name: str, **attrs):
     finally:
         sp.duration_s = time.perf_counter() - t0
         _ACTIVE.reset(token)
+
+
+def add_attr(**kw) -> None:
+    """Attach attributes to the current span (no-op outside a trace)."""
+    cur = _ACTIVE.get()
+    if cur is not None:
+        cur[1].attrs.update(kw)
 
 
 def add_stage(stage: str, seconds: float) -> None:

@@ -361,3 +361,63 @@ class MetricEngine:
         if hit is None:
             return 0
         return len(self.index_mgr.series_of(hit[0]))
+
+    @property
+    def device(self):
+        """The torch device the engine's tables reduce on."""
+        return self.data_table.device
+
+    def label_names(self) -> list[bytes]:
+        """All label KEYS across every registered series (`__name__` is the
+        caller's concern)."""
+        names: set[bytes] = set()
+        for metric in self.metric_mgr.names():
+            hit = self.metric_mgr.get(metric)
+            if hit is None:
+                continue
+            for labs in self.index_mgr.series_labels(hit[0]).values():
+                names.update(labs)
+        return sorted(names)
+
+    def series(self, metric: bytes) -> list[dict[str, str]]:
+        """Label sets of every series of a metric, tagless series included,
+        each with its `__tsid__`."""
+        hit = self.metric_mgr.get(metric)
+        if hit is None:
+            return []
+        per_tsid = self.index_mgr.series_labels(hit[0])
+        return [
+            {k.decode(errors="replace"): v.decode(errors="replace")
+             for k, v in labels.items()} | {"__tsid__": str(t)}
+            for t, labels in sorted(per_tsid.items())
+        ]
+
+    def series_labels_map(
+        self, metric: bytes, tsids: "list[int] | None" = None
+    ) -> dict[int, dict[bytes, bytes]]:
+        """tsid -> raw label map for a metric, optionally restricted to
+        `tsids` (a selective query never decodes the whole metric)."""
+        hit = self.metric_mgr.get(metric)
+        if hit is None:
+            return {}
+        per_tsid = self.index_mgr.series_labels(hit[0])
+        if tsids is None:
+            return per_tsid
+        return {t: per_tsid[t] for t in tsids if t in per_tsid}
+
+    async def match_series(
+        self, metric: bytes, filters, matchers
+    ) -> dict[int, dict[bytes, bytes]]:
+        """Matched tsid -> label map (Prometheus match[] resolution); regex
+        matchers evaluate off the event loop, as queries' do."""
+        resolved = await self._resolve_query_async(
+            QueryRequest(metric=metric, start_ms=0, end_ms=1,
+                         filters=filters, matchers=matchers)
+        )
+        if resolved is None:
+            return {}
+        metric_id, tsids = resolved
+        per_tsid = self.index_mgr.series_labels(metric_id)
+        if tsids is None:
+            return per_tsid
+        return {t: per_tsid[t] for t in tsids if t in per_tsid}

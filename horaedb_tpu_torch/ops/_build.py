@@ -45,7 +45,7 @@ from horaedb_tpu_torch.common.error import HoraeError
 KERNELS = ("sort_perm", "block_sum_count", "block_min_max", "packed_merge",
            "index_merge_mask", "index_merge_filter", "scan_kernel", "downsample",
            "grouped_stats", "decode_unpack", "decode_dod", "decode_xor", "decode_rle",
-           "stacked_downsample")
+           "stacked_downsample", "lane_sum_count", "segment_last_value")
 SOURCES = {
     "sort_perm": ("sort_perm.cu", "radix.cuh"),
     "block_sum_count": ("block_sum_count.cu", "segreduce.cuh"),
@@ -61,6 +61,8 @@ SOURCES = {
     "decode_xor": ("decode_xor.cu", "bitunpack.cuh"),
     "decode_rle": ("decode_rle.cu", "bitunpack.cuh"),
     "stacked_downsample": ("stacked_downsample.cu",),
+    "lane_sum_count": ("lane_sum_count.cu",),
+    "segment_last_value": ("segment_last_value.cu",),
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,10 +1,10 @@
 """Segment reductions: time-bucket downsample and grouped stats.
 
 A port of `horaedb_tpu/ops/aggregate.py`:
-- `downsample_sorted` and its helpers: rows sorted by (series, ts) map to
-  the flat cell id `sid * num_buckets + bucket`, which is monotone over
-  that order, and the sorted-segment kernels (ops/blockagg.py) reduce each
-  cell's run;
+- `downsample_sorted`: rows sorted by (series, ts) map to the flat cell id
+  `sid * num_buckets + bucket`, which is monotone over that order, and the
+  sorted-segment reductions (ops/blockagg.py, behind the calibrated
+  dispatcher of ops/agg_registry.py) reduce each cell's run;
 - `grouped_stats` (kernel `grouped_stats`) and `downsample` (kernel
   `downsample`) over UNSORTED rows, the fused scan route's reduction:
   `csrc/grouped_stats.cu` and `csrc/downsample.cu` on CUDA tensors, the
@@ -12,7 +12,11 @@ A port of `horaedb_tpu/ops/aggregate.py`:
   index_add_ and scatter_reduce) on CPU ones;
 - `stacked_downsample` (kernel `stacked_downsample`, `csrc/
   stacked_downsample.cu`, then `grouped_stats`): the grids of a stack of
-  coalesced queries in one launch, the query batcher's device lane.
+  coalesced queries in one launch, the query batcher's device lane;
+- `lane_segment_sum_count` (kernel `lane_sum_count`, `csrc/
+  lane_sum_count.cu`): the dispatcher's `lanes` lane, f32;
+- `segment_last_value` (kernel `segment_last_value`, `csrc/
+  segment_last_value.cu`): the value of each segment's max-seq row.
 Float values accumulate in f64 on the card: the H100 has native FP64 and
 the reduction is memory-bound (the JAX package's f32 rule was for the
 TPU's lack of FP64). Integer values sum exactly in 64 bits: signed in
@@ -44,14 +48,6 @@ def bucket_of(ts: torch.Tensor, t0: int, bucket_ms: int) -> torch.Tensor:
     return torch.div(ts - t0, bucket_ms, rounding_mode="floor").to(torch.int32)
 
 
-def masked_cell_keys(series_idx, bucket, num_series: int, num_buckets: int) -> torch.Tensor:
-    """Flat cell ids with both parts clipped into range BEFORE they combine,
-    so masked rows keep an in-range id and the ids stay monotone in
-    (sid, ts); masked rows contribute through the weight / valid lanes."""
-    sid = torch.clamp(series_idx.to(torch.int32), 0, num_series - 1)
-    return sid * num_buckets + torch.clamp(bucket, 0, num_buckets - 1)
-
-
 def downsample_sorted(
     ts: np.ndarray,
     series_idx: np.ndarray,
@@ -67,16 +63,34 @@ def downsample_sorted(
     """[num_series, num_buckets] grids of sum, count, mean (and min, max)
     over host rows sorted by (series, ts), computed on `device`.
 
-    `valid` (optional bool) excludes rows. They leave on the host, before
-    the upload: an excluded row of a series outside the query carries the
-    clipped index of its neighbour, and kernels B and C need nondecreasing
-    cell ids (each cell's run is written once, so a cell id that came back
-    after another would lose its first run). Empty cells: sum and count
-    0, mean NaN, min +inf, max -inf."""
+    The calibrated dispatcher (ops/agg_registry.py) is asked once and its
+    choice goes to both reductions, so a dispatch counts once. When it
+    names a host lane (on the CPU only, by calibration or a pin; the
+    dispatcher refuses a host pin for the card), the whole grid computes in
+    `host_downsample_sorted`.
+
+    Otherwise the rows `valid` (optional bool) excludes leave on the host,
+    before the upload: an excluded row of a series outside the query
+    carries the clipped index of its neighbour, and kernels B and C need
+    nondecreasing cell ids. The rows outside the grid (bucket < 0 or >=
+    num_buckets, sid < 0 or >= num_series) leave on the device, before the
+    reduction, when there are any (the engine's scans pass none). So each
+    cell's run holds exactly its in-grid rows in row order, as the query
+    batcher's stacked lane does: a cell's sum is bitwise equal to its
+    stacked run's. Empty cells: sum and count 0, mean NaN, min +inf, max
+    -inf."""
+    from horaedb_tpu_torch.ops import agg_registry
+
     dev = resolve_device(device)
     num_cells = num_series * num_buckets
     ensure(num_series > 0 and num_buckets > 0, "empty grid")
     ensure(num_cells < 2**31, f"grid of {num_cells} cells exceeds int32 cell ids")
+    choice = agg_registry.choose_sorted(len(values), num_cells, device=dev)
+    if agg_registry.is_host_impl(choice):
+        out = agg_registry.host_downsample_sorted(
+            ts, series_idx, values, t0, bucket_ms, num_series=num_series,
+            num_buckets=num_buckets, with_minmax=with_minmax, valid=valid, impl=choice)
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in out.items()}
     if valid is not None:
         keep = np.asarray(valid, dtype=bool)
         ts, series_idx, values = (np.asarray(a)[keep] for a in (ts, series_idx, values))
@@ -85,14 +99,14 @@ def downsample_sorted(
     val_t = to_device(np.asarray(values, dtype=np.float64), dev)
     bucket = bucket_of(ts_t, t0, bucket_ms)
     ok = (bucket >= 0) & (bucket < num_buckets) & (sid_t >= 0) & (sid_t < num_series)
-    safe = masked_cell_keys(sid_t, bucket, num_series, num_buckets)
-    s, c = sorted_segment_sum_count(
-        safe, torch.where(ok, val_t, 0.0), num_cells, weights=ok.to(torch.float64)
-    )
+    if not bool(ok.all()):
+        bucket, sid_t, val_t = bucket[ok], sid_t[ok], val_t[ok]
+    cell_t = sid_t * num_buckets + bucket
+    s, c = sorted_segment_sum_count(cell_t, val_t, num_cells, impl=choice)
     shape = (num_series, num_buckets)
     out = {"sum": s.reshape(shape), "count": c.reshape(shape), "mean": (s / c).reshape(shape)}
     if with_minmax:
-        mn, mx = sorted_segment_min_max(safe, val_t, num_cells, valid=ok)
+        mn, mx = sorted_segment_min_max(cell_t, val_t, num_cells, impl=choice)
         out["min"] = mn.reshape(shape)
         out["max"] = mx.reshape(shape)
     return out
@@ -349,3 +363,152 @@ def stacked_downsample(ts: torch.Tensor, series_idx: torch.Tensor, values: torch
     flat = grouped_stats(values.reshape(-1), cell, None, b * cells)
     shape = (b, num_series, num_buckets)
     return {k: v.reshape(shape) for k, v in flat.items()}
+
+
+# -- lane_sum_count: the dispatcher's `lanes` lane ------------------------------
+
+def lane_sum_count_plain(k, v, num_cells: int, lanes: int = 8, w=None):
+    """Plain version of kernel `lane_sum_count`, the JAX function's
+    arithmetic: ids clipped to [0, num_cells] (slot num_cells dropped), the
+    first n - n % lanes rows as [lanes, n / lanes] partial grids by
+    index_add_, summed in lane order, then the tail rows; f32 sums and
+    counts."""
+    n = k.shape[0]
+    m = n - n % lanes
+    dev = v.device
+    kc = torch.clamp(k.long(), 0, num_cells)
+    vf = v.to(torch.float32)
+    wf = torch.ones_like(vf) if w is None else w.to(torch.float32)
+    width = num_cells + 1
+
+    def scatter(x, flat, parts: int) -> torch.Tensor:
+        grids = torch.zeros(parts * width, dtype=torch.float32, device=dev).index_add_(0, flat, x)
+        return grids.reshape(parts, width)[:, :num_cells]
+
+    s = torch.zeros(num_cells, dtype=torch.float32, device=dev)
+    c = torch.zeros(num_cells, dtype=torch.float32, device=dev)
+    if m:
+        flat = torch.arange(m, device=dev) // (m // lanes) * width + kc[:m]
+        gs, gc = scatter(vf[:m], flat, lanes), scatter(wf[:m], flat, lanes)
+        s, c = gs[0], gc[0]
+        for lane in range(1, lanes):
+            s, c = s + gs[lane], c + gc[lane]
+    if m < n:
+        s = s + scatter(vf[m:], kc[m:], 1)[0]
+        c = c + scatter(wf[m:], kc[m:], 1)[0]
+    return s, c
+
+
+_LANES_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+]
+
+
+def lane_segment_sum_count(k: torch.Tensor, v: torch.Tensor, num_cells: int, lanes: int = 8,
+                           w: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum, count) per cell as f32, over unsorted int32 ids `k` and values
+    `v` (cast to f32, as the JAX function casts them): `lanes` partial
+    grids summed in lane order, then the n % lanes tail rows; ids clipped
+    to [0, num_cells] (a negative id lands in cell 0, an id >= num_cells
+    is dropped). `w` (optional) is each row's count contribution. Kernel
+    `lane_sum_count` (eight lanes) on CUDA tensors, `lane_sum_count_plain`
+    on CPU ones."""
+    n = k.shape[0]
+    dev = k.device
+    vf = v.to(torch.float32).contiguous()
+    wf = None if w is None else w.to(torch.float32).contiguous()
+    _check_rows("lane_sum_count", n, dev, k=k, v=vf, **({} if wf is None else {"w": wf}))
+    ensure(k.dtype == torch.int32, f"lane_sum_count: ids must be int32, got {k.dtype}")
+    ensure(0 <= num_cells < 2**31, f"lane_sum_count: num_cells {num_cells} outside [0, 2^31)")
+    if dev.type == "cpu":
+        return lane_sum_count_plain(k, vf, num_cells, lanes, wf)
+    if dev.type != "cuda":
+        raise HoraeError(f"lane_sum_count: unsupported device {dev}")
+    ensure(lanes == 8, f"lane_sum_count: the kernel has 8 lanes, asked for {lanes}")
+    out_s = torch.empty(num_cells, dtype=torch.float32, device=dev)
+    out_c = torch.empty(num_cells, dtype=torch.float32, device=dev)
+    scratch = torch.empty(
+        _build.scratch_bytes("lane_sum_count", "lane_sum_count_scratch_bytes", num_cells),
+        dtype=torch.uint8, device=dev)
+    fn = _build.kernel("lane_sum_count", "lane_sum_count_launch", _LANES_ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(k.data_ptr(), vf.data_ptr(), 0 if wf is None else wf.data_ptr(), n, num_cells,
+                scratch.data_ptr(), out_s.data_ptr(), out_c.data_ptr(), stream)
+    _build.check("lane_sum_count", rc)
+    return out_s, out_c
+
+
+# -- segment_last_value: dedup as a reduction ------------------------------------
+
+_I64_MIN = -(2**63)
+
+
+def seq_as_int64(seq: np.ndarray) -> np.ndarray:
+    """A host seq lane as the JAX function reads it (`astype(int64)`): a u64
+    seq of 2^63 or more wraps negative. Not the order-preserving bit-63 flip
+    of `backend.order_key`."""
+    seq = np.asarray(seq)
+    return seq.view(np.int64) if seq.dtype == np.uint64 else seq.astype(np.int64)
+
+
+def segment_last_value_plain(values, seq, index, valid, num_segments: int) -> torch.Tensor:
+    """Plain version of kernel `segment_last_value`: two scatter_reduce amax
+    passes (the max seq, then the latest position holding it) and a
+    gather."""
+    n = values.shape[0]
+    dev = values.device
+    out = torch.full((num_segments,), torch.nan, dtype=torch.float64, device=dev)
+    if n == 0:
+        return out
+    ok = valid.bool() & (index >= 0) & (index < num_segments)
+    idx = torch.where(ok, index.long(), num_segments)
+    low = torch.full((num_segments + 1,), _I64_MIN, dtype=torch.int64, device=dev)
+    max_seq = low.scatter_reduce(0, idx, torch.where(ok, seq, _I64_MIN), "amax",
+                                 include_self=True)
+    winner = ok & (seq == max_seq[idx])
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    best = torch.full((num_segments + 1,), -1, dtype=torch.int64, device=dev).scatter_reduce(
+        0, idx, torch.where(winner, pos, -1), "amax", include_self=True)[:-1]
+    return torch.where(best >= 0, values[best.clamp(0, n - 1)], out)
+
+
+_SLV_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+    ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+]
+
+
+def segment_last_value(values: torch.Tensor, seq: torch.Tensor, index: torch.Tensor,
+                       valid: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Per segment, the value of the valid row with the largest seq (ties
+    to the latest position), NaN for a segment no valid row reaches. Rows
+    with an index outside [0, num_segments) drop. values f64, seq int64
+    (a u64 seq through `seq_as_int64`), index int32, valid bool or uint8.
+    Kernel `segment_last_value` on CUDA tensors,
+    `segment_last_value_plain` on CPU ones; the outputs' bits are the
+    winners' bits either way."""
+    n = values.shape[0]
+    dev = values.device
+    _check_rows("segment_last_value", n, dev, values=values, seq=seq, index=index, valid=valid)
+    for name, t, dts in (("values", values, (torch.float64,)), ("seq", seq, (torch.int64,)),
+                         ("index", index, (torch.int32,)),
+                         ("valid", valid, (torch.bool, torch.uint8))):
+        ensure(t.dtype in dts, f"segment_last_value: {name} is {t.dtype}")
+    ensure(0 <= num_segments < 2**31, f"segment_last_value: {num_segments} segments")
+    if dev.type == "cpu":
+        return segment_last_value_plain(values, seq, index, valid, num_segments)
+    if dev.type != "cuda":
+        raise HoraeError(f"segment_last_value: unsupported device {dev}")
+    out = torch.empty(num_segments, dtype=torch.float64, device=dev)
+    scratch = torch.empty(
+        _build.scratch_bytes("segment_last_value", "segment_last_value_scratch_bytes",
+                             num_segments), dtype=torch.uint8, device=dev)
+    fn = _build.kernel("segment_last_value", "segment_last_value_launch", _SLV_ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(values.data_ptr(), seq.data_ptr(), index.data_ptr(), valid.data_ptr(), n,
+                num_segments, scratch.data_ptr(), out.data_ptr(), stream)
+    _build.check("segment_last_value", rc)
+    return out

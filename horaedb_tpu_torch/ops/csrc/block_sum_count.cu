@@ -15,6 +15,13 @@
 // on), and no density limit:
 // the TPU form's one-hot rank budget and its scatter fallback do not carry
 // over.
+//
+// The launch flag `round_bf16` serves the dispatcher's `block_bf16` lane:
+// each value is rounded to bf16 on load (round to nearest even, as the JAX
+// package's `astype(bfloat16)` rounds), then summed in f64 as above. The
+// lane takes f32 values only, which the f64 lane holds exactly.
+#include <cuda_bf16.h>
+
 #include "segreduce.cuh"
 
 namespace {
@@ -25,8 +32,12 @@ struct SumCount {
     const double* w;
     double* out_sum;
     double* out_count;
+    bool round_bf16;
     __host__ __device__ static Acc identity() { return {0.0, 0.0}; }
-    __device__ Acc load(int64_t i) const { return {v[i], w[i]}; }
+    __device__ Acc load(int64_t i) const {
+        const double x = v[i];
+        return {round_bf16 ? (double)__bfloat162float(__float2bfloat16_rn((float)x)) : x, w[i]};
+    }
     __device__ static Acc combine(Acc x, Acc y) { return {x.a + y.a, x.b + y.b}; }
     __device__ void store(int64_t c, Acc x) const {
         out_sum[c] = x.a;
@@ -37,12 +48,14 @@ struct SumCount {
 }  // namespace
 
 // k: int32[n] sorted; v: f64[n] (0 on excluded rows); w: f64[n] count
-// weight (0 on excluded rows); out_sum, out_count: f64[num_cells].
+// weight (0 on excluded rows); out_sum, out_count: f64[num_cells];
+// round_bf16: 1 rounds each value to bf16 on load.
 extern "C" int block_sum_count_launch(const void* k, const void* v, const void* w,
                                       int64_t n, int32_t num_cells, void* out_sum,
-                                      void* out_count, void* stream) {
+                                      void* out_count, int32_t round_bf16, void* stream) {
     const SumCount op{static_cast<const double*>(v), static_cast<const double*>(w),
-                      static_cast<double*>(out_sum), static_cast<double*>(out_count)};
+                      static_cast<double*>(out_sum), static_cast<double*>(out_count),
+                      round_bf16 != 0};
     return seg::launch(static_cast<const int32_t*>(k), n, (int64_t)num_cells, op,
                        static_cast<cudaStream_t>(stream));
 }

@@ -17,9 +17,12 @@ A port of the JAX package's `server/batching.py`, unchanged in behaviour:
   bucket, queries pad to a power-of-two batch axis, and ONE
   `ops/aggregate.py::stacked_downsample` call (kernel `stacked_downsample`
   on the card) reduces every member's grid. Results de-multiplex per
-  member, bitwise equal to solo execution: each member's cells fold
-  exactly its own rows in scan order (`csrc/segreduce.cuh` folds a cell's
-  rows left to right, wherever they sit in the buffer).
+  member, bitwise equal to solo execution on the device lanes: each
+  member's cells fold exactly its own rows in scan order
+  (`csrc/segreduce.cuh` folds a cell's rows left to right, wherever they
+  sit in the buffer). On a CPU engine whose calibration picks the host
+  `reduceat` lane for the solo route, numpy associates a solo cell's sum
+  otherwise: its last bits may differ (counts, min and max stay equal).
 - **Deadlines survive.** Group execution runs detached
   (deadline_ctx.detach, its own scanstats collector): a member whose
   deadline dies mid-batch raises DeadlineExceeded alone while the rest of

@@ -66,6 +66,7 @@ import torch
 from horaedb_tpu_torch.backend import device_lane, host_lane, order_key, to_device
 from horaedb_tpu_torch.common.error import HoraeError, NotPortedError
 from horaedb_tpu_torch.objstore import NotFound, ObjectStore
+from horaedb_tpu_torch.ops import agg_registry
 from horaedb_tpu_torch.ops import aggregate as agg_ops
 from horaedb_tpu_torch.ops import decode as decode_ops
 from horaedb_tpu_torch.ops import filter as filter_ops
@@ -76,6 +77,7 @@ from horaedb_tpu_torch.ops.blocks import PACK_SENTINEL, arrow_column_to_numpy, n
 from horaedb_tpu_torch.ops.filter import Predicate
 from horaedb_tpu_torch.ops.sort import num_digits
 from horaedb_tpu_torch.storage import encoding as enc_mod
+from horaedb_tpu_torch.storage import scanstats
 from horaedb_tpu_torch.storage.config import UpdateMode
 from horaedb_tpu_torch.storage.sst import SstFile, SstPathGenerator
 from horaedb_tpu_torch.storage.types import (
@@ -970,6 +972,10 @@ class ParquetReader:
                 ts_np, sid_np, val_np, t0, bucket_ms, num_series=num_series,
                 num_buckets=num_buckets, with_minmax=with_minmax, valid=valid_np,
                 device=self._device)
+            # lane attribution: the registry impl the calibrated dispatcher
+            # chose for this fold, before the dtype routing; the engine's f64
+            # values run kernel B (or its plain version) whatever the choice
+            scanstats.note("agg_impl_" + agg_registry.last_choice())
             grids["sum"] += out["sum"].cpu().numpy()
             grids["count"] += out["count"].cpu().numpy()
             if with_minmax:

@@ -5,7 +5,10 @@ plain version (ops/aggregate.py::stacked_downsample_plain), on the CPU.
   `stacked_downsample` on the shapes of tests/test_batching.py (batch, row
   and series axes in different power-of-two classes) with quarter-integer
   and with non-dyadic values, and against the port's own solo reduction
-  (`downsample_sorted`): bitwise, sums as u64 views;
+  (`downsample_sorted`): bitwise, sums as u64 views, with the dispatcher
+  pinned to a device lane; under the CPU calibration's host `reduceat`
+  lane, counts, min and max bitwise and sums within 2^-40 x a cell's L1
+  mass;
 - engine bursts (asyncio.gather, each member under its own scanstats
   collector) against the same queries under HORAEDB_BATCH=off, bitwise:
   filtered panels, a shared union scan with an unfiltered member, the
@@ -27,6 +30,7 @@ from horaedb_tpu_torch.common.error import DeadlineExceeded
 from horaedb_tpu_torch.common.time_ext import ReadableDuration
 from horaedb_tpu_torch.engine import MetricEngine, QueryRequest
 from horaedb_tpu_torch.objstore import MemStore
+from horaedb_tpu_torch.ops import agg_registry
 from horaedb_tpu_torch.ops import aggregate as agg
 from horaedb_tpu_torch.server import batching
 from horaedb_tpu_torch.server.batching import SOLO, BatchingConfig, QueryBatcher, pow2ceil
@@ -38,9 +42,15 @@ ms = ReadableDuration.millis
 
 
 @pytest.fixture(autouse=True)
-def _batch_env(monkeypatch):
-    """Batching on and a fresh planner state per test."""
+def _batch_env(monkeypatch, tmp_path):
+    """Batching on, a fresh planner state per test, and the aggregation
+    dispatcher's calibration file under `tmp_path` with no pin."""
     monkeypatch.delenv("HORAEDB_BATCH", raising=False)
+    for var in ("HORAEDB_AGG_IMPL", "HORAEDB_SORTED_IMPL"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("HORAEDB_AGG_CACHE", str(tmp_path / "torch_agg_calib.json"))
+    monkeypatch.setenv("HORAEDB_AGG_CALIB_N", "4096")
+    agg_registry.reset_cache(memory_only=True)
     g = batching.GLOBAL_BATCHER
     saved = g.config
     g.configure(BatchingConfig())
@@ -50,6 +60,16 @@ def _batch_env(monkeypatch):
     g.configure(saved)
     g._groups.clear()
     g._active.clear()
+    agg_registry.reset_cache(memory_only=True)
+
+
+@pytest.fixture
+def device_lanes(monkeypatch):
+    """The solo route's dispatcher pinned to a device lane (kernel B's
+    plain version here): stacked == solo bitwise is the device lanes'
+    promise. Unpinned, the CPU calibration may pick the host reduceat lane
+    (test_solo_sums_under_the_calibrated_lane)."""
+    monkeypatch.setenv("HORAEDB_AGG_IMPL", "block")
 
 
 def make_payload(metric=b"batch_cpu", n_series=16, n_samples=30, seed=0):
@@ -115,6 +135,7 @@ def host_reqs(n, bucket_ms=5000, start=BASE, span=30_000):
 
 
 @pytest.mark.parametrize("values", ["quarter", "uniform"])
+@pytest.mark.usefixtures("device_lanes")
 def test_stacked_plain_matches_jax_and_solo(values):
     rng = np.random.default_rng(42)
     for B, rpad, S, T in [(2, 32, 1, 4), (3, 64, 8, 6), (5, 128, 16, 3), (8, 64, 3, 10)]:
@@ -150,6 +171,75 @@ def test_stacked_plain_matches_jax_and_solo(values):
                 assert same_bits(got[k][q].numpy(), solo[q][k].numpy()), (B, rpad, S, T, q, k)
 
 
+def out_of_grid_case(seed: int = 5):
+    """Two series sorted by (sid, ts): cell (0, 0) holds 700 in-grid rows
+    (a run past segreduce's 256-row threshold, so its sum is folded in
+    chunks counted from its head), with 37 rows of the same series before
+    t0 ahead of it and 41 past the grid behind series 0's last bucket;
+    non-dyadic values."""
+    rng = np.random.default_rng(seed)
+    S, T, bucket_ms, t0 = 2, 3, 1000, 10_000
+    parts = []
+    for s in range(S):
+        ts = np.concatenate([rng.integers(t0 - 3000, t0, 37), rng.integers(t0, t0 + 1000, 700),
+                             rng.integers(t0 + 1000, t0 + T * 1000, 300),
+                             rng.integers(t0 + T * 1000, t0 + 9000, 41)])
+        parts.append((np.full(len(ts), s, np.int32), np.sort(ts).astype(np.int64)))
+    sid = np.concatenate([p[0] for p in parts])
+    ts = np.concatenate([p[1] for p in parts])
+    vals = rng.uniform(-1e3, 1e3, len(ts))
+    return ts, sid, vals, t0, bucket_ms, S, T
+
+
+@pytest.mark.usefixtures("device_lanes")
+def test_out_of_grid_rows_keep_solo_bitwise_equal_to_stacked():
+    """downsample_sorted drops rows outside the grid before the reduction,
+    as the stacked lane does, so a cell of more than 256 rows with such rows
+    of its series ahead of it sums in the stacked lane's association."""
+    ts, sid, vals, t0, bucket_ms, S, T = out_of_grid_case()
+    solo = agg.downsample_sorted(ts, sid, vals, t0, bucket_ms, num_series=S, num_buckets=T,
+                                 device="cpu")
+    ok = np.ones(len(ts), bool)
+    stacked = agg.stacked_downsample(
+        *(torch.from_numpy(a[None]) for a in (ts, sid, vals, ok)),
+        torch.tensor([t0], dtype=torch.int64), bucket_ms, num_series=S, num_buckets=T)
+    assert int(solo["count"][0, 0]) == 700
+    for k in ("sum", "count", "min", "max", "mean"):
+        assert same_bits(solo[k].numpy(), stacked[k][0].numpy()), k
+
+
+@pytest.mark.parametrize("winner", ["block", "reduceat"])
+def test_solo_sums_under_the_calibrated_lane(winner, monkeypatch):
+    """Unpinned, the solo route takes the CPU calibration's winner. Under a
+    device lane the solo grid is the stacked one bitwise; under the host
+    reduceat lane numpy associates each cell's sum otherwise, so counts,
+    min and max stay bitwise equal and sums agree within 2^-40 x the cell's
+    L1 mass (rounding of a 700-row sum in another order)."""
+    def calibrate(kind, device, klass):
+        return {"impl": winner, "device_impl": "block", "ab": {winner: 1.0}, "rejected": {},
+                "n": 0, "num_cells": 0, "calibrated_unix": 0}
+
+    monkeypatch.setattr(agg_registry, "_calibrate", calibrate)
+    ts, sid, vals, t0, bucket_ms, S, T = out_of_grid_case()
+    solo = agg.downsample_sorted(ts, sid, vals, t0, bucket_ms, num_series=S, num_buckets=T,
+                                 device="cpu")
+    assert agg_registry.last_choice() == winner
+    ok = np.ones(len(ts), bool)
+    stacked = agg.stacked_downsample(
+        *(torch.from_numpy(a[None]) for a in (ts, sid, vals, ok)),
+        torch.tensor([t0], dtype=torch.int64), bucket_ms, num_series=S, num_buckets=T)
+    for k in ("count", "min", "max") if winner == "reduceat" else ("sum", "count", "min",
+                                                                    "max", "mean"):
+        assert same_bits(solo[k].numpy(), stacked[k][0].numpy()), k
+    if winner == "reduceat":
+        bucket = (ts - t0) // bucket_ms
+        inside = (bucket >= 0) & (bucket < T)
+        l1 = np.zeros((S, T))
+        np.add.at(l1, (sid[inside], bucket[inside]), np.abs(vals[inside]))
+        err = np.abs(solo["sum"].numpy() - stacked["sum"][0].numpy())
+        assert np.all(err <= 2.0 ** -40 * l1), float(err.max())
+
+
 def test_stacked_edges_match_jax():
     """Rows before t0 and past the grid, sid out of range, an all-masked
     lane, NaN and +-inf, a different t0 per lane."""
@@ -179,6 +269,7 @@ def test_shape_classes():
     assert b._max_group_for(8, 4) == 3 and b._max_group_for(64, 4) == 0
 
 
+@pytest.mark.usefixtures("device_lanes")
 def test_burst_parity_and_shared_union_scan():
     """Single-host panels (class 1) plus two matcher panels and an
     unfiltered (whole-metric) panel (class 4, one shared union scan), one
@@ -228,6 +319,7 @@ def test_lone_query_is_solo_with_no_window():
     asyncio.run(main())
 
 
+@pytest.mark.usefixtures("device_lanes")
 def test_max_rows_demotes_the_largest_member():
     """Two 60-row members pad to 2 x 64 rows, over a max_rows of 64: the
     larger is demoted to the solo path (solo_overflow) and the other

@@ -533,3 +533,194 @@ def test_stacked_downsample_matches_plain(dev, case):
     torch.cuda.synchronize()
     for key in ("sum", "count", "min", "max", "mean"):
         assert np.array_equal(_u64(got[key]), _u64(want[key])), key
+
+
+# -- the calibrated dispatcher, lane_sum_count and segment_last_value -----------
+
+@pytest.fixture(scope="module", autouse=True)
+def _agg_cache(tmp_path_factory):
+    """The aggregation dispatcher's calibration file under a temp path."""
+    import os
+
+    from horaedb_tpu_torch.ops import agg_registry
+
+    saved = os.environ.get("HORAEDB_AGG_CACHE")
+    os.environ["HORAEDB_AGG_CACHE"] = str(tmp_path_factory.mktemp("agg") / "calib.json")
+    agg_registry.reset_cache(memory_only=True)
+    yield
+    if saved is None:
+        os.environ.pop("HORAEDB_AGG_CACHE", None)
+    else:
+        os.environ["HORAEDB_AGG_CACHE"] = saved
+    agg_registry.reset_cache(memory_only=True)
+
+
+def test_out_of_grid_rows_keep_solo_bitwise_equal_to_stacked(dev):
+    """downsample_sorted drops rows outside the grid before kernel B, as the
+    stacked lane does: a cell of 700 rows with 37 rows of its series before
+    t0 ahead of it sums in the stacked association (sums as u64 views)."""
+    from horaedb_tpu_torch.ops.aggregate import stacked_downsample
+
+    rng = np.random.default_rng(5)
+    S, T, bucket_ms, t0 = 2, 3, 1000, 10_000
+    parts = []
+    for s in range(S):
+        ts = np.concatenate([rng.integers(t0 - 3000, t0, 37), rng.integers(t0, t0 + 1000, 700),
+                             rng.integers(t0 + 1000, t0 + T * 1000, 300),
+                             rng.integers(t0 + T * 1000, t0 + 9000, 41)])
+        parts.append((np.full(len(ts), s, np.int32), np.sort(ts).astype(np.int64)))
+    sid = np.concatenate([p[0] for p in parts])
+    ts = np.concatenate([p[1] for p in parts])
+    vals = rng.uniform(-1e3, 1e3, len(ts))
+    solo = downsample_sorted(ts, sid, vals, t0, bucket_ms, S, T, device=dev)
+    ok = np.ones(len(ts), bool)
+    stacked = stacked_downsample(*(torch.from_numpy(a[None]).to(dev) for a in (ts, sid, vals, ok)),
+                                 torch.tensor([t0], dtype=torch.int64, device=dev), bucket_ms,
+                                 S, T)
+    torch.cuda.synchronize()
+    assert float(solo["count"][0, 0]) == 700.0
+    for key in ("sum", "count", "min", "max", "mean"):
+        assert np.array_equal(_u64(solo[key]), _u64(stacked[key][0])), key
+
+
+def _lane_case(n, cells, weighted, seed):
+    rng = np.random.default_rng(seed)
+    k = rng.integers(-3, cells + 3, n).astype(np.int32)
+    v = rng.normal(size=n).astype(np.float32) * 100
+    w = (rng.random(n) > 0.3).astype(np.float32) if weighted else None
+    return k, v, w
+
+
+@pytest.mark.parametrize("n,cells,weighted", [(0, 16, False), (5, 16, True), (1003, 50, False),
+                                              (262_144, 16_384, False),
+                                              (262_147, 524_288, True)])
+def test_lane_sum_count_matches_plain(dev, n, cells, weighted):
+    """Counts exact; sums within 2^-20 x the cell's L1 mass (the kernel adds
+    with f32 atomics, in no fixed order)."""
+    from horaedb_tpu_torch.ops.aggregate import lane_segment_sum_count
+
+    k, v, w = _lane_case(n, cells, weighted, n)
+    kt, vt = torch.from_numpy(k), torch.from_numpy(v)
+    wt = None if w is None else torch.from_numpy(w)
+    s, c = lane_segment_sum_count(kt.to(dev), vt.to(dev), cells,
+                                  w=None if wt is None else wt.to(dev))
+    ps, pc = lane_segment_sum_count(kt, vt, cells, w=wt)
+    torch.cuda.synchronize()
+    assert s.dtype == c.dtype == torch.float32
+    assert torch.equal(c.cpu(), pc)
+    l1 = np.bincount(np.clip(k, 0, cells), weights=np.abs(v.astype(np.float64)),
+                     minlength=cells + 1)[:cells]
+    err = np.abs(s.cpu().numpy().astype(np.float64) - ps.numpy())
+    assert np.all(err <= 2.0 ** -20 * l1)
+
+
+def _slv_case(name):
+    rng = np.random.default_rng(len(name))
+    n, segs = 1_000_003, 300_000
+    vals = rng.normal(size=n)
+    vals[rng.choice(n, 60, replace=False)] = np.resize([np.nan, -0.0, np.inf, -np.inf], 60)
+    index = rng.integers(-2, segs + 2, n).astype(np.int32)
+    valid = rng.random(n) > 0.1
+    seq = rng.integers(0, 4, n).astype(np.uint64)  # many ties
+    if name == "seq >= 2^63":
+        seq = seq + np.uint64(2**63) - np.where(rng.random(n) > 0.5, np.uint64(2), np.uint64(0))
+    elif name == "empty segments":
+        segs = 4_000_000
+    elif name == "all invalid":
+        valid[:] = False
+    elif name == "no rows":
+        vals, seq, index, valid = vals[:0], seq[:0], index[:0], valid[:0]
+    return vals, seq, index, valid, segs
+
+
+@pytest.mark.parametrize("name", ["ties", "seq >= 2^63", "empty segments", "all invalid",
+                                  "no rows"])
+def test_segment_last_value_matches_plain_bitwise(dev, name):
+    from horaedb_tpu_torch.ops.aggregate import seq_as_int64, segment_last_value
+
+    vals, seq, index, valid, segs = _slv_case(name)
+    args = [torch.from_numpy(a) for a in (vals, seq_as_int64(seq), index, valid)]
+    got = segment_last_value(*(a.to(dev) for a in args), segs)
+    want = segment_last_value(*args, segs)
+    torch.cuda.synchronize()
+    assert np.array_equal(_u64(got), _u64(want))
+
+
+def test_block_bf16_flag_matches_plain_bitwise(dev):
+    """Kernel B with values rounded to bf16 on load against its plain
+    version (torch's round-to-nearest-even f32 -> bf16), sums as u64 views."""
+    rng = np.random.default_rng(12)
+    k = np.sort(rng.integers(0, 3000, 200_000)).astype(np.int32)
+    v = rng.normal(size=len(k)).astype(np.float32).astype(np.float64) * 1e3
+    kt, vt = torch.from_numpy(k), torch.from_numpy(v)
+    got = blockagg.block_sum_count(kt.to(dev), vt.to(dev), 3000, bf16=True)
+    want = blockagg.block_sum_count(kt, vt, 3000, bf16=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert np.array_equal(_u64(a), _u64(b))
+
+
+def test_every_device_pin_gives_block_grids_on_f64(dev, monkeypatch):
+    """On f64 values every device name runs kernel B (and C): grids bitwise
+    equal to `block`'s; HORAEDB_AGG_IMPL=lanes launches no lane kernel."""
+    from horaedb_tpu_torch import launch_counts
+    from horaedb_tpu_torch.ops import agg_registry
+
+    rng = np.random.default_rng(3)
+    sid = np.repeat(np.arange(500, dtype=np.int32), 400)
+    ts = np.tile(np.sort(rng.integers(-20_000, 320_000, 400)), 500).astype(np.int64)
+    vals = rng.uniform(0, 100, len(ts))
+    monkeypatch.setenv("HORAEDB_AGG_IMPL", "block")
+    want = downsample_sorted(ts, sid, vals, 0, 60_000, 500, 5, device=dev)
+    for name in agg_registry.SORTED_IMPLS:
+        if agg_registry.SORTED_IMPLS[name].kind != "device":
+            continue
+        monkeypatch.setenv("HORAEDB_AGG_IMPL", name)
+        before = launch_counts()
+        got = downsample_sorted(ts, sid, vals, 0, 60_000, 500, 5, device=dev)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        assert after["lane_sum_count"] == before["lane_sum_count"], name
+        assert after["block_sum_count"] == before["block_sum_count"] + 1, name
+        for key in ("sum", "count", "min", "max", "mean"):
+            assert np.array_equal(_u64(got[key]), _u64(want[key])), (name, key)
+
+
+def test_cuda_calibration_times_every_device_impl(dev, monkeypatch):
+    """A cold calibration on the card: every device implementation in `ab`,
+    none rejected, no host lane eligible."""
+    from horaedb_tpu_torch.ops import agg_registry
+
+    monkeypatch.delenv("HORAEDB_AGG_IMPL", raising=False)
+    monkeypatch.delenv("HORAEDB_SORTED_IMPL", raising=False)
+    for kind, names in (("sorted", agg_registry.sorted_impl_names("cuda")),
+                        ("unsorted", agg_registry.unsorted_impl_names("cuda"))):
+        entry = agg_registry._calibrate(kind, dev, "dense")
+        assert entry["rejected"] == {} and set(entry["ab"]) == set(names), entry
+        assert not any(agg_registry.is_host_impl(x) for x in entry["ab"])
+
+
+@pytest.mark.parametrize("var,name", [("HORAEDB_AGG_IMPL", "reduceat"),
+                                      ("HORAEDB_SORTED_IMPL", "reduceat"),
+                                      ("HORAEDB_UNSORTED_IMPL", "bincount")])
+def test_host_pin_is_refused_on_the_card(dev, var, name, monkeypatch):
+    """A pin naming a host lane raises for data on the card instead of
+    copying it to the host: through `downsample_sorted` and through the
+    reductions called with the name."""
+    from horaedb_tpu_torch.common.error import HoraeError
+
+    monkeypatch.delenv("HORAEDB_AGG_IMPL", raising=False)
+    monkeypatch.setenv(var, name)
+    k = torch.tensor([0, 0, 2], dtype=torch.int32, device=dev)
+    v = torch.tensor([1.0, 2.0, 3.0], dtype=torch.float64, device=dev)
+    if name == "bincount":
+        with pytest.raises(HoraeError, match="host lane"):
+            blockagg.segment_sum_count(k, v, 3)
+        return
+    with pytest.raises(HoraeError, match="host lane"):
+        downsample_sorted(np.array([0, 1, 2]), np.array([0, 0, 0]), np.array([1.0, 2.0, 3.0]),
+                          0, 10, 1, 1, device=dev)
+    with pytest.raises(HoraeError, match="host lane"):
+        blockagg.sorted_segment_sum_count(k, v, 3, impl=name)
+    with pytest.raises(HoraeError, match="host lane"):
+        blockagg.sorted_segment_min_max(k, v, 3, impl=name)

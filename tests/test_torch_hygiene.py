@@ -162,12 +162,15 @@ def test_plain_versions_do_not_count_launches():
     decode.decode_rle(words, torch.tensor([[0, 3, 0, 0, 1, 0]]), torch.tensor([3]), 3, 4)
     aggregate.stacked_downsample(key[None], k[None], v[None], torch.ones(1, 3, dtype=torch.bool),
                                  torch.zeros(1, dtype=torch.int64), 2, 1, 4)
+    aggregate.lane_segment_sum_count(k, v, 2)
+    aggregate.segment_last_value(v, key, k, torch.ones(3, dtype=torch.bool), 2)
     assert launch_counts() == before
     assert set(before) == set(KERNELS) == {"sort_perm", "block_sum_count", "block_min_max",
                                            "packed_merge", "index_merge_mask",
                                            "index_merge_filter", "scan_kernel", "downsample",
                                            "grouped_stats", "decode_unpack", "decode_dod",
-                                           "decode_xor", "decode_rle", "stacked_downsample"}
+                                           "decode_xor", "decode_rle", "stacked_downsample",
+                                           "lane_sum_count", "segment_last_value"}
 
 
 @pytest.mark.parametrize("text", ["0", "1500", "2h", "1d2h3m4s5ms", "1.5h", "90s", "250ms"])

@@ -198,8 +198,10 @@ def test_wrapper_rejects_bad_lanes(bad):
         w = w.float()
     else:
         v = torch.zeros(16, dtype=torch.float64)[::2]
+    # kernel B's wrapper; the dispatcher in front of it also takes f32
+    # values and weights (the f32 lanes), and casts them for kernel B
     with pytest.raises(Exception, match="block_sum_count"):
-        tblock.sorted_segment_sum_count(k, v, 4, weights=w)
+        tblock.block_sum_count(k, v, 4, weights=w)
 
 
 # -- downsample_sorted ---------------------------------------------------------
