@@ -123,6 +123,19 @@ Phases, each of which exits non-zero on failure:
       segment, 5 % re-sent rows with a higher seq) through
       segment_last_value's own entry point, held against the written
       values; no engine or PromQL path calls it, as in the JAX package;
+   l. the mesh on slots of the one card: 3d's dense segment scanned with
+      HORAEDB_SCAN_PATH=sharded over 8 slots (lane for lane the default
+      scan, its sample_sort_merge indices equal to packed_merge's, the
+      path_device_merge_sharded note and no fallback note); 3b's packed
+      downsample with a 4-slot (rows 2 x series 2) mesh installed
+      (sharded_downsample, B, C, grid_fold), equal to 3b's grids and the
+      oracle; a 4-region RegionedEngine (TSBS cpu-only's 10,000 hosts,
+      cpu_usage_user, 1.8M samples in 6 payloads) whose query_partial_grids,
+      split over two nodes and wire round-tripped, fold with merge_partials
+      on the mesh (grid_fold; device_fold_safe must be True) bitwise equal
+      to query(); entry.dryrun_multichip(4), then 3a's two segments in one
+      3-axis (seg 2 x rows 2 x series 2) multisegment_downsample step,
+      equal to 3b's grids segment by segment;
    every kernel must have launched on one of these paths; queries and a
    scan run under torch.profiler (and cProfile) for where the time goes;
 4. scan_kernel, downsample and grouped_stats against their plain versions
@@ -131,7 +144,16 @@ Phases, each of which exits non-zero on failure:
    largest lane each decoded on the device in 3g/3h, stacked_downsample
    on burst A's launch inputs, lane_sum_count at the calibration's shapes
    (2^18 rows into 16,384 and 524,288 cells) and segment_last_value on
-   3k's inputs, timed.
+   3k's inputs, and the four mesh kernels at 3l's shapes (one slot of the
+   regioned fold; the key kernel on one slot of the mesh downsample and
+   of the 3-axis step, each against sharded_keys_plain on the card, with
+   the whole step timed beside it; the sharded scan's merge), timed.
+   Phase 2 also holds the mesh kernels against their plain versions (the
+   steps on CPU slots), bitwise: grid_fold on NaN
+   payloads, +-0.0, subnormals and infinities, k = 1 and 5;
+   sample_sort_merge on random, all-sentinel, one-group and skewed keys
+   (and against packed_merge); sharded_downsample on prime series counts,
+   sorted and unsorted, with a predicate; multisegment_downsample.
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result.
@@ -1674,6 +1696,9 @@ async def main_paths(torch, rng, dev, data, workdir) -> dict:
                    {"HORAEDB_SCAN_PATH": "device", "HORAEDB_LINK_PROFILE": "skip"})
     out["scans"] = scans
     out["profile"] = await profile_paths(torch, storage, tsids, window, query_pred, seg0)
+    # l. the mesh on 3a's tables: the sharded scan, the mesh downsample, multisegment
+    out["mesh"], out["mesh_capture"] = await mesh_scan_paths(
+        torch, dev, data, storage, dense, query_pred, grids[0], want, counted)
     await dense.close()
     await storage.close()
 
@@ -1768,6 +1793,9 @@ async def main_paths(torch, rng, dev, data, workdir) -> dict:
 
     # k. the last write of each segment (segment_last_value)
     out["last_write"], out["last_write_capture"] = last_write_path(torch, rng, dev, counted)
+
+    # l. the regioned scatter-gather read
+    out["regions"], out["fold_capture"] = await region_paths(torch, rng, dev, counted)
     for name, count in launches.items():
         require(count > 0, f"kernel {name} never launched on a main path")
     out["kernel_launches"] = launches
@@ -2094,9 +2122,10 @@ class PayloadWriter:
 
     SAMPLE = 18  # 0x12 0x10 | 0x09 f64 | 0x10 varint(6)
 
-    def __init__(self, tags: list, fields: tuple):
+    def __init__(self, tags: list, fields: tuple, per_payload: int = ENGINE_PER_PAYLOAD):
+        self.per = per_payload
         pieces, starts = [], []
-        body_samples = ENGINE_PER_PAYLOAD * self.SAMPLE
+        body_samples = per_payload * self.SAMPLE
         pos = 0
         for lab in tags:
             for f in fields:
@@ -2114,13 +2143,14 @@ class PayloadWriter:
                       + np.arange(body_samples, dtype=np.int64)).ravel()
 
     def payload(self, values: np.ndarray, ts: np.ndarray) -> bytes:
-        """values: [series, 3] f64; ts: [3] int64, one per scrape."""
+        """values: [series, per_payload] f64; ts: [per_payload] int64, one
+        per scrape."""
         n = values.shape[0]
         require(int(ts.min()) >= 2**35 and int(ts.max()) < 2**42, "timestamp varint width")
-        block = np.empty((n, ENGINE_PER_PAYLOAD, self.SAMPLE), np.uint8)
+        block = np.empty((n, self.per, self.SAMPLE), np.uint8)
         block[:, :, 0], block[:, :, 1], block[:, :, 2] = 0x12, 0x10, 0x09
         block[:, :, 3:11] = np.ascontiguousarray(values).view(np.uint8).reshape(
-            n, ENGINE_PER_PAYLOAD, 8)
+            n, self.per, 8)
         block[:, :, 11] = 0x10
         groups = (ts[:, None] >> (7 * np.arange(6))) & 0x7F
         groups[:, :5] |= 0x80
@@ -2774,6 +2804,535 @@ async def profile_paths(torch, storage, ids, window, pred, seg0) -> dict:
     return {"query": query, "scan_auto_metric_eq": scan}
 
 
+# -- phase 3l: the mesh, several slots of the one card ---------------------------
+# The JAX package's multi-device paths (parallel/, cluster/partial.py,
+# engine/region.py) on mesh slots that all sit on cuda:0, as the JAX tests
+# put 8 virtual devices on one host: the sharded scan (8 slots), the packed
+# downsample on a rows 2 x series 2 mesh, the regioned scatter-gather read
+# (4 regions, 2 "nodes", the fold on 4 slots) and the 3-axis multisegment
+# step (seg 2 x rows 2 x series 2).
+
+MESH_SLOTS, MERGE_SLOTS, NUM_REGIONS, REGION_PAYLOADS = 4, 8, 4, 6
+SEG_BUCKETS = SEGMENT_MS // BUCKET_MS
+
+
+class CaptureMesh:
+    """Keeps the inputs of the first sharded_packed_merge, sharded_downsample
+    and sharded_grid_fold calls made inside the block (their own main-path
+    inputs, for phase 4), and the merge's result."""
+
+    def __init__(self):
+        self.merge = self.down = self.fold = None
+
+    def __enter__(self):
+        from horaedb_tpu_torch.parallel import merge as pmerge
+        from horaedb_tpu_torch.parallel import scan as pscan
+
+        self.orig = (pmerge.sharded_packed_merge, pscan.sharded_downsample,
+                     pmerge.sharded_grid_fold)
+
+        def merge(packed, seq_width, do_dedup, mesh, defer=False, key_bits=None):
+            res = self.orig[0](packed, seq_width, do_dedup, mesh, defer=defer, key_bits=key_bits)
+            if self.merge is None:
+                self.merge = {"packed": packed, "seq_width": seq_width, "do_dedup": do_dedup,
+                              "mesh": mesh, "key_bits": key_bits}
+
+                def collect(res=res):
+                    got = res() if defer else res
+                    self.merge["result"] = got
+                    return got
+                return collect if defer else collect()
+            return res
+
+        def down(*a, **k):
+            if self.down is None:
+                self.down = (a, k)
+            return self.orig[1](*a, **k)
+
+        def fold(mesh, stacked):
+            # the largest call: device_fold_safe's probe folds [2, 2, 1]
+            if self.fold is None or stacked["sum"].size > self.fold[1]["sum"].size:
+                self.fold = (mesh, stacked)
+            return self.orig[2](mesh, stacked)
+
+        pmerge.sharded_packed_merge, pscan.sharded_downsample = merge, down
+        pmerge.sharded_grid_fold = fold
+        return self
+
+    def __exit__(self, *exc):
+        from horaedb_tpu_torch.parallel import merge as pmerge
+        from horaedb_tpu_torch.parallel import scan as pscan
+
+        pmerge.sharded_packed_merge, pscan.sharded_downsample, pmerge.sharded_grid_fold = \
+            self.orig
+
+
+def card_mesh(torch, dev, n: int, names=None):
+    """n slots of the one card: a (rows, series=2) mesh, or the 3-axis
+    (seg, rows, series) mesh when `names` says so."""
+    from horaedb_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    if names is None:
+        return make_mesh(n, series_parallel=2, devices=[dev] * n)
+    slots = np.empty(n, dtype=object)
+    slots[:] = [dev] * n
+    return Mesh(slots.reshape(2, n // 4, 2), names)
+
+
+def grids_close(got: dict, want: dict, what: str) -> None:
+    """Counts, min and max exact; sums rtol 1e-12 (the mesh folds the row
+    shards' partial sums, the single device one run)."""
+    for k in ("count", "min", "max"):
+        require(np.array_equal(got[k], want[k]), f"{what}: {k} differs")
+    np.testing.assert_allclose(got["sum"], want["sum"], rtol=1e-12, atol=0,
+                               err_msg=f"{what}: sums differ")
+
+
+def check_mesh_kernels(torch, rng, dev) -> None:
+    """Phase 2: the four mesh kernels against their plain versions on CPU
+    copies (where index_add_ folds in row order), bitwise: grid_fold on NaN
+    payloads, +-0.0, subnormals and infinities, k = 1 and 5;
+    sample_sort_merge on random, all-sentinel, one-group and skewed keys
+    (also against packed_merge); sharded_downsample on prime series counts
+    (the pads), sorted and unsorted rows, a predicate;
+    multisegment_downsample with a t0 per segment."""
+    from horaedb_tpu_torch.backend import u64_to_i64
+    from horaedb_tpu_torch.ops import filter as F
+    from horaedb_tpu_torch.ops import merge
+    from horaedb_tpu_torch.ops import mesh as mesh_ops
+    from horaedb_tpu_torch.parallel import merge as pmerge
+    from horaedb_tpu_torch.parallel import scan as pscan
+
+    cpu = torch.device("cpu")
+    specials = np.array([0x7FF8000000000001, 0x7FF0000000000005, 0xFFF8000000000002,
+                         0x8000000000000000, 0x0, 0x1, 0x800FFFFFFFFFFFFF,
+                         0x0010000000000000, 0x7FF0000000000000, 0xFFF0000000000000],
+                        np.uint64).view(np.float64)
+    for k, cells in ((1, 1_001), (5, 30_011)):
+        grids = {}
+        for key in mesh_ops.FOLD_KEYS:
+            a = rng.normal(size=(k, cells)) * (1e-308 if key == "sum" else 1.0)
+            hit = rng.random((k, cells)) < 0.3
+            a[hit] = rng.choice(specials, int(hit.sum()))
+            grids[key] = a
+        got = mesh_ops.grid_fold({key: torch.from_numpy(a).to(dev) for key, a in grids.items()})
+        want = mesh_ops.grid_fold_plain({key: torch.from_numpy(a) for key, a in grids.items()})
+        for key in mesh_ops.FOLD_KEYS:
+            require(np.array_equal(got[key].cpu().numpy().view(np.uint64),
+                                   want[key].numpy().view(np.uint64)),
+                    f"grid_fold != plain ({key}, k={k})")
+    require(pmerge.device_fold_safe(card_mesh(torch, dev, MESH_SLOTS)),
+            "device_fold_safe is False on the card")
+
+    mesh8, cpu8 = card_mesh(torch, dev, MERGE_SLOTS), card_mesh(torch, cpu, MERGE_SLOTS)
+    for case in ("random", "sentinel", "single", "skew"):
+        n, width = 300_007, 8
+        grp = rng.integers(0, 20_000, n).astype(np.uint64)
+        if case == "single":
+            grp[:] = 77
+        elif case == "skew":
+            grp[: n * 9 // 10] = 5
+        packed = (grp << np.uint64(width)) | rng.integers(0, 1 << width, n).astype(np.uint64)
+        packed[rng.random(n) < 0.15] = pmerge._SENTINEL
+        if case == "sentinel":
+            packed[:] = pmerge._SENTINEL
+        for dedup in (True, False):
+            got = pmerge.sharded_packed_merge(packed, width, dedup, mesh8)
+            idx, cnt = merge.packed_merge(torch.from_numpy(u64_to_i64(packed)).to(dev), 63,
+                                          width, dedup)
+            require(np.array_equal(got, idx[: int(cnt.item())].cpu().numpy().astype(np.int64)),
+                    f"sample_sort_merge != packed_merge ({case}, dedup={dedup})")
+            require(np.array_equal(got, pmerge.sharded_packed_merge_plain(packed, width, dedup,
+                                                                          cpu8)),
+                    f"sample_sort_merge != plain ({case}, dedup={dedup})")
+
+    mesh4, cpu4 = card_mesh(torch, dev, MESH_SLOTS), card_mesh(torch, cpu, MESH_SLOTS)
+    for num_series, sorted_rows, pred in ((7, True, None), (13, False, None),
+                                          (13, True, F.Compare("__val__", "gt", -0.3))):
+        n = 50_021
+        sid = rng.integers(0, num_series, n).astype(np.int32)
+        ts = rng.integers(-3_000, 62_000, n).astype(np.int64)
+        if sorted_rows:
+            order = np.lexsort((ts, sid))
+            sid, ts = sid[order], ts[order]
+        lanes = (ts, sid, rng.normal(size=n), rng.random(n) > 0.05)
+        pads = (0, num_series + 1, 0, False)
+        on_card, _ = pscan.shard_rows(mesh4, lanes, pad_value=pads)
+        on_cpu, _ = pscan.shard_rows(cpu4, lanes, pad_value=pads)
+        got = pscan.sharded_downsample(mesh4, *on_card, 0, 5_000, num_series + 1, 12,
+                                       predicate=pred, sorted_input=sorted_rows)
+        # CPU slots run every kernel's plain version; the pin keeps the
+        # dispatcher off the host reduceat lane (kernel B's plain version)
+        with EnvPin(HORAEDB_AGG_IMPL="block"):
+            want = pscan.sharded_downsample(cpu4, *on_cpu, 0, 5_000, num_series + 1, 12,
+                                            predicate=pred, sorted_input=sorted_rows)
+        for key in ("sum", "count", "min", "max"):
+            require(np.array_equal(got[key].cpu().numpy().view(np.uint64),
+                                   want[key].numpy().view(np.uint64)),
+                    f"sharded_downsample != plain ({key}, {num_series} series)")
+    lanes = [torch.from_numpy(a) for a in (
+        rng.integers(0, 80_000, (2, 20_000)).astype(np.int64),
+        rng.integers(0, 16, (2, 20_000)).astype(np.int32),
+        rng.normal(size=(2, 20_000)), rng.random((2, 20_000)) > 0.1)]
+    t0 = np.array([0, 3_000], np.int64)
+    names = ("seg", "rows", "series")
+    got = pscan.build_multisegment_downsample(card_mesh(torch, dev, 8, names), 16, 8)(
+        *[x.to(dev) for x in lanes], t0, 10_000)
+    want = pscan.build_multisegment_downsample(card_mesh(torch, cpu, 8, names), 16, 8)(
+        *lanes, t0, 10_000)
+    for key in ("sum", "count", "min", "max"):
+        require(np.array_equal(got[key].cpu().numpy().view(np.uint64),
+                               want[key].numpy().view(np.uint64)),
+                f"multisegment_downsample != plain ({key})")
+
+
+async def mesh_scan_paths(torch, dev, data, storage, dense, query_pred, grids0, want,
+                          counted) -> dict:
+    """Phase 3l on 3a's tables: (1) 3d's dense segment scanned under
+    HORAEDB_SCAN_PATH=sharded with an 8-slot mesh installed: lane for lane
+    the default scan, its merge indices equal to packed_merge's, the
+    sharded note and no fallback note; (2) 3b's packed downsample (10K
+    series x 48 buckets) with a 4-slot mesh installed: equal to 3b's grids
+    and the oracle; (4) `entry.dryrun_multichip(4)` on the card, then the
+    3-axis step over 3a's two segments, one a seg-shard: equal to 3b's
+    grids segment by segment."""
+    import asyncio
+
+    import horaedb_tpu_torch as port
+    from horaedb_tpu_torch import entry
+    from horaedb_tpu_torch.backend import order_key
+    from horaedb_tpu_torch.engine_query import query_downsample
+    from horaedb_tpu_torch.ops import merge
+    from horaedb_tpu_torch.parallel import scan as pscan
+    from horaedb_tpu_torch.parallel.mesh import set_active_mesh
+    from horaedb_tpu_torch.storage import ScanRequest, TimeRange, scanstats
+
+    tsids = data[0]
+    out: dict = {}
+    seg0 = TimeRange(T0, T0 + SEGMENT_MS)
+    window = TimeRange(T0, T0 + WINDOW_MS)
+
+    # 1. the sharded scan
+    default, _ = await timed_scan(dense, ScanRequest(seg0))
+    mesh8 = card_mesh(torch, dev, MERGE_SLOTS)
+    port.reset_launch_counts()
+    set_active_mesh(mesh8)
+    try:
+        with EnvPin(HORAEDB_SCAN_PATH="sharded"), CaptureMesh() as mcap, \
+                scanstats.scan_stats() as st:
+            table, secs = await timed_scan(dense, ScanRequest(seg0))
+    finally:
+        set_active_mesh(None)
+    counts = port.launch_counts()
+    counted("scan_sharded", counts)
+    notes = dict(st.counts)
+    require(counts["sample_sort_merge"] > 0, "the sharded scan did not launch sample_sort_merge")
+    require(notes.get("path_device_merge_sharded", 0) > 0
+            and not any(k.startswith("path_sharded_fallback") for k in notes),
+            f"sharded scan notes: {notes}")
+    require(lanes_equal(table_lanes(table), table_lanes(default)),
+            "sharded scan differs from the default scan")
+    cap = mcap.merge
+    key = torch.from_numpy(order_key(cap["packed"])).to(dev)
+    idx, cnt = merge.packed_merge(key, cap["key_bits"], cap["seq_width"], cap["do_dedup"])
+    require(np.array_equal(cap["result"], idx[: int(cnt.item())].cpu().numpy().astype(np.int64)),
+            "sample_sort_merge indices differ from packed_merge's")
+    out["sharded_scan"] = {"rows": table.num_rows, "s": secs, "slots": MERGE_SLOTS,
+                           "notes": notes, "launches": {k: v for k, v in counts.items() if v}}
+    print(f"3l sharded scan: {table.num_rows} rows in {secs:.3f} s on {MERGE_SLOTS} slots, "
+          f"equal to the default scan", flush=True)
+    del table, default, key
+
+    # 2. the packed downsample with the mesh installed
+    mesh4 = card_mesh(torch, dev, MESH_SLOTS)
+    port.reset_launch_counts()
+    set_active_mesh(mesh4)
+    try:
+        with CaptureMesh() as dcap:
+            t = time.perf_counter()
+            got = await query_downsample(storage, tsids, window, BUCKET_MS, query_pred)
+            secs = time.perf_counter() - t
+    finally:
+        set_active_mesh(None)
+    counts = port.launch_counts()
+    counted("downsample_mesh", counts)
+    for k in ("sharded_downsample", "grid_fold", "block_sum_count", "block_min_max"):
+        require(counts[k] > 0, f"the mesh downsample did not launch {k}")
+    check_grids(got, want, "mesh downsample against the oracle")
+    grids_close(got, grids0, "mesh downsample against the single-device route")
+    out["mesh_downsample"] = {"s": secs, "slots": MESH_SLOTS,
+                              "launches": {k: v for k, v in counts.items() if v}}
+    print(f"3l mesh downsample: {NUM_SERIES} x {WINDOW_MS // BUCKET_MS} in {secs:.3f} s on "
+          f"{MESH_SLOTS} slots", flush=True)
+
+    # 4. multisegment: the dry run, then 3a's two segments in one step
+    port.reset_launch_counts()
+    t = time.perf_counter()
+    # the dry run drives its own event loops: a worker thread, outside this one
+    await asyncio.to_thread(entry.dryrun_multichip, MESH_SLOTS, device=dev)
+    out["dryrun_s"] = time.perf_counter() - t
+    counted("dryrun_multichip", port.launch_counts())
+    _tsids, ts, _v, _r, _n, final = data
+    per = SEGMENT_MS // INTERVAL_MS
+    grid = final.reshape(NUM_SERIES, len(ts))
+    lanes = [np.stack([np.tile(ts[g * per:(g + 1) * per], NUM_SERIES) for g in (0, 1)]),
+             np.stack([np.repeat(np.arange(NUM_SERIES, dtype=np.int32), per)] * 2),
+             np.stack([grid[:, g * per:(g + 1) * per].ravel() for g in (0, 1)])]
+    lanes = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in lanes]
+    lanes.append(torch.ones(lanes[0].shape, dtype=torch.bool, device=dev))
+    t0_seg = np.array([T0, T0 + SEGMENT_MS], np.int64)
+    mesh3 = card_mesh(torch, dev, 8, ("seg", "rows", "series"))
+    fn3 = pscan.build_multisegment_downsample(mesh3, NUM_SERIES, SEG_BUCKETS)
+    port.reset_launch_counts()
+    t = time.perf_counter()
+    out3 = fn3(*lanes, t0_seg, BUCKET_MS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    counts = port.launch_counts()
+    counted("multisegment", counts)
+    require(counts["multisegment_downsample"] > 0, "multisegment did not launch its kernel")
+    require(tuple(out3["sum"].shape) == (2, NUM_SERIES, SEG_BUCKETS), "multisegment shape")
+    for g in (0, 1):
+        sl = slice(g * SEG_BUCKETS, (g + 1) * SEG_BUCKETS)
+        grids_close({k: out3[k][g].cpu().numpy() for k in ("sum", "count", "min", "max")},
+                    {k: grids0[k][:, sl] for k in ("sum", "count", "min", "max")},
+                    f"multisegment segment {g}")
+    out["multisegment"] = {"s": secs, "rows": int(lanes[0].numel()), "slots": 8,
+                           "shape": list(out3["sum"].shape)}
+    print(f"3l multisegment: [2, {NUM_SERIES}, {SEG_BUCKETS}] from {lanes[0].numel()} rows in "
+          f"{secs:.3f} s, equal to each segment's single-device grids", flush=True)
+    return out, {"merge": mcap.merge, "down": dcap.down, "multiseg": (fn3, lanes, t0_seg)}
+
+
+async def region_paths(torch, rng, dev, counted) -> tuple[dict, tuple]:
+    """Phase 3l (3): the regioned scatter-gather read. 4 regions at series
+    granularity on a fresh MemStore; TSBS cpu-only's 10,000 hosts with
+    3i's tags, cpu_usage_user at 10 s scrapes for 30 minutes (1.8M samples)
+    in 6 payloads; a double-groupby-1-shaped downsample (1-minute buckets,
+    all hosts) through `query` (the host fold), then `query_partial_grids`
+    split over two "nodes", the wire round trip, and `merge_partials` on a
+    4-slot mesh (kernel grid_fold): bitwise equal to `query`."""
+    import dataclasses
+
+    import horaedb_tpu_torch as port
+    from horaedb_tpu_torch.cluster.partial import decode_partials, encode_partials, merge_partials
+    from horaedb_tpu_torch.common.hash import seahash_many
+    from horaedb_tpu_torch.engine import QueryRequest
+    from horaedb_tpu_torch.engine.region import RegionedEngine
+    from horaedb_tpu_torch.engine.types import series_key_of
+    from horaedb_tpu_torch.objstore import MemStore
+    from horaedb_tpu_torch.parallel.merge import device_fold_safe
+    from horaedb_tpu_torch.serving import ServingTierConfig
+
+    out: dict = {}
+    tags, _rack = engine_hosts(rng)
+    host_tsid = seahash_many([series_key_of(lab) for lab in tags])
+    tsid_host = {int(x): h for h, x in enumerate(host_tsid)}
+    values = rng.uniform(0, 100, (NUM_SERIES, 1, ENGINE_SCRAPES))
+    per = ENGINE_SCRAPES // REGION_PAYLOADS
+    writer = PayloadWriter(tags, ("usage_user",), per_payload=per)
+    eng = await RegionedEngine.open("tsbs_regions", MemStore(), num_regions=NUM_REGIONS,
+                                    enable_compaction=False,
+                                    serving=ServingTierConfig(enabled=False), device=dev)
+    ts0 = T0 + np.arange(ENGINE_SCRAPES, dtype=np.int64) * INTERVAL_MS
+    port.reset_launch_counts()
+    written = 0
+    t = time.perf_counter()
+    for p in range(REGION_PAYLOADS):
+        sl = slice(p * per, (p + 1) * per)
+        written += await eng.write_payload(writer.payload(values[:, 0, sl], ts0[sl]))
+    torch.cuda.synchronize()
+    out["write_s"] = time.perf_counter() - t
+    counted("region_write", port.launch_counts())
+    require(written == values.size, f"regioned write: {written} of {values.size} samples")
+    spread = [e.series_count(b"cpu_usage_user") for e in eng.engines.values()]
+    require(sum(spread) == NUM_SERIES and min(spread) > 0, f"series per region: {spread}")
+    req = QueryRequest(metric=b"cpu_usage_user", start_ms=T0, end_ms=T0 + ENGINE_WINDOW_MS,
+                       bucket_ms=ENGINE_BUCKET_MS)
+    mesh4 = card_mesh(torch, dev, MESH_SLOTS)
+    with EnvPin(HORAEDB_BATCH="off"):
+        port.reset_launch_counts()
+        t = time.perf_counter()
+        single = await eng.query(req)
+        out["query_s"] = time.perf_counter() - t
+        counted("region_query", port.launch_counts())
+        require(single is not None and len(single[0]) == NUM_SERIES, "regioned query: series")
+        hosts = np.array([tsid_host[x] for x in single[0]])
+        check_grids(single[1], engine_oracle(values, 0, hosts), "regioned query")
+        require(device_fold_safe(mesh4), "device_fold_safe is False on the card's mesh")
+        port.reset_launch_counts()
+        t = time.perf_counter()
+        parts, wire = [], 0
+        for node, group in (("node-a", [0, 1]), ("node-b", [2, 3])):
+            frag = await eng.query_partial_grids(dataclasses.replace(req, regions=group))
+            buf = encode_partials(node, frag)
+            wire += len(buf)
+            parts.extend(decode_partials(buf)[1])
+        t_fold = time.perf_counter()
+        with CaptureMesh() as fcap:
+            merged = merge_partials(parts, order=list(eng.engines), device_mesh=mesh4)
+        torch.cuda.synchronize()
+        out["scatter_gather_s"] = time.perf_counter() - t
+        out["fold_s"] = time.perf_counter() - t_fold
+        counts = port.launch_counts()
+        counted("region_scatter_gather", counts)
+    require(counts["grid_fold"] > 0, "the scatter-gather fold did not launch grid_fold")
+    require(same_answer(merged, single), "scatter-gather grids differ from query()'s")
+    out.update(samples=written, series_per_region=spread, wire_bytes=wire,
+               fold_shape=list(fcap.fold[1]["sum"].shape))
+    print(f"3l regions: {written} samples in {out['write_s']:.2f} s, query {out['query_s']:.3f} "
+          f"s, scatter-gather {out['scatter_gather_s']:.3f} s (fold {out['fold_s']:.3f} s, "
+          f"{fcap.fold[1]['sum'].shape}), bitwise equal", flush=True)
+    await eng.close()
+    return out, fcap.fold
+
+
+def mesh_records(torch, dev, caps: dict, fold_cap) -> list[dict]:
+    """Phase 4: the four mesh kernels at phase 3l's shapes against their
+    plain versions on the card, timed (kernel, plain, library yardstick)."""
+    from horaedb_tpu_torch.backend import order_key, to_device
+    from horaedb_tpu_torch.ops import mesh as mesh_ops
+    from horaedb_tpu_torch.parallel import merge as pmerge
+    from horaedb_tpu_torch.parallel import scan as pscan
+
+    records = []
+    # sample_sort_merge: 3l's sharded scan, 8 slots
+    m = caps["merge"]
+    plan = pmerge.SamplePlan(m["packed"], m["seq_width"], m["do_dedup"], m["mesh"],
+                             m["key_bits"])
+    got = pmerge._collect(plan.run())
+    want = pmerge._collect(plan.run(plain=True))
+    require(np.array_equal(got, want), "sample_sort_merge != plain at 3l's shape")
+    n, k = len(m["packed"]), len(got)
+    key = torch.from_numpy(order_key(m["packed"])).to(dev)
+    # each key read once (8 B/row), each survivor's row id written once
+    nb, kind = bound(n * 8 + k * 4, 0)
+    records.append({
+        "name": "sample_sort_merge", "route": "cuda",
+        "source": "horaedb_tpu_torch/ops/csrc/sample_sort_merge.cu",
+        "replaces": "horaedb_tpu/parallel/merge.py:137",
+        "shape": f"{n} rows over {plan.d_slots} slots of one card, {m['key_bits']}-bit key, "
+                 f"cap {plan.cap}, {k} survivors",
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(torch, plan.run, iters=5, warmup=1),
+        "plain_ms": cuda_ms(torch, lambda: plan.run(plain=True), iters=3, warmup=1),
+        "bound_ms": nb, "bound_by": kind, "library_ms": None,
+        "one_key_sort_ms": cuda_ms(torch, lambda: torch.sort(key, stable=True), iters=5)})
+    del plan, key
+
+    # grid_fold: one slot's launch of 3l's scatter-gather fold
+    mesh, stacked = fold_cap
+    kk, S, B = stacked["sum"].shape
+    local = -(-S // mesh.size)
+    part = {key: to_device(np.ascontiguousarray(stacked[key][:, :local]), dev)
+            for key in mesh_ops.FOLD_KEYS}
+    got = mesh_ops.grid_fold(part)
+    want = mesh_ops.grid_fold_plain(part)
+    for key in mesh_ops.FOLD_KEYS:
+        require(torch.equal(got[key].view(torch.int64), want[key].view(torch.int64)),
+                f"grid_fold != plain at 3l's shape ({key})")
+
+    def fold_library():
+        return (part["sum"].sum(0), part["count"].sum(0), part["min"].amin(0),
+                part["max"].amax(0))
+
+    cells = local * B
+    # each partial read once, the four grids written once
+    nb, kind = bound(4 * 8 * cells * (kk + 1), 4 * kk * cells)
+    records.append({
+        "name": "grid_fold", "route": "cuda", "source": "horaedb_tpu_torch/ops/csrc/grid_fold.cu",
+        "replaces": "horaedb_tpu/parallel/merge.py:282",
+        "shape": f"[{kk}, {local}, {B}] a slot (3l's [{kk}, {S}, {B}] over {mesh.size} slots)",
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(torch, lambda: mesh_ops.grid_fold(part)),
+        "plain_ms": cuda_ms(torch, lambda: mesh_ops.grid_fold_plain(part)),
+        "bound_ms": nb, "bound_by": kind, "library_ms": cuda_ms(torch, fold_library),
+        "library_call": "sum x2, amin, amax over dim 0"})
+    del part
+
+    def downsample_library(ts_l, sid_l, val_l, ok_l, t0s, num_series, num_buckets):
+        """2 index_add_ + 2 scatter_reduce over the flat cell ids of the
+        same rows (the yardstick of the downsample rows)."""
+        flats, vals = [], []
+        for ts, sid, v, ok, t0 in zip(ts_l, sid_l, val_l, ok_l, t0s):
+            b = torch.div(ts - t0, BUCKET_MS, rounding_mode="floor")
+            good = ok & (b >= 0) & (b < num_buckets) & (sid >= 0) & (sid < num_series)
+            flats.append(torch.where(good, sid.long() * num_buckets + b, num_series * num_buckets))
+            vals.append(v)
+        flat, v = torch.cat(flats), torch.cat(vals)
+        cells = num_series * num_buckets
+
+        def library():
+            s = torch.zeros(cells + 1, dtype=torch.float64, device=dev).index_add_(0, flat, v)
+            c = torch.zeros(cells + 1, dtype=torch.float64, device=dev).index_add_(
+                0, flat, torch.ones_like(v))
+            mn = torch.full((cells + 1,), torch.inf, dtype=torch.float64,
+                            device=dev).scatter_reduce_(0, flat, v, "amin")
+            mx = torch.full((cells + 1,), -torch.inf, dtype=torch.float64,
+                            device=dev).scatter_reduce_(0, flat, v, "amax")
+            return s, c, mn, mx
+        return library
+
+    def key_record(name: str, lanes, t0: int, bucket_ms: int, num_series: int,
+                   num_buckets: int, what: str, step, step_library) -> dict:
+        """The key kernel on one slot's lanes (series slice 0) against
+        `sharded_keys_plain` on the same card tensors; the whole mesh step
+        and its library yardstick are kept beside it as context."""
+        local = num_series // 2
+        args = (*lanes, None, t0, bucket_ms, 0, local, num_buckets)
+        got = mesh_ops.sharded_keys(*args, library=name)
+        want = mesh_ops.sharded_keys_plain(*args)
+        for g, w in zip(got, want):
+            require(torch.equal(g, w), f"{name} key kernel != plain at 3l's shape")
+        rows = int(lanes[0].numel())
+        # read ts 8 + sid 4 + value 8 + valid 1, write safe 4 + flat 4 + value 8
+        # + weight 8 + ok 1: 46 B a row
+        nb, kind = bound(rows * 46, 0)
+        return {
+            "name": name, "route": "cuda",
+            "source": "horaedb_tpu_torch/ops/csrc/sharded_downsample.cu",
+            "shape": f"{rows} rows of one slot, series slice [0, {local}) x {num_buckets} "
+                     f"buckets, t0 {t0} ({what})",
+            "max_abs_err": abs_err(torch, got[2], want[2]),
+            "ms": cuda_ms(torch, lambda: mesh_ops.sharded_keys(*args, library=name)),
+            "plain_ms": cuda_ms(torch, lambda: mesh_ops.sharded_keys_plain(*args)),
+            "bound_ms": nb, "bound_by": kind, "library_ms": None,
+            "library_call": "none: no one PyTorch call builds the cell keys",
+            "step_ms": cuda_ms(torch, step, iters=5, warmup=1),
+            "step_library_ms": cuda_ms(torch, step_library, iters=5),
+            "step_library_call": "index_add_ x2 + scatter_reduce amin/amax over the flat cell "
+                                 "ids of the step's rows"}
+
+    # sharded_downsample: 3l's mesh downsample, segment 0's run
+    a, kw = caps["down"]
+    mesh4, ts_l, sid_l, val_l, ok_l = a[:5]
+    t0, num_series, num_buckets = kw["t0"], kw["num_series"], kw["num_buckets"]
+    rec = key_record(
+        "sharded_downsample", (ts_l[0], sid_l[0], val_l[0], ok_l[0]), t0, kw["bucket_ms"],
+        num_series, num_buckets, f"slot (0, 0) of 3l's {sum(int(t.numel()) for t in ts_l)} sorted rows on "
+                     f"{mesh4.size} slots, rows 2 x series 2",
+        lambda: pscan.sharded_downsample(mesh4, ts_l, sid_l, val_l, ok_l, t0, kw["bucket_ms"],
+                                         num_series, num_buckets,
+                                         sorted_input=kw["sorted_input"]),
+        downsample_library(ts_l, sid_l, val_l, ok_l, [t0] * 2, num_series, num_buckets))
+    records.append({**rec, "replaces": "horaedb_tpu/parallel/scan.py:197"})
+
+    # multisegment_downsample: 3l's 3-axis step, segment 1's first row shard
+    fn3, lanes, t0_seg = caps["multiseg"]
+    per = lanes[0].shape[1] // 2
+    # segment 1's series offset past segment 0's: one flat grid of both
+    seg_lanes = [[x[g] for g in (0, 1)] for x in lanes]
+    seg_lanes[1][1] = seg_lanes[1][1] + NUM_SERIES
+    rec = key_record(
+        "multisegment_downsample", [x[1, :per] for x in lanes], int(t0_seg[1]), BUCKET_MS,
+        NUM_SERIES, SEG_BUCKETS, f"slot (1, 0, 0) of 3l's [2, {2 * per}] rows on 8 slots, seg 2 x rows 2 "
+                     f"x series 2",
+        lambda: fn3(*lanes, t0_seg, BUCKET_MS),
+        downsample_library(*seg_lanes, [int(t) for t in t0_seg], 2 * NUM_SERIES, SEG_BUCKETS))
+    records.append({**rec, "replaces": "horaedb_tpu/parallel/scan.py:286"})
+    return records
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     ap.add_argument("--seed", type=int, default=0)
@@ -2821,6 +3380,7 @@ def run_smoke(torch, seed: int) -> int:
     check_decode_kernels(torch, rng, dev)
     check_stacked_kernel(torch, rng, dev)
     check_agg_kernels(torch, rng, dev)
+    check_mesh_kernels(torch, rng, dev)
     long_runs = check_long_runs(torch, np.random.default_rng([seed, 1]), dev)
     print(f"phase 2: {time.perf_counter() - t_all:.1f} s", flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
@@ -2831,6 +3391,7 @@ def run_smoke(torch, seed: int) -> int:
     records += decode_records(torch, result.pop("decode_capture"), dev)
     records += stacked_records(torch, result.pop("stacked_capture"), dev)
     records += agg_records(torch, dev, result.pop("last_write_capture"))
+    records += mesh_records(torch, dev, result.pop("mesh_capture"), result.pop("fold_capture"))
     result["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
     for r in records:
         r["launches"] = result["kernel_launches"][r["name"]]

@@ -96,6 +96,10 @@ class QueryRequest:
     bucket_ms: int | None = None  # None -> raw rows
     # raw-row limit pushed into the scan; ignored for bucketed queries
     limit: int | None = None
+    # region restriction of the scatter-gather read: None = every region;
+    # a list restricts `RegionedEngine.query_partial_grids` to those region
+    # shards. Ignored by `query`.
+    regions: "list[int] | None" = None
 
 
 def _refuse_unported(serving, enable_compaction: bool, ingest_buffer_rows: int,

@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels, and count their launches.
 
-Each kernel is one library built from its sources under `ops/csrc/`,
-compiled at first use with
+Each kernel is one library (two catalog kernels may share one, `SHARED`)
+built from its sources under `ops/csrc/`, compiled at first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC
@@ -41,11 +41,14 @@ from horaedb_tpu_torch.common.error import HoraeError
 # inside index_merge_filter and scan_kernel and is not a catalog kernel of
 # its own. A downsample call launches two libraries, downsample (the cell
 # ids) and grouped_stats (the reduction), and counts once in each; so does
-# a stacked_downsample call.
+# a stacked_downsample call. multisegment_downsample is sharded_downsample's
+# key kernel with a per-segment t0: it loads that library (SHARED) and
+# counts its launches under its own name.
 KERNELS = ("sort_perm", "block_sum_count", "block_min_max", "packed_merge",
            "index_merge_mask", "index_merge_filter", "scan_kernel", "downsample",
            "grouped_stats", "decode_unpack", "decode_dod", "decode_xor", "decode_rle",
-           "stacked_downsample", "lane_sum_count", "segment_last_value")
+           "stacked_downsample", "lane_sum_count", "segment_last_value",
+           "sample_sort_merge", "grid_fold", "sharded_downsample", "multisegment_downsample")
 SOURCES = {
     "sort_perm": ("sort_perm.cu", "radix.cuh"),
     "block_sum_count": ("block_sum_count.cu", "segreduce.cuh"),
@@ -63,7 +66,11 @@ SOURCES = {
     "stacked_downsample": ("stacked_downsample.cu",),
     "lane_sum_count": ("lane_sum_count.cu",),
     "segment_last_value": ("segment_last_value.cu",),
+    "sample_sort_merge": ("sample_sort_merge.cu", "compact.cuh", "radix.cuh"),
+    "grid_fold": ("grid_fold.cu",),
+    "sharded_downsample": ("sharded_downsample.cu", "predicate.cu"),
 }
+SHARED = {"multisegment_downsample": "sharded_downsample"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -99,7 +106,13 @@ def nvcc_path() -> str:
     return found
 
 
+def library_of(name: str) -> str:
+    """The library that holds catalog kernel `name`."""
+    return SHARED.get(name, name)
+
+
 def _lib_path(name: str) -> Path:
+    name = library_of(name)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in SOURCES[name]:
         h.update((CSRC / src).read_bytes())
@@ -107,17 +120,18 @@ def _lib_path(name: str) -> Path:
 
 
 def _nvcc_cmd(name: str, out: Path) -> list[str]:
-    units = [str(CSRC / src) for src in SOURCES[name] if src.endswith(".cu")]
+    units = [str(CSRC / src) for src in SOURCES[library_of(name)] if src.endswith(".cu")]
     return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), *units]
 
 
-def build_all(names=KERNELS) -> dict[str, float]:
-    """Compile every kernel in `names` that has no current build, one
-    nvcc process per source, all started together. Returns seconds per
-    built kernel (0.0 for one already built)."""
+def build_all(names=tuple(SOURCES)) -> dict[str, float]:
+    """Compile every library of the kernels in `names` that has no current
+    build, one nvcc process per library, all started together. Returns
+    seconds per built library (0.0 for one already built)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     started = time.perf_counter()
+    names = tuple(dict.fromkeys(library_of(n) for n in names))
     for name in names:
         out = _lib_path(name)
         if out.exists():
@@ -145,6 +159,7 @@ def kernel(name: str, fn_name: str, argtypes: list, restype=ctypes.c_int) -> cty
     """The C entry point `fn_name` of kernel `name`, built on first use.
     Every launch entry point returns cudaGetLastError() as an int; each
     library also exports the size of the scratch its launch needs."""
+    name = library_of(name)
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -136,6 +136,20 @@ def to_f64(t: torch.Tensor, unsigned: bool = False) -> torch.Tensor:
     return hi.to(torch.float64) * 4294967296.0 + lo.to(torch.float64)
 
 
+def masked_cell_keys(series_idx: torch.Tensor, bucket: torch.Tensor, ok: torch.Tensor,
+                     num_series: int, num_buckets: int):
+    """Cell ids shared by the downsample paths: (safe, flat). `safe` keeps a
+    masked row at an in-range id (clipped series and bucket, so ids stay
+    monotone in (series, ts) order and sorted runs stay whole; its mask
+    rides the weight column) and feeds sum/count; `flat` sends it to the
+    num_cells sentinel (drop semantics) and feeds min/max. The plain form
+    of the mesh step's key kernel (`ops/mesh.py::sharded_keys`)."""
+    safe = (torch.clamp(series_idx.to(torch.int32), 0, num_series - 1) * num_buckets
+            + torch.clamp(bucket, 0, num_buckets - 1)).to(torch.int32)
+    flat = torch.where(ok, safe, torch.full_like(safe, num_series * num_buckets))
+    return safe, flat
+
+
 def masked_minmax(values: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
                   num_segments: int):
     """Scatter min/max per segment of f64 `values`; `idx` routes invalid rows

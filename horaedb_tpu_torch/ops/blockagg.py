@@ -53,6 +53,10 @@ _SORTED_IMPL_NAMES = (
 )
 _UNSORTED_IMPL_NAMES = ("auto", "scatter", "sort", "bincount")
 _FLOATS = (torch.float32, torch.float64)
+# grids below this many cells take the sorted-segment route in the mesh
+# step (the JAX package's bound: its one-hot id recovery is exact in f32
+# below 2^24; kept so both packages route the same grids the same way)
+F32_EXACT = 1 << 24
 
 
 def _check(name: str, k, v, aux, aux_dtypes, num_cells: int) -> None:

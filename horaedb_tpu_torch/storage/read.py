@@ -40,9 +40,15 @@ Ordering contract: output sorted by (pk..., __seq__), duplicates collapsed
 per UpdateMode; the filter runs BEFORE dedup, so a newest-version row
 rejected by the predicate exposes the older surviving version.
 
+With a mesh installed (`parallel/mesh.py::set_active_mesh`), the packed
+merge runs as the cross-slot sample sort (`parallel/merge.py`, kernel
+`sample_sort_merge`) under `HORAEDB_SCAN_PATH=sharded` or, in auto, past
+`HORAEDB_SHARDED_MIN_ROWS` rows; and the packed and chunked downsamples
+fold each sorted run over the mesh (`parallel/mesh.py::mesh_downsample`).
+
 Not ported yet, and refused with `NotPortedError` instead of running
-something else: binary primary keys, the sharded multi-GPU merge, and
-device merges over non-integer sort keys. Bloom-filter sidecars, the
+something else: binary primary keys and device merges over non-integer
+sort keys. Bloom-filter sidecars, the
 block and file-handle caches, and retention and tombstone masking of the
 JAX package's reader are not here either.
 """
@@ -93,6 +99,15 @@ logger = logging.getLogger(__name__)
 DEFAULT_SCAN_BATCH_SIZE = 8192
 SCAN_PATHS = ("auto", "host", "device", "sharded")
 LINK_PROFILES = ("host", "device", "skip")
+
+# Block size past which an installed mesh upgrades the packed merge to the
+# cross-slot sample sort (parallel/merge.py) in auto mode. Read per call
+# like HORAEDB_SCAN_PATH, so harnesses can flip it after import.
+def _sharded_min_rows() -> int:
+    return int(os.environ.get("HORAEDB_SHARDED_MIN_ROWS", 4_000_000))
+
+
+_warned_sharded_no_mesh = False
 
 # Device merge cost per row that the planner charges on the card: kernel
 # F's time over one segment at the main path's shape (17.57 ms for 7.56M
@@ -410,7 +425,10 @@ def _plan_and_merge(schema: StorageSchema, n: int, col_of, predicate: Predicate 
     device wins even at worst-case selectivity, the predicate evaluates on
     the device (kernel E) and the host never evaluates it.
     `HORAEDB_SCAN_PATH` in {auto, host, device} pins the route; `sharded`
-    is the multi-GPU merge, not ported yet. Binary-column predicates, and
+    forces the cross-slot sample sort over the installed mesh (the
+    predicate, if any, evaluates on the host into the packed sentinel);
+    in auto an installed mesh takes blocks of `_sharded_min_rows()` rows
+    or more whose keys are not presorted. Binary-column predicates, and
     predicates beyond kernel E's limits (`filter_ops.program_fits`), always
     evaluate on the host, but may still merge on the device. Auto merges on
     the host when the sort keys outnumber kernel F's lanes
@@ -423,8 +441,6 @@ def _plan_and_merge(schema: StorageSchema, n: int, col_of, predicate: Predicate 
     pred_cols = filter_ops.pred_columns(predicate)
     host_pred = binary_pred or not filter_ops.program_fits(predicate)
     mode = scan_path_mode()
-    if mode == "sharded":
-        raise NotPortedError("not ported yet: HORAEDB_SCAN_PATH=sharded (the multi-GPU slice)")
     link = _LinkProfile.get(device)
     dispatch = link["dispatch_s"]
     _presorted: list[bool] = []
@@ -452,15 +468,42 @@ def _plan_and_merge(schema: StorageSchema, n: int, col_of, predicate: Predicate 
 
     def device_merge_packed(mask):
         """Kernel D over one packed key per row, or None when packing does
-        not pay (a fast link) or the keys do not pack."""
-        if (key_bytes - 8) / link["h2d_bw"] < 30e-9:
+        not pay (a fast link) or the keys do not pack. With a mesh
+        installed and the sharded route wanted, the cross-slot sample sort
+        instead (kernel `sample_sort_merge`)."""
+        from horaedb_tpu_torch.parallel import merge as mesh_merge
+        from horaedb_tpu_torch.parallel.mesh import active_mesh
+
+        mesh = active_mesh()
+        if mode == "sharded" and mesh is None:
+            # the likeliest harness mistake: the downgrade must be visible
+            # (noted every time, logged once per process)
+            scanstats.note("path_sharded_fallback_no_mesh")
+            global _warned_sharded_no_mesh
+            if not _warned_sharded_no_mesh:
+                _warned_sharded_no_mesh = True
+                logger.warning("HORAEDB_SCAN_PATH=sharded but no mesh is active; "
+                               "falling back to the single-device kernel (n=%d)", n)
+        # the size upgrade only in auto: an explicit device pin keeps the
+        # single-device kernel even with a mesh installed
+        want_sharded = mesh is not None and (
+            mode == "sharded" or (mode == "auto" and n >= _sharded_min_rows()))
+        if not want_sharded and (key_bytes - 8) / link["h2d_bw"] < 30e-9:
             return None
         packres = _pack_sort_keys(col_of, sort_keys, n)
         if packres is None:
+            if want_sharded:
+                scanstats.note("path_sharded_fallback_unpackable")
+                logger.warning("sharded merge requested but sort keys do not pack into "
+                               "u64; falling back to the single-device kernels (n=%d)", n)
             return None
         packed, seq_width, key_bits = packres
         if mask is not None:
             packed = np.where(mask, packed, PACK_SENTINEL)
+        if want_sharded:
+            scanstats.note("path_device_merge_sharded")
+            return mesh_merge.sharded_packed_merge(packed, seq_width, do_dedup, mesh,
+                                                   defer=defer_device, key_bits=key_bits)
         key = to_device(order_key(packed), device)
         return finish(*merge_ops.packed_merge(key, key_bits, seq_width, do_dedup))
 
@@ -505,8 +548,20 @@ def _plan_and_merge(schema: StorageSchema, n: int, col_of, predicate: Predicate 
 
     if mode == "device":
         return device_merge(eval_mask() if host_pred else None)
+    if mode == "sharded":
+        # force the cross-slot route: the predicate evaluates on the host
+        # into a mask, so the packed merge (the only sharded one) applies
+        return device_merge(eval_mask())
     if mode == "host" or len(sort_keys) > merge_ops.MAX_KEYS:
         return host_merge(eval_mask())
+    # the mesh's auto upgrade: past the sharded threshold the cross-slot
+    # merge supersedes the one-device cost compare; presorted blocks keep
+    # their O(n) host shortcut
+    if n >= _sharded_min_rows() and not keys_presorted():
+        from horaedb_tpu_torch.parallel.mesh import active_mesh
+
+        if active_mesh() is not None:
+            return device_merge(eval_mask())
     if predicate is None:
         if not keys_presorted() and dev_cost(key_bytes, n) < host_cost(n):
             return device_merge(None)
@@ -967,20 +1022,35 @@ class ParquetReader:
             pos_c = np.clip(pos, 0, max(0, num_series - 1))
             return pos_c.astype(np.int32), series_ids[pos_c] == col
 
+        from horaedb_tpu_torch.parallel.mesh import active_mesh
+
+        mesh = active_mesh()
+
         def accumulate_sorted(ts_np, sid_np, val_np, valid_np=None) -> None:
-            out = agg_ops.downsample_sorted(
-                ts_np, sid_np, val_np, t0, bucket_ms, num_series=num_series,
-                num_buckets=num_buckets, with_minmax=with_minmax, valid=valid_np,
-                device=self._device)
-            # lane attribution: the registry impl the calibrated dispatcher
-            # chose for this fold, before the dtype routing; the engine's f64
-            # values run kernel B (or its plain version) whatever the choice
-            scanstats.note("agg_impl_" + agg_registry.last_choice())
-            grids["sum"] += out["sum"].cpu().numpy()
-            grids["count"] += out["count"].cpu().numpy()
+            """Fold one sorted run into the grids. With a mesh installed the
+            rows shard over "rows" and the grid over "series"
+            (`mesh_downsample`: the key kernel, B and C per slot, then
+            `grid_fold`); otherwise the single-device sorted reduction."""
+            if mesh is not None:
+                out = self._sharded_accumulate(mesh, ts_np, sid_np, val_np, t0, bucket_ms,
+                                               num_series, num_buckets, with_minmax,
+                                               valid_np=valid_np)
+            else:
+                out = agg_ops.downsample_sorted(
+                    ts_np, sid_np, val_np, t0, bucket_ms, num_series=num_series,
+                    num_buckets=num_buckets, with_minmax=with_minmax, valid=valid_np,
+                    device=self._device)
+                # lane attribution: the registry impl the calibrated dispatcher
+                # chose for this fold, before the dtype routing; the engine's
+                # f64 values run kernel B (or its plain version) whatever the
+                # choice
+                scanstats.note("agg_impl_" + agg_registry.last_choice())
+                out = {k: v.cpu().numpy() for k, v in out.items()}
+            grids["sum"] += out["sum"]
+            grids["count"] += out["count"]
             if with_minmax:
-                grids["min"] = np.minimum(grids["min"], out["min"].cpu().numpy())
-                grids["max"] = np.maximum(grids["max"], out["max"].cpu().numpy())
+                grids["min"] = np.minimum(grids["min"], out["min"])
+                grids["max"] = np.maximum(grids["max"], out["max"])
 
         total_rows = sum(s.meta.num_rows for s in ssts)
         if total_rows > self._scan_block_rows and len(ssts) > 1:
@@ -1032,6 +1102,18 @@ class ParquetReader:
             g = out[k].cpu().numpy()
             grids[k] = g.view(np.uint64) if unsigned and k in ("sum", "count") else g
         return grids
+
+    @staticmethod
+    def _sharded_accumulate(mesh, ts_np, sid_np, val_np, t0, bucket_ms, num_series: int,
+                            num_buckets: int, with_minmax: bool, valid_np=None) -> dict:
+        """One sorted run reduced over the mesh (`parallel/mesh.py::
+        mesh_downsample`, which owns the series padding, the per-lane row
+        pads and the dtype rule)."""
+        from horaedb_tpu_torch.parallel.mesh import mesh_downsample
+
+        return mesh_downsample(mesh, ts_np, sid_np, val_np, t0, bucket_ms, num_series,
+                               num_buckets, with_minmax=with_minmax, valid_np=valid_np,
+                               sorted_input=True)
 
     def _fused_pass(self, table: pa.Table, predicate: Predicate | None,
                     extra_arrays: dict[str, np.ndarray] | None = None):

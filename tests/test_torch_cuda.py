@@ -724,3 +724,145 @@ def test_host_pin_is_refused_on_the_card(dev, var, name, monkeypatch):
         blockagg.sorted_segment_sum_count(k, v, 3, impl=name)
     with pytest.raises(HoraeError, match="host lane"):
         blockagg.sorted_segment_min_max(k, v, 3, impl=name)
+
+
+# -- the mesh slice: grid_fold, sharded_downsample, multisegment_downsample,
+# sample_sort_merge (several slots of one card) ----------------------------------
+
+from horaedb_tpu_torch.ops import mesh as mesh_ops  # noqa: E402
+from horaedb_tpu_torch.parallel import merge as pmerge  # noqa: E402
+from horaedb_tpu_torch.parallel import scan as pscan  # noqa: E402
+from horaedb_tpu_torch.parallel.mesh import Mesh, make_mesh, mesh_downsample  # noqa: E402
+
+
+def _edge_grids(rng, k: int, cells: int) -> dict:
+    """k partial grids with NaN payloads, +-0.0, subnormals and infinities."""
+    specials = np.array([0x7FF8000000000001, 0x7FF0000000000005, 0xFFF8000000000002,
+                         0x8000000000000000, 0x0, 0x1, 0x800FFFFFFFFFFFFF, 0x0010000000000000,
+                         0x7FF0000000000000, 0xFFF0000000000000], np.uint64).view(np.float64)
+    out = {}
+    for key in mesh_ops.FOLD_KEYS:
+        a = rng.normal(size=(k, cells)) * 1e-300 if key == "sum" else rng.normal(size=(k, cells))
+        hit = rng.random((k, cells)) < 0.3
+        a[hit] = rng.choice(specials, int(hit.sum()))
+        out[key] = a
+    return out
+
+
+@pytest.mark.parametrize("k,cells", [(1, 1), (1, 257), (2, 4096), (5, 30_001)])
+def test_grid_fold_matches_plain_bitwise(dev, k, cells):
+    grids = _edge_grids(np.random.default_rng(k * cells), k, cells)
+    got = mesh_ops.grid_fold({key: torch.from_numpy(a).to(dev) for key, a in grids.items()})
+    want = mesh_ops.grid_fold_plain({key: torch.from_numpy(a) for key, a in grids.items()})
+    for key in mesh_ops.FOLD_KEYS:
+        assert np.array_equal(_u64(got[key]), _u64(want[key])), key
+
+
+def test_grid_fold_keeps_subnormals_on_the_card(dev):
+    mesh = make_mesh(4, series_parallel=2, devices=[dev] * 4)
+    assert pmerge.device_fold_safe(mesh)
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_sharded_keys_match_plain(dev, with_mask):
+    rng = np.random.default_rng(11)
+    n = 70_001
+    ts = rng.integers(-5_000, 90_000, n).astype(np.int64)
+    sid = rng.integers(-2, 40, n).astype(np.int32)
+    vals = rng.normal(size=n)
+    valid = rng.random(n) > 0.1
+    mask = (rng.random(n) > 0.3) if with_mask else None
+    host = [torch.from_numpy(a) for a in (ts, sid, vals, valid)]
+    m_host = None if mask is None else torch.from_numpy(mask)
+    got = mesh_ops.sharded_keys(*[t.to(dev) for t in host],
+                                None if m_host is None else m_host.to(dev), 1_000, 7_000, 13,
+                                17, 12)
+    want = mesh_ops.sharded_keys_plain(*host, m_host, 1_000, 7_000, 13, 17, 12)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w), (g.dtype, w.dtype)
+
+
+def _grids_equal(got: dict, want: dict) -> None:
+    for key in ("sum", "count", "min", "max"):
+        assert np.array_equal(_u64(got[key]), _u64(want[key])), key
+
+
+@pytest.mark.parametrize("num_series,sorted_input", [(7, True), (13, True), (13, False)])
+def test_sharded_downsample_matches_plain_on_prime_series(dev, num_series, sorted_input,
+                                                          monkeypatch):
+    """Four slots of one card (rows 2 x series 2): prime series counts pad
+    the series axis; kernel and plain grids are bitwise equal."""
+    mesh = make_mesh(4, series_parallel=2, devices=[dev] * 4)
+    rng = np.random.default_rng(num_series)
+    n = 20_011
+    sid = rng.integers(0, num_series, n).astype(np.int32)
+    ts = rng.integers(-2_000, 60_000, n).astype(np.int64)
+    if sorted_input:
+        order = np.lexsort((ts, sid))
+        sid, ts = sid[order], ts[order]
+    vals = rng.normal(size=n)
+    padded = num_series + 1
+    host_lanes = (ts, sid, vals, np.ones(n, bool))
+    pads = (0, padded, 0, False)
+    lanes, _ = pscan.shard_rows(mesh, host_lanes, pad_value=pads)
+    got = pscan.sharded_downsample(mesh, *lanes, 0, 5_000, padded, 12, sorted_input=sorted_input)
+    # the step on CPU slots runs every kernel's plain version (index_add_
+    # folds in row order there); the pin keeps the dispatcher off the host
+    # reduceat lane
+    monkeypatch.setenv("HORAEDB_AGG_IMPL", "block")
+    cpu_mesh = make_mesh(4, series_parallel=2, devices=["cpu"] * 4)
+    cpu_lanes, _ = pscan.shard_rows(cpu_mesh, host_lanes, pad_value=pads)
+    want = pscan.sharded_downsample(cpu_mesh, *cpu_lanes, 0, 5_000, padded, 12,
+                                    sorted_input=sorted_input)
+    _grids_equal(got, want)
+    host = mesh_downsample(cpu_mesh, ts, sid, vals, 0, 5_000, num_series, 12,
+                           sorted_input=sorted_input)
+    assert np.array_equal(got["count"].cpu().numpy()[:num_series], host["count"])
+
+
+def test_multisegment_downsample_matches_plain(dev):
+    def mesh3(d):
+        slots = np.empty(8, dtype=object)
+        slots[:] = [d] * 8
+        return Mesh(slots.reshape(2, 2, 2), ("seg", "rows", "series"))
+
+    rng = np.random.default_rng(5)
+    lanes = [torch.from_numpy(a) for a in (
+        rng.integers(0, 80_000, (2, 10_000)).astype(np.int64),
+        rng.integers(0, 16, (2, 10_000)).astype(np.int32),
+        rng.normal(size=(2, 10_000)), rng.random((2, 10_000)) > 0.2)]
+    t0 = np.array([0, 3_000], np.int64)
+    got = pscan.build_multisegment_downsample(mesh3(dev), 16, 8)(
+        *[t.to(dev) for t in lanes], t0, 10_000)
+    want = pscan.build_multisegment_downsample(mesh3(torch.device("cpu")), 16, 8)(
+        *lanes, t0, 10_000)
+    _grids_equal(got, want)
+
+
+def _packed_case(rng, case: str, n: int, seq_width: int = 8) -> np.ndarray:
+    grp = rng.integers(0, 9_000, n).astype(np.uint64)
+    if case == "skew":
+        grp[: n * 9 // 10] = 5
+    elif case == "single":
+        grp[:] = 77
+    seq = rng.integers(0, 1 << seq_width, n).astype(np.uint64)
+    packed = (grp << np.uint64(seq_width)) | seq
+    packed[rng.random(n) < 0.15] = pmerge._SENTINEL
+    if case == "sentinel":
+        packed[:] = pmerge._SENTINEL
+    return packed
+
+
+@pytest.mark.parametrize("case", ["random", "skew", "single", "sentinel"])
+@pytest.mark.parametrize("do_dedup", [True, False])
+def test_sample_sort_merge_matches_packed_merge(dev, case, do_dedup):
+    """Eight slots of one card: the survivors equal kernel D's bytewise and
+    the plain version's."""
+    from horaedb_tpu_torch.backend import u64_to_i64
+
+    mesh = make_mesh(8, series_parallel=2, devices=[dev] * 8)
+    packed = _packed_case(np.random.default_rng(21), case, 200_003)
+    got = pmerge.sharded_packed_merge(packed, 8, do_dedup, mesh)
+    idx, cnt = merge.packed_merge(torch.from_numpy(u64_to_i64(packed)).to(dev), 63, 8, do_dedup)
+    assert np.array_equal(got, idx[: int(cnt.item())].cpu().numpy().astype(np.int64))
+    assert np.array_equal(got, pmerge.sharded_packed_merge_plain(packed, 8, do_dedup, mesh))

@@ -107,6 +107,9 @@ def _entry_points():
     from horaedb_tpu_torch.ops.sort import sort_permutation
     from horaedb_tpu_torch.storage import ObjectBasedStorage
     from horaedb_tpu_torch.storage.carry import open_local_root
+    from horaedb_tpu_torch import entry
+    from horaedb_tpu_torch.engine.region import RegionedEngine
+    from horaedb_tpu_torch.parallel import make_mesh
 
     schema = pa.schema([(n, pa.from_numpy_dtype(dt)) for n, dt in SCHEMA])
     z = np.zeros(4, np.int64)
@@ -123,12 +126,19 @@ def _entry_points():
         "MetricEngine.open": lambda: asyncio.run(MetricEngine.open(
             "db", MemStore(), enable_compaction=False,
             serving=ServingTierConfig(enabled=False))),
+        "make_mesh": lambda: make_mesh(4, series_parallel=2),
+        "RegionedEngine.open": lambda: asyncio.run(RegionedEngine.open(
+            "db", MemStore(), 4, enable_compaction=False,
+            serving=ServingTierConfig(enabled=False))),
+        "entry": lambda: entry.entry(),
+        "dryrun_multichip": lambda: entry.dryrun_multichip(4),
     }
 
 
 @pytest.mark.parametrize("name", ["try_new", "open_local_root", "sort_permutation",
                                   "downsample_sorted", "decode_page_device",
-                                  "MetricEngine.open"])
+                                  "MetricEngine.open", "make_mesh", "RegionedEngine.open",
+                                  "entry", "dryrun_multichip"])
 def test_entry_point_without_device_raises_on_cpu_box(no_card, name):
     with pytest.raises(HoraeError, match="no CUDA device"):
         _entry_points()[name]()
@@ -164,13 +174,24 @@ def test_plain_versions_do_not_count_launches():
                                  torch.zeros(1, dtype=torch.int64), 2, 1, 4)
     aggregate.lane_segment_sum_count(k, v, 2)
     aggregate.segment_last_value(v, key, k, torch.ones(3, dtype=torch.bool), 2)
+    from horaedb_tpu_torch.ops import mesh as mesh_ops
+
+    grids = {name: torch.zeros(2, 3, dtype=torch.float64) for name in mesh_ops.FOLD_KEYS}
+    mesh_ops.grid_fold(grids)
+    for library in ("sharded_downsample", "multisegment_downsample"):
+        mesh_ops.sharded_keys(key, k, v, torch.ones(3, dtype=torch.bool), None, 0, 2, 0, 1, 4,
+                              library=library)
+    send_k, send_i = mesh_ops.ssm_local(key, 3, 1, torch.zeros(1, dtype=torch.int64), 2, 4, 0)
+    mesh_ops.ssm_merge(send_k, send_i, 3, 1, True)
     assert launch_counts() == before
     assert set(before) == set(KERNELS) == {"sort_perm", "block_sum_count", "block_min_max",
                                            "packed_merge", "index_merge_mask",
                                            "index_merge_filter", "scan_kernel", "downsample",
                                            "grouped_stats", "decode_unpack", "decode_dod",
                                            "decode_xor", "decode_rle", "stacked_downsample",
-                                           "lane_sum_count", "segment_last_value"}
+                                           "lane_sum_count", "segment_last_value",
+                                           "sample_sort_merge", "grid_fold",
+                                           "sharded_downsample", "multisegment_downsample"}
 
 
 @pytest.mark.parametrize("text", ["0", "1500", "2h", "1d2h3m4s5ms", "1.5h", "90s", "250ms"])
@@ -185,6 +206,14 @@ def test_size_copy_parses_as_reference(text):
     assert ours.bytes == ref.bytes and str(ours) == str(ref)
 
 
+def test_multisegment_downsample_shares_the_sharded_library():
+    """Rows 16 and 17 are one key kernel: one library, built once, and
+    every catalog name is a library or shares one."""
+    assert _build._lib_path("multisegment_downsample") == _build._lib_path("sharded_downsample")
+    assert set(_build.SOURCES).isdisjoint(_build.SHARED)
+    assert set(_build.SOURCES) | set(_build.SHARED) == set(KERNELS)
+
+
 @pytest.mark.parametrize("name", KERNELS)
 def test_build_command_targets_sm90a_without_fast_math(name, monkeypatch):
     monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
@@ -192,9 +221,10 @@ def test_build_command_targets_sm90a_without_fast_math(name, monkeypatch):
     joined = " ".join(cmd)
     assert "-gencode arch=compute_90a,code=sm_90a" in joined
     assert "fast_math" not in joined and "fast-math" not in joined
-    for src in _build.SOURCES[name]:
+    sources = _build.SOURCES[_build.library_of(name)]
+    for src in sources:
         assert (_build.CSRC / src).exists()
         assert (str(_build.CSRC / src) in cmd) == src.endswith(".cu")
-    assert ("predicate.cu" in _build.SOURCES[name]) == (name in ("index_merge_filter",
-                                                                  "scan_kernel"))
+    assert ("predicate.cu" in sources) == (name in (
+        "index_merge_filter", "scan_kernel", "sharded_downsample", "multisegment_downsample"))
     assert _build._lib_path(name).parent == ROOT / "horaedb_tpu_torch" / "_build"

@@ -31,6 +31,7 @@ from horaedb_tpu_torch.common.error import HoraeError, NotPortedError
 from horaedb_tpu_torch.engine_query import query_downsample
 from horaedb_tpu_torch.ops import filter as TF
 from horaedb_tpu_torch.storage import read as tread
+from horaedb_tpu_torch.storage import scanstats as tscanstats
 from horaedb_tpu_torch.storage.carry import open_local_root
 from horaedb_tpu_torch.storage.manifest import encoding as tencoding
 
@@ -535,7 +536,10 @@ def test_unported_options_are_refused(ask):
 def test_encoded_sst_and_sharded_route_are_refused(monkeypatch):
     """A format-v2 SST whose `.enc` object is missing reads through parquet,
     equal to its v1 read (the parquet object is authoritative, as in the
-    JAX package); the sharded route and a bad route name stay refused."""
+    JAX package); a bad route name is refused. The sharded route is ported:
+    without a mesh installed it falls back to the single-device merge and
+    says so (`path_sharded_fallback_no_mesh`), as the JAX package does;
+    tests/test_torch_parallel.py drives it over a mesh."""
     async def run():
         eng = await open_engine(PORT, tobjstore.MemStore())
         await write(PORT, eng, batch([1, 2], [0, 0], [10, 10], [1.0, 2.0]), 10, 11)
@@ -546,9 +550,11 @@ def test_encoded_sst_and_sharded_route_are_refused(monkeypatch):
         v1_read = await eng.parquet_reader.read_sst(sst, None, None)
         assert (await eng.parquet_reader.read_sst(v2, None, None)).equals(v1_read)
         assert eng.parquet_reader.sst_reads == {"encoded": 0, "parquet": 2}
+        default = await collect(PORT, eng)
         monkeypatch.setenv("HORAEDB_SCAN_PATH", "sharded")
-        with pytest.raises(NotPortedError, match="sharded"):
-            await collect(PORT, eng)
+        with tscanstats.scan_stats() as st:
+            assert (await collect(PORT, eng)).equals(default)
+        assert st.counts.get("path_sharded_fallback_no_mesh", 0) >= 1
         monkeypatch.setenv("HORAEDB_SCAN_PATH", "sideways")
         with pytest.raises(HoraeError, match="HORAEDB_SCAN_PATH"):
             await collect(PORT, eng)
