@@ -2,6 +2,7 @@
 """A/B timings on one GPU, at the shapes of chip_smoke.py.
 
     python3 chip_ab.py reduce [--root DIR] [--seed N]
+    python3 chip_ab.py reduce-split [--root DIR] [--seed N]
     python3 chip_ab.py id-cache [--seed N]
     python3 chip_ab.py solo-fold [--root DIR] [--seed N]
 
@@ -13,7 +14,11 @@ that share `horaedb_tpu_torch/ops/csrc/segreduce.cuh`:
 - grouped_stats at that long-run shape, and grouped_stats and downsample
   at the fused query's shape of phase 3e (FUSED_SERIES series x
   FUSED_WINDOW_MS / FUSED_BUCKET_MS buckets, the rows of the window and
-  its re-send in (series, ts) order).
+  its re-send in (series, ts) order, then shuffled by a torch.Generator
+  seeded from --seed).
+`reduce-split` gives the device time of each kernel (torch.profiler)
+inside one grouped_stats and one downsample call at that fused shape,
+sorted and shuffled.
 `--root DIR` imports `horaedb_tpu_torch` from DIR (another checkout, such
 as a `git archive` of a parent commit unpacked where .gitignore lists it)
 and builds its kernels there; the shapes and the timer always come from
@@ -83,6 +88,24 @@ def reduce_times(torch, cs, rng, dev) -> dict:
                 torch, lambda: aggregate.grouped_stats(vt, kt, None, cells))
         del kt, vt, ok
 
+    series, buckets = cs.FUSED_SERIES, cs.FUSED_WINDOW_MS // cs.FUSED_BUCKET_MS
+    for order, (ts, sid, vals, flat) in fused_lanes(torch, cs, rng, dev):
+        out["fused_shape"] = f"{len(ts)} rows, {series} series x {buckets} buckets"
+        key = "fused" if order == "sorted" else "fused_shuffled"
+        out[f"{key}_grouped_stats_ms"] = cs.cuda_ms(
+            torch, lambda: aggregate.grouped_stats(vals, flat, None, series * buckets), iters=5)
+        out[f"{key}_downsample_ms"] = cs.cuda_ms(
+            torch, lambda: aggregate.downsample(ts, sid, vals, None, 0, cs.FUSED_BUCKET_MS,
+                                                series, buckets), iters=5)
+    return out
+
+
+def fused_lanes(torch, cs, rng, dev):
+    """The fused query's shape of phase 3e (FUSED_SERIES series x
+    FUSED_WINDOW_MS / FUSED_BUCKET_MS buckets, the window's rows and its
+    re-send) as card lanes (ts, sid, values, flat cell ids): yields
+    ("sorted", lanes in (series, ts) order), then ("shuffled", the same rows
+    shuffled by a torch.Generator seeded from `rng`)."""
     series = cs.FUSED_SERIES
     buckets = cs.FUSED_WINDOW_MS // cs.FUSED_BUCKET_MS
     per = round(cs.FUSED_WINDOW_MS // cs.INTERVAL_MS * (1 + cs.RESEND_FRACTION))
@@ -91,12 +114,40 @@ def reduce_times(torch, cs, rng, dev) -> dict:
     ts = torch.arange(per, dtype=torch.int64, device=dev).repeat(series) * (cs.FUSED_WINDOW_MS // per)
     vals = torch.from_numpy(rng.uniform(0, 100, n)).to(dev)
     flat = sid * buckets + (ts // cs.FUSED_BUCKET_MS).to(torch.int32)
-    out["fused_shape"] = f"{n} rows, {series} series x {buckets} buckets"
-    out["fused_grouped_stats_ms"] = cs.cuda_ms(
-        torch, lambda: aggregate.grouped_stats(vals, flat, None, series * buckets), iters=5)
-    out["fused_downsample_ms"] = cs.cuda_ms(
-        torch, lambda: aggregate.downsample(ts, sid, vals, None, 0, cs.FUSED_BUCKET_MS, series,
-                                            buckets), iters=5)
+    yield "sorted", (ts, sid, vals, flat)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(2**31)))
+    perm = torch.randperm(n, device=dev, generator=gen)
+    yield "shuffled", (ts[perm], sid[perm], vals[perm], flat[perm])
+
+
+def reduce_split(torch, cs, rng, dev) -> dict:
+    """Device ms by kernel (torch.profiler, the mean of 5 calls) of one
+    grouped_stats and one downsample call at the fused shape, sorted and
+    shuffled."""
+    from horaedb_tpu_torch.ops import aggregate
+
+    series, buckets = cs.FUSED_SERIES, cs.FUSED_WINDOW_MS // cs.FUSED_BUCKET_MS
+    out = {}
+    for order, (ts, sid, vals, flat) in fused_lanes(torch, cs, rng, dev):
+        for name, fn in (
+                ("grouped_stats",
+                 lambda: aggregate.grouped_stats(vals, flat, None, series * buckets)),
+                ("downsample",
+                 lambda: aggregate.downsample(ts, sid, vals, None, 0, cs.FUSED_BUCKET_MS, series,
+                                              buckets))):
+            fn()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+            split = {}
+            for e in prof.key_averages():
+                t = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+                if t > 0:
+                    split[e.key[:80]] = t / 5 / 1000
+            out[f"{name}_{order}_ms_by_kernel"] = dict(sorted(split.items(), key=lambda x: -x[1]))
     return out
 
 
@@ -182,7 +233,7 @@ async def id_cache_times(torch, cs, rng, dev) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
-    ap.add_argument("mode", choices=("reduce", "id-cache", "solo-fold"))
+    ap.add_argument("mode", choices=("reduce", "reduce-split", "id-cache", "solo-fold"))
     ap.add_argument("--root", default=None, help="import horaedb_tpu_torch from this checkout")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -204,6 +255,8 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     if args.mode == "reduce":
         out = reduce_times(torch, cs, rng, dev)
+    elif args.mode == "reduce-split":
+        out = reduce_split(torch, cs, rng, dev)
     elif args.mode == "solo-fold":
         out = solo_fold_times(torch, cs, rng, dev)
     else:

@@ -32,6 +32,15 @@ Phases, each of which exits non-zero on failure:
    of 16 against its solo reduction (downsample_sorted, kernels B and C);
    and kernels B, C and grouped_stats on 12 cells of 86,400 rows each
    (runs that segreduce.cuh folds block-wide), checked and timed;
+   and both paths of grouped_stats' sort (csrc/onesweep.cuh: the
+   presorted partition and the look-back digit passes) through
+   grouped_stats and downsample, bitwise against their plain versions on
+   CPU copies and bitwise repeatable: segment counts at the 8-bit digit
+   edges (255, 256, 257, 2^16, 2^24, 2^24 + 1), rows 0, 1, a tile +-1 and
+   2^20 + 3, every row dropped, one cell of 10^6 rows, NaN payloads,
+   +-0.0, +-inf, int64 and uint64 sums that wrap, int64 ids past 2^32,
+   each over presorted, presorted-with-dropped and shuffled rows, every
+   launch's path held to its rows' order;
    and lane_sum_count (n mod 8 != 0, ids < 0 and >= the cell count,
    weights given and not, an empty input; counts exact, sums within
    2^-20 x the cell's L1 mass), segment_last_value (ties, empty segments,
@@ -140,7 +149,9 @@ Phases, each of which exits non-zero on failure:
    scan run under torch.profiler (and cProfile) for where the time goes;
 4. scan_kernel, downsample and grouped_stats against their plain versions
    at the main path's shapes, on the inputs the first fused query of 3e
-   gave them (kept from that run), the four decode kernels on the
+   gave them (kept from that run; downsample and grouped_stats also on a
+   torch.Generator-seeded shuffle of those rows, each with its library
+   call and the path its sort took), the four decode kernels on the
    largest lane each decoded on the device in 3g/3h, stacked_downsample
    on burst A's launch inputs, lane_sum_count at the calibration's shapes
    (2^18 rows into 16,384 and 524,288 cells) and segment_last_value on
@@ -816,6 +827,167 @@ def check_fused_kernels(torch, rng, dev) -> None:
     require(device_lane(np.zeros(1, np.uint64)).dtype == np.int64, "u64 lanes map to int64")
 
 
+# -- phase 2, continued: both paths of grouped_stats' sort (csrc/onesweep.cuh)
+
+def same_bits(torch, got: dict, want: dict, what: str) -> None:
+    """Counts, min and max exact (NaN == NaN); sums and means bitwise as
+    u64 views, but NaN cells compared as NaN (the card's additions return
+    another NaN payload than the CPU's) and zero cells by value (the plain
+    fold starts from +0.0, the kernel's from the cell's first row)."""
+    for k in ("count", "min", "max"):
+        a, b = got[k].cpu(), want[k].cpu()
+        require(a.dtype == b.dtype and same_values(torch, a, b), f"{what}: {k} != plain")
+    for k in ("sum", "mean"):
+        a, b = got[k].cpu(), want[k].cpu()
+        require(a.dtype == b.dtype, f"{what}: {k} dtype != plain")
+        if a.dtype != torch.float64:
+            require(torch.equal(a, b), f"{what}: {k} != plain")
+            continue
+        nan = b.isnan()
+        require(torch.equal(a.isnan(), nan), f"{what}: {k} NaN cells != plain")
+        a, b = a[~nan], b[~nan]
+        nz = b != 0
+        require(torch.equal(a == 0, b == 0) and torch.equal(a[nz].view(torch.int64),
+                                                            b[nz].view(torch.int64)),
+                f"{what}: {k} not bitwise equal to plain")
+
+
+def sort_path_ids(rng, n: int, segments: int, order: str):
+    """Ids, mask and whether the kept ids are in order: `presorted` (no
+    dropped row), `presorted_dropped` (dropped rows with stray ids among
+    sorted kept rows, as the fused scan hands them over) or `shuffled`."""
+    idx = rng.integers(0, segments, n)
+    ok = np.ones(n, bool)
+    if order != "shuffled":
+        idx = np.sort(idx)
+    if order != "presorted":
+        drop = rng.random(n) < 0.15
+        ok[drop & (rng.random(n) < 0.5)] = False
+        idx[drop & ok] = rng.choice([-1, segments, segments + 7], int((drop & ok).sum()))
+    if order == "shuffled" and n > 1:
+        idx[:2], ok[:2] = [1, 0], True  # kept and out of order
+    return idx, ok, order != "shuffled" or n < 2
+
+
+def special_values(rng, kind: str, n: int):
+    """f64 with NaN payloads, +-0.0 and +-inf among non-dyadic values, or
+    int64 / uint64 values whose sums wrap past 2^64; and the unsigned flag."""
+    if kind == "f64":
+        v = rng.uniform(-1e3, 1e3, n)
+        nans = np.array([0x7FF8000000000123, 0xFFF8000000000456, 0x7FF0000000000001],
+                        np.uint64).view(np.float64)
+        pick = rng.choice(n, n // 50, replace=False)
+        v[pick] = np.resize(np.concatenate([nans, [0.0, -0.0, np.inf, -np.inf, -0.0]]),
+                            len(pick))
+        return v, False
+    if kind == "i64":
+        return rng.integers(2**62, 2**63 - 1, n).astype(np.int64) * rng.choice([-1, 1], n), False
+    return rng.integers(2**63, 2**64 - 1, n, dtype=np.uint64, endpoint=True).view(np.int64), True
+
+
+def check_sort_paths(torch, rng, dev) -> dict:
+    """grouped_stats and downsample on the edge cases of their sort against
+    their plain versions on CPU copies, bitwise (`same_bits`), and again on
+    the card (bitwise repeatable): segment counts at the 8-bit digit edges
+    (255, 256, 257, 2^16, 2^24, 2^24 + 1), row counts 0, 1, a tile (4,096)
+    +-1 and 2^20 + 3, every row dropped, one cell of 10^6 rows (alone and
+    among other cells), NaN payloads, +-0.0, +-inf, int64 and uint64 sums
+    that wrap, int64 ids past 2^32; over presorted rows (the partition),
+    presorted rows with dropped rows interleaved, and shuffled rows (the
+    look-back digit passes). Each launch's path must match its rows' order.
+    Returns the count of cases per path."""
+    from horaedb_tpu_torch.ops import aggregate as agg
+
+    paths = {"presorted": 0, "radix": 0}
+
+    def run(what, v, idx, ok, segments, unsigned, presorted):
+        cv, ci, cok = (torch.from_numpy(a).to(dev) for a in (v, idx, ok))
+        got, scratch = agg.grouped_stats_cuda(cv, ci, cok, segments, unsigned)
+        want = agg.grouped_stats_plain(*(torch.from_numpy(a) for a in (v, idx, ok)), segments,
+                                       unsigned)
+        same_bits(torch, got, want, what)
+        again = agg.grouped_stats(cv, ci, cok, segments, unsigned=unsigned)
+        require(all(torch.equal(got[k].view(torch.int64), again[k].view(torch.int64))
+                    for k in got), f"{what}: not bitwise repeatable")
+        if len(idx):
+            took = agg.took_presorted_path(scratch, len(idx))
+            require(took == presorted, f"{what}: took the {'presorted' if took else 'radix'} path")
+            paths["presorted" if took else "radix"] += 1
+
+    orders = ("presorted", "presorted_dropped", "shuffled")
+    for segments in (255, 256, 257, 2**16, 2**24, 2**24 + 1):
+        for order in orders:
+            idx, ok, pre = sort_path_ids(rng, 300_001, segments, order)
+            run(f"grouped_stats {segments} segments {order}", rng.uniform(-1e3, 1e3, len(idx)),
+                idx.astype(np.int32), ok, segments, False, pre)
+    for n in (0, 1, 4095, 4096, 4097, 2**20 + 3):
+        for order in orders[1:]:
+            idx, ok, pre = sort_path_ids(rng, n, 1000, order)
+            run(f"grouped_stats n={n} {order}", rng.uniform(-1e3, 1e3, n), idx.astype(np.int32),
+                ok, 1000, False, pre)
+    n = 50_000
+    run("grouped_stats every row masked", rng.uniform(-1e3, 1e3, n),
+        rng.integers(0, 100, n).astype(np.int32), np.zeros(n, bool), 100, False, True)
+    run("grouped_stats every id out of range", rng.uniform(-1e3, 1e3, n),
+        rng.integers(100, 10**6, n).astype(np.int32), np.ones(n, bool), 100, False, True)
+    big = 10**6
+    run("grouped_stats one cell of 10^6 rows", rng.uniform(-1e3, 1e3, big),
+        np.ones(big, np.int32), np.ones(big, bool), 5000, False, True)
+    idx = rng.integers(0, 5000, big + 300_000).astype(np.int32)
+    idx[rng.choice(len(idx), big, replace=False)] = 1
+    run("grouped_stats one cell of 10^6 rows among others", rng.uniform(-1e3, 1e3, len(idx)),
+        idx, np.ones(len(idx), bool), 5000, False, False)
+    idx = rng.integers(0, 1000, 100_000).astype(np.int64)
+    far = rng.random(len(idx)) < 0.3
+    idx[far] += rng.choice([2**32, 2**33, 2**40, -(2**32)], int(far.sum()))
+    run("grouped_stats int64 ids past 2^32", rng.uniform(-1e3, 1e3, len(idx)), idx,
+        rng.random(len(idx)) > 0.1, 1000, False, False)
+    for kind in ("f64", "i64", "u64"):
+        for order in orders[1:]:
+            idx, ok, pre = sort_path_ids(rng, 200_003, 3000, order)
+            v, unsigned = special_values(rng, kind, len(idx))
+            run(f"grouped_stats {kind} special values {order}", v, idx.astype(np.int32), ok,
+                3000, unsigned, pre)
+
+    t0, bucket_ms, n = T0, 60_000, 250_000
+    for ns, nb in ((255, 1), (4096, 16), (65281, 257)):  # 255, 2^16 and 2^24 + 1 cells
+        for kind in ("f64", "i64", "u64"):
+            for order in orders[1:]:
+                sid = np.sort(rng.integers(0, ns, n)).astype(np.int32)
+                ts = t0 + rng.integers(0, nb * bucket_ms, n).astype(np.int64)
+                o = np.lexsort((ts, sid))
+                sid, ts = sid[o], ts[o]
+                stray = rng.integers(0, 30, n)
+                ts[stray == 0] = t0 - 1  # bucket -1
+                ts[stray == 1] = t0 + nb * bucket_ms  # past the grid
+                ts[stray == 2] = t0 - 10**12
+                sid[stray == 3] = ns  # a series past the grid
+                ok = rng.random(n) > 0.05
+                if order == "shuffled":
+                    perm = rng.permutation(n)
+                    sid, ts, ok = sid[perm], ts[perm], ok[perm]
+                    sid[:2], ts[:2], ok[:2] = [1, 0], t0, True
+                v, unsigned = (special_values(rng, kind, n) if kind != "f64"
+                               else (rng.uniform(-1e3, 1e3, n), False))
+                what = f"downsample {ns} x {nb} {kind} {order}"
+                host = [torch.from_numpy(a) for a in (ts, sid, v, ok)]
+                card = [a.to(dev) for a in host]
+                got, scratch = agg.downsample_cuda(*card, t0, bucket_ms, ns, nb, unsigned)
+                same_bits(torch, got, agg.downsample_plain(*host, t0, bucket_ms, ns, nb,
+                                                           unsigned), what)
+                again = agg.downsample(*card, t0, bucket_ms, ns, nb, unsigned=unsigned)
+                require(all(torch.equal(got[k].view(torch.int64),
+                                        again[k].reshape(-1).view(torch.int64)) for k in got),
+                        f"{what}: not bitwise repeatable")
+                took = agg.took_presorted_path(scratch, n)
+                require(took == (order != "shuffled"),
+                        f"{what}: took the {'presorted' if took else 'radix'} path")
+                paths["presorted" if took else "radix"] += 1
+    print(f"sort paths: {paths['presorted']} presorted and {paths['radix']} radix launches "
+          "bitwise equal to plain", flush=True)
+    return paths
+
+
 class CaptureFused:
     """Keeps the arguments of the first scan_kernel and downsample calls
     made inside the block: the main path's own inputs, for phase 4."""
@@ -850,9 +1022,11 @@ class CaptureFused:
         scan_ops.scan_kernel, agg.downsample = self.orig
 
 
-def fused_records(torch, cap: CaptureFused, dev) -> list[dict]:
+def fused_records(torch, cap: CaptureFused, dev, seed: int) -> list[dict]:
     """Phase 4: scan_kernel, downsample and grouped_stats against their
-    plain versions on the inputs the first fused query gave them, timed."""
+    plain versions on the inputs the first fused query gave them, timed;
+    downsample and grouped_stats also on a seeded shuffle of those rows,
+    each with the path its sort took and the library yardstick."""
     from horaedb_tpu_torch.ops import aggregate as agg
     from horaedb_tpu_torch.ops import filter as F
     from horaedb_tpu_torch.ops import scan as scan_ops
@@ -900,22 +1074,73 @@ def fused_records(torch, cap: CaptureFused, dev) -> list[dict]:
 
     (ts, sid, values, valid, t0, bucket_ms, ns, nbk), kw = cap.down
     unsigned = kw.get("unsigned", False)
-    got = agg.downsample(ts, sid, values, valid, t0, bucket_ms, ns, nbk, unsigned=unsigned)
-    want = agg.downsample_plain(ts, sid, values, valid, t0, bucket_ms, ns, nbk, unsigned)
-    err = same_stats(torch, {k: t.reshape(-1) for k, t in got.items()}, want,
-                     "downsample at the main path shape")
-    del got, want
     cells = ns * nbk
     rows = ts.shape[0]
-    # the library yardstick: two index_add_ and two scatter_reduce over the
-    # same unsorted ids (dropped rows at a sentinel cell)
-    bucket = agg.bucket_of(ts, t0, bucket_ms)
-    in_grid = valid.bool() & (bucket >= 0) & (bucket < nbk) & (sid >= 0) & (sid < ns)
-    flat = sid * nbk + bucket
-    idx = torch.where(in_grid, flat.long(), cells)
+    shape = f"{rows} rows, {ns} series x {nbk} buckets = {cells} cells"
+    # the same rows shuffled (a torch.Generator seeded from the run's seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    perm = torch.randperm(rows, device=dev, generator=gen)
+    shuffled = [None if a is None else a[perm] for a in (ts, sid, values, valid)]
+    del perm
+    lib_note = "index_add_ x2 + scatter_reduce amin/amax over the unsorted cell ids"
+    for name in ("downsample", "grouped_stats"):
+        rec = {"name": name, "route": "cuda", "shape": shape, "library_call": lib_note,
+               "source": ("horaedb_tpu_torch/ops/csrc/grouped_stats.cu + onesweep.cuh, "
+                          "segreduce.cuh" + (" (grouped_stats_downsample_launch)"
+                                             if name == "downsample" else "")),
+               "replaces": ("horaedb_tpu/ops/aggregate.py:332" if name == "downsample"
+                            else "horaedb_tpu/ops/aggregate.py:96")}
+        # rows 8 and 5 read ts, sid (or the cell id), the value and the mask
+        nb, kind = bound(rows * ((8 + 4 + 8 + 1) if name == "downsample" else (4 + 8 + 1))
+                         + cells * 40, 0)
+        rec.update(bound_ms=nb, bound_by=kind)
+        for order, (ts_o, sid_o, val_o, ok_o) in (("", (ts, sid, values, valid)),
+                                                   ("shuffled_", shuffled)):
+            bucket = agg.bucket_of(ts_o, t0, bucket_ms)
+            in_grid = ok_o.bool() & (bucket >= 0) & (bucket < nbk) & (sid_o >= 0) & (sid_o < ns)
+            flat = sid_o * nbk + bucket
+            if name == "downsample":
+                def kern():
+                    return agg.downsample_cuda(ts_o, sid_o, val_o, ok_o, t0, bucket_ms, ns, nbk,
+                                               unsigned)
+
+                def plain():
+                    return agg.downsample_plain(ts_o, sid_o, val_o, ok_o, t0, bucket_ms, ns, nbk,
+                                                unsigned)
+            else:
+                def kern():
+                    return agg.grouped_stats_cuda(val_o, flat, in_grid, cells, unsigned)
+
+                def plain():
+                    return agg.grouped_stats_plain(val_o, flat, in_grid, cells, unsigned)
+            got, scratch = kern()
+            err = same_stats(torch, got, plain(), f"{name} at the main path shape "
+                             f"{order.rstrip('_') or 'in scan order'}")
+            rec[f"{order}path"] = ("presorted" if agg.took_presorted_path(scratch, rows)
+                                   else "radix")
+            rec[f"{order}max_abs_err"] = err
+            del got, scratch
+            rec[f"{order}ms"] = cuda_ms(torch, kern, iters=5, warmup=1)
+            rec[f"{order}plain_ms"] = cuda_ms(torch, plain, iters=3, warmup=1)
+            rec[f"{order}library_ms"] = cuda_ms(
+                torch, stats_library(torch, val_o, torch.where(in_grid, flat.long(), cells), cells),
+                iters=5, warmup=1)
+        print(f"{name} [{shape}]: {rec['path']} path {rec['ms']:.4f} ms (library "
+              f"{rec['library_ms']:.4f}); shuffled: {rec['shuffled_path']} path "
+              f"{rec['shuffled_ms']:.4f} ms (library {rec['shuffled_library_ms']:.4f})", flush=True)
+        records.append(rec)
+    return records
+
+
+def stats_library(torch, values, idx, cells: int):
+    """The library yardstick of rows 5 and 8: two index_add_ and two
+    scatter_reduce over the same unsorted ids (dropped rows at the
+    sentinel cell `cells`)."""
     ones = torch.ones_like(values)
 
     def library():
+        dev = values.device
         torch.zeros(cells + 1, dtype=values.dtype, device=dev).index_add_(0, idx, values)
         torch.zeros(cells + 1, dtype=values.dtype, device=dev).index_add_(0, idx, ones)
         torch.full((cells + 1,), torch.inf, dtype=values.dtype, device=dev).scatter_reduce_(
@@ -923,37 +1148,7 @@ def fused_records(torch, cap: CaptureFused, dev) -> list[dict]:
         torch.full((cells + 1,), -torch.inf, dtype=values.dtype, device=dev).scatter_reduce_(
             0, idx, values, "amax", include_self=True)
 
-    lib_ms = cuda_ms(torch, library, iters=5, warmup=1)
-    shape = f"{rows} rows, {ns} series x {nbk} buckets = {cells} cells"
-    nb, kind = bound(rows * (8 + 4 + 8 + 1) + cells * 40, 0)
-    records.append({
-        "name": "downsample", "route": "cuda",
-        "source": "horaedb_tpu_torch/ops/csrc/downsample.cu + grouped_stats.cu",
-        "replaces": "horaedb_tpu/ops/aggregate.py:332", "shape": shape, "max_abs_err": err,
-        "ms": cuda_ms(torch, lambda: agg.downsample(ts, sid, values, valid, t0, bucket_ms, ns,
-                                                    nbk, unsigned=unsigned), iters=5, warmup=1),
-        "plain_ms": cuda_ms(torch, lambda: agg.downsample_plain(
-            ts, sid, values, valid, t0, bucket_ms, ns, nbk, unsigned), iters=3, warmup=1),
-        "bound_ms": nb, "bound_by": kind, "library_ms": lib_ms,
-        "library_call": "index_add_ x2 + scatter_reduce amin/amax over the unsorted cell ids",
-    })
-    got = agg.grouped_stats(values, flat, in_grid, cells, unsigned=unsigned)
-    want = agg.grouped_stats_plain(values, flat, in_grid, cells, unsigned)
-    err = same_stats(torch, got, want, "grouped_stats at the main path shape")
-    del got, want
-    nb, kind = bound(rows * (8 + 4 + 1) + cells * 40, 0)
-    records.append({
-        "name": "grouped_stats", "route": "cuda",
-        "source": "horaedb_tpu_torch/ops/csrc/grouped_stats.cu + segreduce.cuh, radix.cuh",
-        "replaces": "horaedb_tpu/ops/aggregate.py:96", "shape": shape, "max_abs_err": err,
-        "ms": cuda_ms(torch, lambda: agg.grouped_stats(values, flat, in_grid, cells,
-                                                       unsigned=unsigned), iters=5, warmup=1),
-        "plain_ms": cuda_ms(torch, lambda: agg.grouped_stats_plain(values, flat, in_grid, cells,
-                                                                   unsigned), iters=3, warmup=1),
-        "bound_ms": nb, "bound_by": kind, "library_ms": lib_ms,
-        "library_call": "index_add_ x2 + scatter_reduce amin/amax over the unsorted cell ids",
-    })
-    return records
+    return library
 
 
 # -- phase 2, continued: the decode kernels ------------------------------------
@@ -3382,12 +3577,14 @@ def run_smoke(torch, seed: int) -> int:
     check_agg_kernels(torch, rng, dev)
     check_mesh_kernels(torch, rng, dev)
     long_runs = check_long_runs(torch, np.random.default_rng([seed, 1]), dev)
+    sort_paths = check_sort_paths(torch, np.random.default_rng([seed, 2]), dev)
     print(f"phase 2: {time.perf_counter() - t_all:.1f} s", flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         result = asyncio.run(main_paths(torch, rng, dev, data, workdir))
     result["long_runs"] = long_runs
+    result["sort_paths"] = sort_paths
     print(f"phase 3: {time.perf_counter() - t_all:.1f} s", flush=True)
-    records += fused_records(torch, result.pop("fused_capture"), dev)
+    records += fused_records(torch, result.pop("fused_capture"), dev, seed)
     records += decode_records(torch, result.pop("decode_capture"), dev)
     records += stacked_records(torch, result.pop("stacked_capture"), dev)
     records += agg_records(torch, dev, result.pop("last_write_capture"))

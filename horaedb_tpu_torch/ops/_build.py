@@ -39,11 +39,13 @@ from horaedb_tpu_torch.common.error import HoraeError
 # headers are hashed into its name. The four decode kernels share
 # bitunpack.cuh. predicate.cu is kernel E, which runs
 # inside index_merge_filter and scan_kernel and is not a catalog kernel of
-# its own. A downsample call launches two libraries, downsample (the cell
-# ids) and grouped_stats (the reduction), and counts once in each; so does
-# a stacked_downsample call. multisegment_downsample is sharded_downsample's
-# key kernel with a per-segment t0: it loads that library (SHARED) and
-# counts its launches under its own name.
+# its own. downsample computes its cell ids in grouped_stats' key pass: it
+# loads that library (SHARED), and a downsample call counts once under
+# each name. A stacked_downsample call launches two libraries,
+# stacked_downsample (the cell ids) and grouped_stats (the reduction), and
+# counts once in each. multisegment_downsample is sharded_downsample's key
+# kernel with a per-segment t0: it loads that library (SHARED) and counts
+# its launches under its own name.
 KERNELS = ("sort_perm", "block_sum_count", "block_min_max", "packed_merge",
            "index_merge_mask", "index_merge_filter", "scan_kernel", "downsample",
            "grouped_stats", "decode_unpack", "decode_dod", "decode_xor", "decode_rle",
@@ -57,8 +59,7 @@ SOURCES = {
     "index_merge_mask": ("index_merge.cu", "compact.cuh", "radix.cuh"),
     "index_merge_filter": ("index_merge.cu", "predicate.cu", "compact.cuh", "radix.cuh"),
     "scan_kernel": ("scan.cu", "predicate.cu", "compact.cuh", "radix.cuh"),
-    "downsample": ("downsample.cu",),
-    "grouped_stats": ("grouped_stats.cu", "radix.cuh", "segreduce.cuh"),
+    "grouped_stats": ("grouped_stats.cu", "onesweep.cuh", "segreduce.cuh"),
     "decode_unpack": ("decode_unpack.cu", "bitunpack.cuh"),
     "decode_dod": ("decode_dod.cu", "bitunpack.cuh"),
     "decode_xor": ("decode_xor.cu", "bitunpack.cuh"),
@@ -70,7 +71,7 @@ SOURCES = {
     "grid_fold": ("grid_fold.cu",),
     "sharded_downsample": ("sharded_downsample.cu", "predicate.cu"),
 }
-SHARED = {"multisegment_downsample": "sharded_downsample"}
+SHARED = {"downsample": "grouped_stats", "multisegment_downsample": "sharded_downsample"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -7,9 +7,9 @@ A port of `horaedb_tpu/ops/aggregate.py`:
   dispatcher of ops/agg_registry.py) reduce each cell's run;
 - `grouped_stats` (kernel `grouped_stats`) and `downsample` (kernel
   `downsample`) over UNSORTED rows, the fused scan route's reduction:
-  `csrc/grouped_stats.cu` and `csrc/downsample.cu` on CUDA tensors, the
-  plain versions beside them (`masked_segment_stats`, `masked_minmax`,
-  index_add_ and scatter_reduce) on CPU ones;
+  `csrc/grouped_stats.cu` (with `csrc/onesweep.cuh`'s sort) on CUDA
+  tensors, the plain versions beside them (`masked_segment_stats`,
+  `masked_minmax`, index_add_ and scatter_reduce) on CPU ones;
 - `stacked_downsample` (kernel `stacked_downsample`, `csrc/
   stacked_downsample.cu`, then `grouped_stats`): the grids of a stack of
   coalesced queries in one launch, the query batcher's device lane;
@@ -201,6 +201,7 @@ def _check_rows(name: str, n: int, dev, **lanes) -> None:
                f"got {t.dtype}{tuple(t.shape)} on {t.device}")
 
 
+_STATS = ("sum", "count", "min", "max", "mean")
 _GROUPED_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,
     ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -229,21 +230,48 @@ def grouped_stats(values: torch.Tensor, index: torch.Tensor, valid: torch.Tensor
     if dev.type != "cuda":
         raise HoraeError(f"grouped_stats: unsupported device {dev}")
     ensure(n < 2**31, f"grouped_stats: {n} rows exceed int32 row indices")
+    ensure(num_segments < 2**32, f"grouped_stats: {num_segments} segments exceed the "
+           "kernel's u32 keys (and the card: 40 B of outputs a segment)")
+    return grouped_stats_cuda(values, index, valid, num_segments, unsigned)[0]
+
+
+def grouped_stats_cuda(values, index, valid, num_segments: int, unsigned: bool = False):
+    """Kernel `grouped_stats` on checked CUDA lanes: (flat grids, the
+    launch's scratch, for `took_presorted_path`)."""
+    n = index.shape[0]
+    return _stats_call("grouped_stats", "grouped_stats_launch", _GROUPED_ARGTYPES, values,
+                       unsigned, (index.data_ptr(), int(index.dtype == torch.int64),
+                                  0 if valid is None else valid.data_ptr(), n, num_segments),
+                       n, num_segments, index.device)
+
+
+def _stats_call(name: str, fn_name: str, argtypes: list, values: torch.Tensor, unsigned: bool,
+                lanes: tuple, n: int, cells: int, dev) -> tuple[dict, torch.Tensor]:
+    """Launch an entry of grouped_stats' library, fn(values, kind, *lanes,
+    the five outputs, scratch, stream), and count it under `name`. Returns
+    the flat grids and the scratch."""
     vals, kind = _value_lane(values, unsigned)
-    acc = vals.dtype
-    out = {k: torch.empty(num_segments, dtype=acc if k in ("sum", "count") else torch.float64,
-                          device=dev) for k in ("sum", "count", "min", "max", "mean")}
+    out = {k: torch.empty(cells, dtype=vals.dtype if k in ("sum", "count") else torch.float64,
+                          device=dev) for k in _STATS}
     scratch = torch.empty(_build.scratch_bytes("grouped_stats", "grouped_stats_scratch_bytes", n),
                           dtype=torch.uint8, device=dev)
-    fn = _build.kernel("grouped_stats", "grouped_stats_launch", _GROUPED_ARGTYPES)
+    fn = _build.kernel(name, fn_name, argtypes)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(vals.data_ptr(), kind, index.data_ptr(), int(index.dtype == torch.int64),
-                0 if valid is None else valid.data_ptr(), n, num_segments,
-                *(out[k].data_ptr() for k in ("sum", "count", "min", "max", "mean")),
+        rc = fn(vals.data_ptr(), kind, *lanes, *(out[k].data_ptr() for k in _STATS),
                 scratch.data_ptr(), stream)
-    _build.check("grouped_stats", rc)
-    return out
+    _build.check(name, rc)
+    return out, scratch
+
+
+def took_presorted_path(scratch: torch.Tensor, n: int) -> bool:
+    """Whether the grouped_stats launch over n rows (n > 0, at least one
+    segment) that used `scratch` found its kept rows in cell order and took
+    the partition instead of the digit passes (csrc/onesweep.cuh). Reads
+    the card."""
+    off = _build.kernel("grouped_stats", "grouped_stats_flag_offset", [ctypes.c_int64],
+                        ctypes.c_int64)(n)
+    return bool(scratch[off:off + 4].view(torch.int32).item())
 
 
 def downsample_plain(ts, series_idx, values, valid, t0: int, bucket_ms: int, num_series: int,
@@ -256,9 +284,11 @@ def downsample_plain(ts, series_idx, values, valid, t0: int, bucket_ms: int, num
     return grouped_stats_plain(values, flat, in_grid, num_series * num_buckets, unsigned)
 
 
-_CELLS_ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-    ctypes.c_int32, ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+_DOWNSAMPLE_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p,
 ]
 
 
@@ -268,9 +298,10 @@ def downsample(ts: torch.Tensor, series_idx: torch.Tensor, values: torch.Tensor,
     """Per-(series, bucket) stats as [num_series, num_buckets] grids over
     unsorted rows: bucket = floor((ts - t0) / bucket_ms), and a row counts
     when `valid` (None: every row) and its series and bucket are in the
-    grid. On CUDA tensors kernel `downsample` writes the cell ids and
-    kernel `grouped_stats` reduces them (one launch counted in each); on
-    CPU tensors `downsample_plain`."""
+    grid. On CUDA tensors grouped_stats' library computes the cell ids in
+    its key pass (kernel `downsample`) and reduces them (kernel
+    `grouped_stats`), one launch counted under each name; on CPU tensors
+    `downsample_plain`."""
     n = ts.shape[0]
     dev = ts.device
     _check_rows("downsample", n, dev, ts=ts, series_idx=series_idx, values=values,
@@ -292,15 +323,26 @@ def downsample(ts: torch.Tensor, series_idx: torch.Tensor, values: torch.Tensor,
         return {k: v.reshape(shape) for k, v in flat.items()}
     if dev.type != "cuda":
         raise HoraeError(f"downsample: unsupported device {dev}")
-    cell = torch.empty(n, dtype=torch.int32, device=dev)
-    fn = _build.kernel("downsample", "downsample_cells_launch", _CELLS_ARGTYPES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(ts.data_ptr(), series_idx.data_ptr(), 0 if valid is None else valid.data_ptr(),
-                t0, bucket_ms, num_series, num_buckets, n, cell.data_ptr(), stream)
-    _build.check("downsample", rc)
-    flat = grouped_stats(values, cell, None, cells, unsigned)
-    return {k: v.reshape(shape) for k, v in flat.items()}
+    ensure(n < 2**31, f"downsample: {n} rows exceed int32 row indices")
+    out, _ = downsample_cuda(ts, series_idx, values, valid, t0, bucket_ms, num_series,
+                             num_buckets, unsigned)
+    return {k: v.reshape(shape) for k, v in out.items()}
+
+
+def downsample_cuda(ts, series_idx, values, valid, t0: int, bucket_ms: int, num_series: int,
+                    num_buckets: int, unsigned: bool = False):
+    """Kernel `downsample` on checked CUDA lanes: (flat grids, the
+    launch's scratch, for `took_presorted_path`). The call computes the
+    cell ids (kernel downsample) and reduces them (kernel grouped_stats):
+    it counts under both names."""
+    n = ts.shape[0]
+    out = _stats_call("downsample", "grouped_stats_downsample_launch", _DOWNSAMPLE_ARGTYPES,
+                      values, unsigned,
+                      (ts.data_ptr(), series_idx.data_ptr(),
+                       0 if valid is None else valid.data_ptr(), t0, bucket_ms, num_series,
+                       num_buckets, n), n, num_series * num_buckets, ts.device)
+    _build.LAUNCHES["grouped_stats"] += 1
+    return out
 
 
 # -- stacked_downsample: the query batcher's device lane -----------------------

@@ -1,6 +1,7 @@
 // grouped_stats: sum, count, min, max and mean per segment over UNSORTED
 // segment ids; ids outside [0, num_segments) and rows whose `valid` is
-// false are dropped.
+// false are dropped. Also the reduction of downsample, whose cell ids it
+// computes itself (grouped_stats_downsample_launch).
 //
 // Replaces the JAX package's ops/aggregate.py::grouped_stats (catalog name
 // grouped_stats) and the scatter it reaches, masked_segment_stats /
@@ -9,23 +10,34 @@
 // int64's) with a count of the same type, and min / max come back as f64
 // (the JAX function promotes through jnp.where(valid, values, inf)), with
 // NaN propagated. Empty segments read sum 0, count 0, min +inf, max -inf
-// and mean NaN.
+// and mean NaN. And ops/aggregate.py::downsample (catalog name
+// downsample): bucket = floor((ts - t0) / bucket_ms) as int32, a row is in
+// the grid when valid, 0 <= bucket < num_buckets and 0 <= sid <
+// num_series, its cell is sid * num_buckets + bucket, and every other row
+// drops. CUDA's `/` truncates toward zero, so the quotient is floored by
+// hand (a row 1 ms before t0 lands in bucket -1 and drops); the difference
+// and the int32 cast wrap as the JAX int64 and astype(int32) arithmetic
+// does.
 //
 // Bound on an H100: memory. The least traffic reads the id (4 B), the
-// value (8 B) and the mask (1 B) once per row and writes 40 B per segment.
-// Design: no atomics, so a grid is bitwise repeatable.
-//   1. one elementwise pass writes each row's key (its id, or num_segments
-//      for a dropped row) as u64 and its row index;
-//   2. the LSD radix passes of radix.cuh over the digits of num_segments
-//      only (3 passes at 10M segments), stable, carrying the row index;
-//   3. the segmented reduction of segreduce.cuh over the sorted keys, each
-//      row's value loaded through the carried index, each segment's sum the
-//      left fold of its rows in input order (the sort is stable); the
-//      dropped rows sort last and never reach a segment;
-//   4. one elementwise pass over the segments writes the mean.
+// value (8 B) and the mask (1 B) once per row (downsample: ts 8 B and sid
+// 4 B in place of the id) and writes 40 B per segment.
+// Design: no atomics on a float, so a grid is bitwise repeatable.
+//   1. onesweep.cuh sorts the rows by cell, stably, carrying each value:
+//      its key pass computes each row's key (the cell, or num_segments for
+//      a dropped row) as u32; rows whose kept cells are already in order
+//      (the fused scan's output is) take one stable partition instead of
+//      the digit passes, with the same result;
+//   2. the segmented reduction of segreduce.cuh over the sorted keys and
+//      values, each segment's sum the left fold of its rows in input order
+//      (the sort is stable); the dropped rows sort last and never reach a
+//      segment;
+//   3. one elementwise pass over the segments writes the mean.
+// Keys are u32, so num_segments < 2^32: 2^32 segments of outputs (40 B
+// each) would not fit on the card anyway.
 #include <type_traits>
 
-#include "radix.cuh"
+#include "onesweep.cuh"
 #include "segreduce.cuh"
 
 namespace {
@@ -64,8 +76,7 @@ __device__ inline T add(T x, T y) {
 template <int KIND, class T>
 struct GroupedOp {
     using Acc = Stats<T>;
-    const T* v;
-    const int32_t* perm;
+    const T* v;  // values in sorted order
     T* out_sum;
     T* out_count;
     double* out_min;
@@ -74,7 +85,7 @@ struct GroupedOp {
         return {(T)0, (T)0, (double)INFINITY, -(double)INFINITY};
     }
     __device__ Acc load(int64_t pos) const {
-        const T x = v[perm[pos]];
+        const T x = v[pos];
         const double f = to_f64<KIND>(x);
         return {x, (T)1, f, f};
     }
@@ -90,18 +101,39 @@ struct GroupedOp {
     }
 };
 
-// key[i] = index[i] where valid and in range, else num_segments; perm = iota
+// key = index[i] where valid and in range, else num_segments
 template <class I>
-__global__ void key_kernel(const I* __restrict__ index, const uint8_t* __restrict__ valid,
-                           int64_t n, int64_t num_segments, uint64_t* __restrict__ key,
-                           int32_t* __restrict__ perm) {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const int64_t x = (int64_t)index[i];
-    const bool ok = (valid == nullptr || valid[i] != 0) && x >= 0 && x < num_segments;
-    key[i] = (uint64_t)(ok ? x : num_segments);
-    perm[i] = (int32_t)i;
-}
+struct IndexKey {
+    const I* index;
+    const uint8_t* valid;
+    int64_t num_segments;
+    __device__ uint32_t key(int64_t i) const {
+        const int64_t x = (int64_t)index[i];
+        const bool ok = (valid == nullptr || valid[i] != 0) && x >= 0 && x < num_segments;
+        return (uint32_t)(ok ? x : num_segments);
+    }
+};
+
+// key = the row's downsample cell, else num_series * num_buckets
+struct CellKey {
+    const int64_t* ts;
+    const int32_t* sid;
+    const uint8_t* valid;
+    int64_t t0;
+    int64_t bucket_ms;
+    int32_t num_series;
+    int32_t num_buckets;
+    __device__ uint32_t key(int64_t i) const {
+        const int64_t d = (int64_t)((uint64_t)ts[i] - (uint64_t)t0);
+        int64_t q = d / bucket_ms;
+        if (d % bucket_ms != 0 && d < 0) --q;  // floor; bucket_ms > 0
+        const int32_t bucket = (int32_t)(uint32_t)(uint64_t)q;
+        const int32_t s = sid[i];
+        const bool ok = (valid == nullptr || valid[i] != 0) && bucket >= 0 &&
+                        bucket < num_buckets && s >= 0 && s < num_series;
+        return (uint32_t)(ok ? s * num_buckets + bucket : num_series * num_buckets);
+    }
+};
 
 template <int KIND, class T>
 __global__ void mean_kernel(const T* __restrict__ sum, const T* __restrict__ count,
@@ -110,69 +142,60 @@ __global__ void mean_kernel(const T* __restrict__ sum, const T* __restrict__ cou
     if (c < m) mean[c] = to_f64<KIND>(sum[c]) / to_f64<KIND>(count[c]);
 }
 
-int digits_for(int64_t num_segments) {
-    int bits = 0;
-    while (bits < 63 && (num_segments >> bits) != 0) ++bits;
-    return (bits + 7) / 8;
-}
-
-struct Scratch {
-    int32_t* pa;
-    int32_t* pb;
-    uint64_t* ua;
-    uint64_t* ub;
-    int32_t* hist;
-};
-
-Scratch carve(void* p, int64_t n) {
-    char* c = static_cast<char*>(p);
-    auto take = [&c](int64_t bytes) {
-        char* out = c;
-        c += ((bytes + 255) / 256) * 256;
-        return out;
-    };
-    const int64_t m = n > 0 ? n : 1;
-    Scratch s;
-    s.pa = reinterpret_cast<int32_t*>(take(4 * m));
-    s.pb = reinterpret_cast<int32_t*>(take(4 * m));
-    s.ua = reinterpret_cast<uint64_t*>(take(8 * m));
-    s.ub = reinterpret_cast<uint64_t*>(take(8 * m));
-    s.hist = reinterpret_cast<int32_t*>(take(radix::hist_bytes(n)));
-    return s;
-}
-
-template <int KIND, class T>
-int run(const void* values, int64_t n, int64_t num_segments, const Scratch& sc, void* out_sum,
-        void* out_count, void* out_min, void* out_max, void* out_mean, cudaStream_t s) {
-    radix::Buffers b{sc.pa, sc.pb, sc.ua, sc.ub};
-    if (n > 0) radix::passes(digits_for(num_segments), n, nullptr, b, sc.hist, s);
-    const GroupedOp<KIND, T> op{static_cast<const T*>(values), b.pa, static_cast<T*>(out_sum),
-                                static_cast<T*>(out_count), static_cast<double*>(out_min),
-                                static_cast<double*>(out_max)};
-    const int rc = seg::launch(static_cast<const uint64_t*>(b.ua), n, num_segments, op, s);
+template <int KIND, class T, class Src>
+int run(const Src& src, const void* values, int64_t n, int64_t num_segments, void* out_sum,
+        void* out_count, void* out_min, void* out_max, void* out_mean, void* scratch,
+        cudaStream_t s) {
+    const T* sorted = nullptr;
+    const uint32_t* keys = nullptr;
+    if (n > 0 && num_segments > 0) {
+        const onesweep::Sorted o = onesweep::sort(src, static_cast<const uint64_t*>(values), n,
+                                                  (uint32_t)num_segments, scratch, s);
+        keys = o.keys;
+        sorted = reinterpret_cast<const T*>(o.vals);
+    }
+    const GroupedOp<KIND, T> op{sorted, static_cast<T*>(out_sum), static_cast<T*>(out_count),
+                                static_cast<double*>(out_min), static_cast<double*>(out_max)};
+    const int rc = seg::launch(keys, n, num_segments, op, s);
     if (rc != 0) return rc;
     if (num_segments > 0) {
-        mean_kernel<KIND, T><<<radix::blocks_for(num_segments, 256), 256, 0, s>>>(
+        mean_kernel<KIND, T><<<(unsigned)((num_segments + 255) / 256), 256, 0, s>>>(
             static_cast<const T*>(out_sum), static_cast<const T*>(out_count),
             static_cast<double*>(out_mean), num_segments);
     }
     return (int)cudaGetLastError();
 }
 
+template <class Src>
+int run_kind(int32_t kind, const Src& src, const void* values, int64_t n, int64_t num_segments,
+             void* out_sum, void* out_count, void* out_min, void* out_max, void* out_mean,
+             void* scratch, cudaStream_t s) {
+    switch (kind) {
+        case KIND_F64:
+            return run<KIND_F64, double>(src, values, n, num_segments, out_sum, out_count,
+                                         out_min, out_max, out_mean, scratch, s);
+        case KIND_I64:
+            return run<KIND_I64, int64_t>(src, values, n, num_segments, out_sum, out_count,
+                                          out_min, out_max, out_mean, scratch, s);
+        default:
+            return run<KIND_U64, int64_t>(src, values, n, num_segments, out_sum, out_count,
+                                          out_min, out_max, out_mean, scratch, s);
+    }
+}
+
 }  // namespace
 
-extern "C" int64_t grouped_stats_scratch_bytes(int64_t n) {
-    const int64_t m = n > 0 ? n : 1;
-    auto pad = [](int64_t bytes) { return ((bytes + 255) / 256) * 256; };
-    return 2 * pad(4 * m) + 2 * pad(8 * m) + pad(radix::hist_bytes(n));
-}
+extern "C" int64_t grouped_stats_scratch_bytes(int64_t n) { return onesweep::scratch_bytes(n); }
+
+// where a launch over n rows leaves its presorted flag in the scratch
+extern "C" int64_t grouped_stats_flag_offset(int64_t n) { return onesweep::flag_offset(n); }
 
 // values: n values of `kind` (0 f64, 1 int64, 2 uint64 bits in int64);
 // index: int32[n] (index_is_64 = 0) or int64[n] segment ids; valid:
 // uint8[n] or null (every row valid); out_sum, out_count: num_segments
 // values of the accumulator type (f64 for kind 0, else int64); out_min,
 // out_max, out_mean: f64[num_segments]; scratch:
-// grouped_stats_scratch_bytes(n) bytes. num_segments < 2^62.
+// grouped_stats_scratch_bytes(n) bytes. num_segments < 2^32, n < 2^31.
 extern "C" int grouped_stats_launch(const void* values, int32_t kind, const void* index,
                                     int32_t index_is_64, const void* valid, int64_t n,
                                     int64_t num_segments, void* out_sum, void* out_count,
@@ -180,30 +203,38 @@ extern "C" int grouped_stats_launch(const void* values, int32_t kind, const void
                                     void* scratch, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (kind < KIND_F64 || kind > KIND_U64 || num_segments < 0 ||
-        num_segments >= ((int64_t)1 << 62) || n >= ((int64_t)1 << 31)) {
+        num_segments >= ((int64_t)1 << 32) || n < 0 || n >= ((int64_t)1 << 31)) {
         return (int)cudaErrorInvalidValue;
     }
-    const Scratch sc = carve(scratch, n);
     const uint8_t* ok = static_cast<const uint8_t*>(valid);
-    if (n > 0) {
-        const unsigned blocks = radix::blocks_for(n, 256);
-        if (index_is_64) {
-            key_kernel<int64_t><<<blocks, 256, 0, s>>>(static_cast<const int64_t*>(index), ok, n,
-                                                       num_segments, sc.ua, sc.pa);
-        } else {
-            key_kernel<int32_t><<<blocks, 256, 0, s>>>(static_cast<const int32_t*>(index), ok, n,
-                                                       num_segments, sc.ua, sc.pa);
-        }
+    if (index_is_64) {
+        return run_kind(kind, IndexKey<int64_t>{static_cast<const int64_t*>(index), ok,
+                                                num_segments},
+                        values, n, num_segments, out_sum, out_count, out_min, out_max, out_mean,
+                        scratch, s);
     }
-    switch (kind) {
-        case KIND_F64:
-            return run<KIND_F64, double>(values, n, num_segments, sc, out_sum, out_count, out_min,
-                                         out_max, out_mean, s);
-        case KIND_I64:
-            return run<KIND_I64, int64_t>(values, n, num_segments, sc, out_sum, out_count,
-                                          out_min, out_max, out_mean, s);
-        default:
-            return run<KIND_U64, int64_t>(values, n, num_segments, sc, out_sum, out_count,
-                                          out_min, out_max, out_mean, s);
+    return run_kind(kind, IndexKey<int32_t>{static_cast<const int32_t*>(index), ok, num_segments},
+                    values, n, num_segments, out_sum, out_count, out_min, out_max, out_mean,
+                    scratch, s);
+}
+
+// downsample's grids, flat: ts int64[n], sid int32[n], valid uint8[n] or
+// null; the outputs and scratch as grouped_stats_launch's with
+// num_segments = num_series * num_buckets < 2^31; bucket_ms > 0.
+extern "C" int grouped_stats_downsample_launch(const void* values, int32_t kind, const void* ts,
+                                               const void* sid, const void* valid, int64_t t0,
+                                               int64_t bucket_ms, int32_t num_series,
+                                               int32_t num_buckets, int64_t n, void* out_sum,
+                                               void* out_count, void* out_min, void* out_max,
+                                               void* out_mean, void* scratch, void* stream) {
+    const int64_t cells = (int64_t)num_series * num_buckets;
+    if (kind < KIND_F64 || kind > KIND_U64 || bucket_ms <= 0 || num_series < 0 ||
+        num_buckets < 0 || cells >= ((int64_t)1 << 31) || n < 0 || n >= ((int64_t)1 << 31)) {
+        return (int)cudaErrorInvalidValue;
     }
+    const CellKey src{static_cast<const int64_t*>(ts), static_cast<const int32_t*>(sid),
+                      static_cast<const uint8_t*>(valid), t0, bucket_ms, num_series,
+                      num_buckets};
+    return run_kind(kind, src, values, n, cells, out_sum, out_count, out_min, out_max, out_mean,
+                    scratch, static_cast<cudaStream_t>(stream));
 }

@@ -244,6 +244,209 @@ def test_downsample_matches_plain(dev, n):
     _same_stats(got, {k: t.reshape(ns, nb) for k, t in want.items()})
 
 
+# -- grouped_stats' sort (csrc/onesweep.cuh): both paths against the plain
+#    version on CPU copies, bitwise
+
+def _same_bits(got: dict, want: dict) -> None:
+    """Counts, min and max exact (NaN == NaN); sums and means bitwise as
+    u64 views, but NaN cells compared as NaN (the card's additions return
+    another NaN payload than the CPU's) and zero cells by value (the plain
+    fold starts from +0.0, the kernel's from the cell's first row)."""
+    for k in ("count", "min", "max"):
+        a, b = got[k].cpu(), want[k].cpu()
+        assert a.dtype == b.dtype and bool(((a == b) | (a.isnan() & b.isnan())).all()), k
+    for k in ("sum", "mean"):
+        a, b = got[k].cpu(), want[k].cpu()
+        assert a.dtype == b.dtype, k
+        if a.dtype != torch.float64:
+            assert torch.equal(a, b), k
+            continue
+        nan = b.isnan()
+        assert torch.equal(a.isnan(), nan), k
+        a, b = a[~nan], b[~nan]
+        assert torch.equal(a == 0, b == 0), k
+        nz = b != 0
+        assert np.array_equal(_u64(a[nz]), _u64(b[nz])), k
+
+
+def _grouped_on_card(dev, v, idx, ok, segments, unsigned=False, path=None):
+    """grouped_stats on the card against its plain version on the CPU,
+    bitwise, and again on the card (repeatable bitwise); `path`, when
+    given, is the sort's expected route (True: the presorted partition)."""
+    cv, ci = v.to(dev), idx.to(dev)
+    cok = None if ok is None else ok.to(dev)
+    got, scratch = aggregate.grouped_stats_cuda(cv, ci, cok, segments, unsigned)
+    want = aggregate.grouped_stats_plain(
+        v, idx, torch.ones(len(idx), dtype=torch.bool) if ok is None else ok, segments, unsigned)
+    _same_bits(got, want)
+    if path is not None:
+        assert aggregate.took_presorted_path(scratch, len(idx)) is path
+    again = aggregate.grouped_stats(cv, ci, cok, segments, unsigned=unsigned)
+    for k in got:
+        assert np.array_equal(_u64(got[k]), _u64(again[k])), k
+
+
+def _ids(rng, n: int, segments: int, order: str):
+    """Ids, mask and the sort path they should take: `presorted` (kept ids
+    non-decreasing, no dropped row), `presorted_dropped` (dropped rows with
+    stray ids interleaved among sorted kept rows, as the fused scan hands
+    them over) or `shuffled`."""
+    idx = rng.integers(0, segments, n)
+    ok = np.ones(n, bool)
+    if order != "shuffled":
+        idx = np.sort(idx)
+    if order != "presorted":
+        drop = rng.random(n) < 0.15
+        ok[drop & (rng.random(n) < 0.5)] = False
+        idx[drop & ok] = rng.choice([-1, segments, segments + 7], int((drop & ok).sum()))
+    if order == "shuffled" and n > 1:
+        idx[:2], ok[:2] = [1, 0], True  # kept and out of order: never presorted
+    return idx, ok, order != "shuffled" or n < 2
+
+
+def _f64(rng, n: int):
+    return rng.uniform(-1e3, 1e3, n)  # non-dyadic: the association shows in the bits
+
+
+@pytest.mark.parametrize("order", ["presorted", "presorted_dropped", "shuffled"])
+@pytest.mark.parametrize("segments", [255, 256, 257, 2**16, 2**24, 2**24 + 1])
+def test_grouped_stats_digit_edges_match_plain_bitwise(dev, segments, order):
+    """Segment counts at the edges of the 8-bit digits (1 to 4 passes),
+    over presorted rows (the partition), presorted rows with dropped rows
+    interleaved, and shuffled rows (the look-back digit passes)."""
+    rng = np.random.default_rng(segments)
+    n = 300_001
+    idx, ok, presorted = _ids(rng, n, segments, order)
+    _grouped_on_card(dev, torch.from_numpy(_f64(rng, n)), torch.from_numpy(idx.astype(np.int32)),
+                     torch.from_numpy(ok), segments, path=presorted)
+
+
+@pytest.mark.parametrize("order", ["presorted_dropped", "shuffled"])
+@pytest.mark.parametrize("n", [0, 1, 4095, 4096, 4097, 2**20 + 3])
+def test_grouped_stats_row_counts_match_plain_bitwise(dev, n, order):
+    """Row counts at 0, 1, one tile of the sort (4,096 rows) +-1 and past
+    2^20."""
+    rng = np.random.default_rng(n + 11)
+    idx, ok, presorted = _ids(rng, n, 1000, order)
+    _grouped_on_card(dev, torch.from_numpy(_f64(rng, n)), torch.from_numpy(idx.astype(np.int32)),
+                     torch.from_numpy(ok), 1000, path=presorted if n > 0 else None)
+
+
+@pytest.mark.parametrize("how", ["masked", "out_of_range"])
+def test_grouped_stats_every_row_dropped(dev, how):
+    rng = np.random.default_rng(3)
+    n = 50_000
+    idx = rng.integers(0, 100, n) if how == "masked" else rng.integers(100, 10**6, n)
+    ok = np.zeros(n, bool) if how == "masked" else np.ones(n, bool)
+    _grouped_on_card(dev, torch.from_numpy(_f64(rng, n)), torch.from_numpy(idx.astype(np.int32)),
+                     torch.from_numpy(ok), 100, path=True)
+
+
+def test_grouped_stats_int64_ids_past_2_32_drop(dev):
+    """int64 ids at and past 2^32 (and 2^32 + a valid id) are out of range
+    and drop: none may alias into the u32 keys."""
+    rng = np.random.default_rng(17)
+    n = 100_000
+    idx = rng.integers(0, 1000, n).astype(np.int64)
+    far = rng.random(n) < 0.3
+    idx[far] += rng.choice([2**32, 2**33, 2**40, -(2**32)], int(far.sum()))
+    _grouped_on_card(dev, torch.from_numpy(_f64(rng, n)), torch.from_numpy(idx),
+                     torch.from_numpy(rng.random(n) > 0.1), 1000, path=False)
+
+
+@pytest.mark.parametrize("order", ["alone", "interleaved"])
+def test_grouped_stats_one_cell_of_a_million_rows(dev, order):
+    """A cell of 10^6 rows (segreduce.cuh folds it block-wide in chunks from
+    its head): alone (presorted) and interleaved among other cells' rows
+    (the digit passes bring its rows together in input order)."""
+    rng = np.random.default_rng(23)
+    big = 10**6
+    if order == "alone":
+        idx = np.full(big, 1, np.int32)
+    else:
+        idx = rng.integers(0, 5000, big + 300_000).astype(np.int32)
+        idx[rng.choice(len(idx), big, replace=False)] = 1
+    n = len(idx)
+    _grouped_on_card(dev, torch.from_numpy(_f64(rng, n)), torch.from_numpy(idx), None, 5000,
+                     path=order == "alone")
+
+
+def _special(kind: str, rng, n: int):
+    """Values that probe the rules: f64 NaN payloads, +-0.0 and +-inf; int64
+    and uint64 sums that wrap past 2^64."""
+    if kind == "f64":
+        v = _f64(rng, n)
+        nans = np.array([0x7FF8000000000123, 0xFFF8000000000456, 0x7FF0000000000001],
+                        np.uint64).view(np.float64)
+        pick = rng.choice(n, n // 50, replace=False)
+        v[pick] = np.resize(np.concatenate([nans, [0.0, -0.0, np.inf, -np.inf, -0.0]]),
+                            len(pick))
+        return torch.from_numpy(v), False
+    if kind == "i64":
+        return torch.from_numpy(rng.integers(2**62, 2**63 - 1, n).astype(np.int64)
+                                * rng.choice([-1, 1], n)), False
+    u = rng.integers(2**63, 2**64 - 1, n, dtype=np.uint64, endpoint=True)
+    return torch.from_numpy(u.view(np.int64).copy()), True
+
+
+@pytest.mark.parametrize("order", ["presorted_dropped", "shuffled"])
+@pytest.mark.parametrize("kind", ["f64", "i64", "u64"])
+def test_grouped_stats_special_values_match_plain_bitwise(dev, kind, order):
+    rng = np.random.default_rng(len(kind) + len(order))
+    n = 200_003
+    idx, ok, presorted = _ids(rng, n, 3000, order)
+    v, unsigned = _special(kind, rng, n)
+    _grouped_on_card(dev, v, torch.from_numpy(idx.astype(np.int32)), torch.from_numpy(ok), 3000,
+                     unsigned=unsigned, path=presorted)
+
+
+def _down_rows(rng, n: int, ns: int, nb: int, order: str, t0: int, bucket_ms: int):
+    """Downsample rows sorted by (series, ts) as the fused scan hands them
+    over, with rows before t0, past the grid, of series out of range and
+    masked interleaved (`presorted_dropped`), or shuffled."""
+    sid = np.sort(rng.integers(0, ns, n)).astype(np.int32)
+    ts = t0 + rng.integers(0, nb * bucket_ms, n).astype(np.int64)
+    order_ix = np.lexsort((ts, sid))
+    sid, ts = sid[order_ix], ts[order_ix]
+    ok = np.ones(n, bool)
+    stray = rng.integers(0, 30, n)
+    ts[stray == 0] = t0 - 1  # bucket -1
+    ts[stray == 1] = t0 + nb * bucket_ms  # past the grid
+    ts[stray == 2] = t0 - 10**12
+    ok[rng.random(n) < 0.05] = False
+    sid[rng.random(n) < 0.01] = ns  # a series past the grid (a scan's miss)
+    if order == "shuffled":
+        perm = rng.permutation(n)
+        sid, ts, ok = sid[perm], ts[perm], ok[perm]
+        if n > 1:
+            sid[:2], ts[:2], ok[:2] = [1, 0], t0, True
+    return ts, sid, ok
+
+
+@pytest.mark.parametrize("order", ["presorted_dropped", "shuffled"])
+@pytest.mark.parametrize("kind", ["f64", "i64", "u64"])
+@pytest.mark.parametrize("ns,nb", [(255, 1), (4096, 16), (65281, 257)])
+def test_downsample_both_paths_match_plain_bitwise(dev, ns, nb, kind, order):
+    """downsample's key pass (the cell ids) into both sort paths, with
+    255, 2^16 and 2^24 + 1 cells."""
+    rng = np.random.default_rng(ns + nb)
+    t0, bucket_ms, n = 1_700_000_000_000, 60_000, 250_000
+    ts, sid, ok = _down_rows(rng, n, ns, nb, order, t0, bucket_ms)
+    v, unsigned = (torch.from_numpy(_f64(rng, n)), False) if kind == "f64" else _special(
+        kind, rng, n)
+    lanes = [torch.from_numpy(a) for a in (ts, sid)]
+    okt = torch.from_numpy(ok)
+    got, scratch = aggregate.downsample_cuda(*(a.to(dev) for a in lanes), v.to(dev), okt.to(dev),
+                                             t0, bucket_ms, ns, nb, unsigned)
+    want = aggregate.downsample_plain(*lanes, v, okt, t0, bucket_ms, ns, nb, unsigned)
+    _same_bits(got, want)
+    assert aggregate.took_presorted_path(scratch, n) is (order != "shuffled")
+    again = aggregate.downsample(*(a.to(dev) for a in lanes), v.to(dev), okt.to(dev), t0,
+                                 bucket_ms, ns, nb, unsigned=unsigned)
+    for k in got:
+        assert np.array_equal(_u64(got[k]), _u64(again[k].reshape(-1))), k
+
+
 def _scan_lanes(n: int, seed: int, presorted: bool):
     cols, mask = _rows(n, seed, presorted)
     rng = np.random.default_rng(seed + 1)

@@ -214,6 +214,15 @@ def test_multisegment_downsample_shares_the_sharded_library():
     assert set(_build.SOURCES) | set(_build.SHARED) == set(KERNELS)
 
 
+def test_downsample_computes_its_cells_in_the_grouped_stats_library():
+    """Row 8's cell ids come from grouped_stats' key pass: one library, the
+    look-back sort's header among its sources and radix.cuh not."""
+    assert _build._lib_path("downsample") == _build._lib_path("grouped_stats")
+    sources = _build.SOURCES[_build.library_of("downsample")]
+    assert "onesweep.cuh" in sources and "radix.cuh" not in sources
+    assert not (_build.CSRC / "downsample.cu").exists()
+
+
 @pytest.mark.parametrize("name", KERNELS)
 def test_build_command_targets_sm90a_without_fast_math(name, monkeypatch):
     monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
