@@ -154,14 +154,16 @@ Phases, each of which exits non-zero on failure:
    call and the path its sort took), the four decode kernels on the
    largest lane each decoded on the device in 3g/3h, stacked_downsample
    on burst A's launch inputs, lane_sum_count at the calibration's shapes
-   (2^18 rows into 16,384 and 524,288 cells) and segment_last_value on
+   (2^18 rows into 16,384 and 524,288 cells; sorted ids, and shuffled
+   under `unsorted`) and segment_last_value on
    3k's inputs, and the four mesh kernels at 3l's shapes (one slot of the
    regioned fold; the key kernel on one slot of the mesh downsample and
    of the 3-axis step, each against sharded_keys_plain on the card, with
    the whole step timed beside it; the sharded scan's merge), timed.
    Phase 2 also holds the mesh kernels against their plain versions (the
    steps on CPU slots), bitwise: grid_fold on NaN
-   payloads, +-0.0, subnormals and infinities, k = 1 and 5;
+   payloads, +-0.0, subnormals and infinities, k = 1, 5 and 9, odd and
+   even cell counts;
    sample_sort_merge on random, all-sentinel, one-group and skewed keys
    (and against packed_merge); sharded_downsample on prime series counts,
    sorted and unsorted, with a predicate; multisegment_downsample.
@@ -1470,45 +1472,45 @@ def last_write_path(torch, rng, dev, counted) -> tuple[dict, tuple]:
 
 def agg_records(torch, dev, last_write: tuple) -> list[dict]:
     """Phase 4: lane_sum_count at the calibration's two shapes (2^18 rows
-    into 16,384 and 524,288 cells) and segment_last_value on phase 3k's
-    inputs, against their plain versions on the card, timed."""
+    into 16,384 and 524,288 cells; its sorted stream, and shuffled under
+    `unsorted`) and segment_last_value on phase 3k's inputs, against their
+    plain versions on the card, timed."""
     from horaedb_tpu_torch.ops import agg_registry
     from horaedb_tpu_torch.ops import aggregate as agg
 
-    records = []
-    shapes = {}
-    for klass in ("dense", "sparse"):
-        k, v, cells = agg_registry.calib_inputs(klass)
+    def lane_record(klass: str, kind: str) -> dict:
+        k, v, cells = agg_registry.calib_inputs(klass, kind)
         n = len(k)
         kt, vt = torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev)
         s, c = agg.lane_segment_sum_count(kt, vt, cells)
         ps, pc = agg.lane_sum_count_plain(kt, vt, cells)
         torch.cuda.synchronize()
-        require(torch.equal(c, pc), f"lane_sum_count counts != plain at {klass} shape")
+        require(torch.equal(c, pc), f"lane_sum_count counts != plain at {klass} {kind} shape")
         err = lane_within_budget(torch, s, ps, k, v, cells)
         kc = kt.long().clamp(0, cells)
         ones = torch.ones_like(vt)
 
-        def library(kc=kc, vt=vt, ones=ones, cells=cells):
+        def library():
             torch.zeros(cells + 1, dtype=torch.float32, device=dev).index_add_(0, kc, vt)
             torch.zeros(cells + 1, dtype=torch.float32, device=dev).index_add_(0, kc, ones)
 
-        # each id, value and weight read once (12 B/row), sum and count
-        # written once (8 B/cell)
-        nb, kind = bound(n * 12 + cells * 8, 0)
-        shapes[klass] = {
-            "shape": f"{n} rows into {cells} cells (calibration, {klass})",
-            "max_abs_err": err,
-            "ms": cuda_ms(torch, lambda kt=kt, vt=vt, cells=cells:
-                          agg.lane_segment_sum_count(kt, vt, cells)),
-            "plain_ms": cuda_ms(torch, lambda kt=kt, vt=vt, cells=cells:
-                                agg.lane_sum_count_plain(kt, vt, cells)),
-            "bound_ms": nb, "bound_by": kind, "library_ms": cuda_ms(torch, library)}
-    records.append({"name": "lane_sum_count", "route": "cuda",
-                    "source": "horaedb_tpu_torch/ops/csrc/lane_sum_count.cu",
-                    "replaces": "horaedb_tpu/ops/aggregate.py:246", **shapes["dense"],
-                    "library_call": "index_add_ x2 (f32 value, weight) over the clipped ids",
-                    "sparse": shapes["sparse"]})
+        # each id and value read once (8 B/row: the timed calls pass no
+        # weights, which would add 4 B/row), sum and count written once
+        # (8 B/cell)
+        nb, bound_by = bound(n * (kt.element_size() + vt.element_size()) + cells * 8, 0)
+        return {"shape": f"{n} rows into {cells} cells (calibration, {klass}, {kind} ids)",
+                "max_abs_err": err,
+                "ms": cuda_ms(torch, lambda: agg.lane_segment_sum_count(kt, vt, cells)),
+                "plain_ms": cuda_ms(torch, lambda: agg.lane_sum_count_plain(kt, vt, cells)),
+                "bound_ms": nb, "bound_by": bound_by, "library_ms": cuda_ms(torch, library)}
+
+    shapes = {klass: {**lane_record(klass, "sorted"), "unsorted": lane_record(klass, "unsorted")}
+              for klass in ("dense", "sparse")}
+    records = [{"name": "lane_sum_count", "route": "cuda",
+                "source": "horaedb_tpu_torch/ops/csrc/lane_sum_count.cu",
+                "replaces": "horaedb_tpu/ops/aggregate.py:246", **shapes["dense"],
+                "library_call": "index_add_ x2 (f32 value, weight) over the clipped ids",
+                "sparse": shapes["sparse"]}]
 
     vt, st, it, okt, segs, resend = last_write
     n = len(vt)
@@ -3103,12 +3105,14 @@ def check_mesh_kernels(torch, rng, dev) -> None:
                          0x8000000000000000, 0x0, 0x1, 0x800FFFFFFFFFFFFF,
                          0x0010000000000000, 0x7FF0000000000000, 0xFFF0000000000000],
                         np.uint64).view(np.float64)
-    for k, cells in ((1, 1_001), (5, 30_011)):
+    # the k = 9 case (the kernel's loop past its unrolled k <= 8) draws from
+    # its own generator, so the main paths' data stays as it was
+    for k, cells, g in ((1, 1_001, rng), (5, 30_011, rng), (9, 30_002, np.random.default_rng(9))):
         grids = {}
         for key in mesh_ops.FOLD_KEYS:
-            a = rng.normal(size=(k, cells)) * (1e-308 if key == "sum" else 1.0)
-            hit = rng.random((k, cells)) < 0.3
-            a[hit] = rng.choice(specials, int(hit.sum()))
+            a = g.normal(size=(k, cells)) * (1e-308 if key == "sum" else 1.0)
+            hit = g.random((k, cells)) < 0.3
+            a[hit] = g.choice(specials, int(hit.sum()))
             grids[key] = a
         got = mesh_ops.grid_fold({key: torch.from_numpy(a).to(dev) for key, a in grids.items()})
         want = mesh_ops.grid_fold_plain({key: torch.from_numpy(a) for key, a in grids.items()})

@@ -15,6 +15,11 @@ runs at import: a CPU-only box imports every module.
 `LAUNCHES` counts, per catalog name, the wrapper calls that launched the
 kernel on the card (the plain CPU versions do not count).
 
+A launch costs the host more than a small kernel costs the card, so the
+path is lean: `kernel` binds an entry point's argtypes once and serves it
+from a cache without the lock, and `launch` enters `torch.cuda.device` only
+when the tensor's device is not the thread's current one.
+
 A failed build or launch raises `KernelError`, its own class, so that a
 caller that serves malformed input from another route (the encoded read
 falls back to parquet on a corrupt sidecar) can let it through: a kernel
@@ -31,6 +36,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 from horaedb_tpu_torch.common.error import HoraeError
 
@@ -87,6 +94,7 @@ class KernelError(HoraeError):
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def reset_launch_counts() -> None:
@@ -157,19 +165,44 @@ def build_all(names=tuple(SOURCES)) -> dict[str, float]:
 
 
 def kernel(name: str, fn_name: str, argtypes: list, restype=ctypes.c_int) -> ctypes._CFuncPtr:
-    """The C entry point `fn_name` of kernel `name`, built on first use.
-    Every launch entry point returns cudaGetLastError() as an int; each
-    library also exports the size of the scratch its launch needs."""
-    name = library_of(name)
+    """The C entry point `fn_name` of kernel `name`, built on first use and
+    bound to `argtypes`/`restype` once; later lookups return the cached
+    entry without taking the lock. Every launch entry point returns
+    cudaGetLastError() as an int; each library also exports the size of
+    the scratch its launch needs."""
+    key = (library_of(name), fn_name)
+    fn = _fns.get(key)
+    if fn is not None:
+        return fn
     with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            build_all((name,))
-            lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = restype
+        fn = _fns.get(key)
+        if fn is None:
+            lib = _libs.get(key[0])
+            if lib is None:
+                build_all((key[0],))
+                lib = _libs[key[0]] = ctypes.CDLL(str(_lib_path(key[0])))
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+            _fns[key] = fn
     return fn
+
+
+def launch(name: str, fn: ctypes._CFuncPtr, dev: torch.device, *args) -> None:
+    """Call launch entry point `fn(*args, stream)` with `dev`'s current
+    stream and `dev` current (the runtime launches on the current device
+    and refuses a stream of another one), then `check`. Enters
+    `torch.cuda.device` only when `dev` is not the thread's current device.
+    The stream handle comes from `torch._C._cuda_getCurrentRawStream` (the
+    call PyTorch's own Triton launcher makes): `torch.cuda.current_stream`
+    builds a Stream object first, 4-6 us of host time a launch on an H100's
+    host (chip_ab.py launch, `host_parts_us`)."""
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    check(name, rc)
 
 
 def scratch_bytes(name: str, fn_name: str, n: int) -> int:

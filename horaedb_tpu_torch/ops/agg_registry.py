@@ -90,7 +90,8 @@ SORTED_IMPLS: dict[str, AggImpl] = {
                 "error budget"),
         AggImpl("block_scan", "device", (), "kernel B (TPU scan prologue)"),
         AggImpl("lanes", "device", (),
-                "kernel lane_sum_count: eight lanes scatter into partial grids"),
+                "kernel lane_sum_count: warp-grouped f32 atomics into the grids (the plain "
+                "version: eight lane grids)"),
         AggImpl("reduceat", "host", ("cpu",),
                 "host run-boundary lane: np.add.reduceat over searchsorted/diff "
                 "boundaries"),

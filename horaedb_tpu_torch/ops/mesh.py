@@ -30,14 +30,9 @@ _DEFAULT_NAN = torch.tensor(np.array([0xFFF8000000000000], np.uint64).view(np.in
     torch.float64)[0]
 
 
-def _launch_on(t: torch.Tensor, name: str):
-    if t.device.type != "cuda":
-        raise HoraeError(f"{name}: unsupported device {t.device}")
-    return torch.cuda.device(t.device)
-
-
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+def _on_card(dev: torch.device, name: str) -> None:
+    if dev.type != "cuda":
+        raise HoraeError(f"{name}: unsupported device {dev}")
 
 
 # -- grid_fold -------------------------------------------------------------------
@@ -89,7 +84,7 @@ def grid_fold_plain(stacked: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]
 
 
 _FOLD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int32, ctypes.c_int64] + \
-    [ctypes.c_void_p] * 5
+    [ctypes.c_void_p] * 2
 
 
 def grid_fold(stacked: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -97,34 +92,33 @@ def grid_fold(stacked: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     `max`: contiguous f64 [k, ...] on one device, k >= 1) left to right from
     the identity, bitwise as the host fold of `cluster/partial.py` folds
     them. Kernel `grid_fold` on CUDA tensors, `grid_fold_plain` on CPU
-    ones."""
+    ones. On the card the folded grids are views of one [keys, ...]
+    allocation, and one launch writes them all."""
     keys = [k for k in FOLD_KEYS if k in stacked]
-    ensure(keys in (["sum", "count"], list(FOLD_KEYS)),
-           f"grid_fold: needs sum and count, and min with max, got {sorted(stacked)}")
+    if keys != ["sum", "count"] and keys != list(FOLD_KEYS):
+        raise HoraeError(f"grid_fold: needs sum and count, and min with max, got {sorted(stacked)}")
     ref = stacked["sum"]
-    ensure(ref.dim() >= 1 and ref.shape[0] >= 1, "grid_fold: needs k >= 1 partials")
+    if ref.dim() < 1 or ref.shape[0] < 1:
+        raise HoraeError("grid_fold: needs k >= 1 partials")
+    shape, dev = ref.shape, ref.device
     for key in keys:
         t = stacked[key]
-        ensure(t.dtype == torch.float64 and t.shape == ref.shape and t.is_contiguous()
-               and t.device == ref.device,
-               f"grid_fold: {key} must be a contiguous f64 {tuple(ref.shape)} on {ref.device}, "
-               f"got {t.dtype}{tuple(t.shape)} on {t.device}")
-    if ref.device.type == "cpu":
+        if not (t.dtype == torch.float64 and t.shape == shape and t.is_contiguous()
+                and t.device == dev):
+            raise HoraeError(f"grid_fold: {key} must be a contiguous f64 {tuple(shape)} on {dev}, "
+                             f"got {t.dtype}{tuple(t.shape)} on {t.device}")
+    if dev.type == "cpu":
         return grid_fold_plain(stacked)
-    k, shape = ref.shape[0], ref.shape[1:]
-    cells = int(np.prod(shape)) if len(shape) else 1
-    out = {key: torch.empty(shape, dtype=torch.float64, device=ref.device) for key in keys}
-
-    def ptr(d, key):
-        return d[key].data_ptr() if key in d else None
-
+    _on_card(dev, "grid_fold")
+    grid = shape[1:]
+    out = ref.new_empty((len(keys),) + grid)
+    minmax = len(keys) == 4
     fn = _build.kernel("grid_fold", "grid_fold_launch", _FOLD_ARGTYPES)
-    with _launch_on(ref, "grid_fold"):
-        rc = fn(ptr(stacked, "sum"), ptr(stacked, "count"), ptr(stacked, "min"),
-                ptr(stacked, "max"), k, cells, ptr(out, "sum"), ptr(out, "count"),
-                ptr(out, "min"), ptr(out, "max"), _stream(ref.device))
-    _build.check("grid_fold", rc)
-    return out
+    _build.launch("grid_fold", fn, dev, ref.data_ptr(), stacked["count"].data_ptr(),
+                  stacked["min"].data_ptr() if minmax else None,
+                  stacked["max"].data_ptr() if minmax else None, shape[0], grid.numel(),
+                  out.data_ptr())
+    return dict(zip(keys, out.unbind(0)))
 
 
 # -- the cell keys of a mesh slot --------------------------------------------------
@@ -177,18 +171,17 @@ def sharded_keys(ts, sid, vals, valid, mask, t0: int, bucket_ms: int, lo: int,
     if dev.type == "cpu":
         return sharded_keys_plain(ts, sid, vals, valid, mask, t0, bucket_ms, lo, local_series,
                                   num_buckets)
+    _on_card(dev, library)
     safe = torch.empty(n, dtype=torch.int32, device=dev)
     flat = torch.empty(n, dtype=torch.int32, device=dev)
     vm = torch.empty(n, dtype=torch.float64, device=dev)
     w = torch.empty(n, dtype=torch.float64, device=dev)
     ok = torch.empty(n, dtype=torch.uint8, device=dev)
     fn = _build.kernel(library, "sharded_keys_launch", _KEYS_ARGTYPES)
-    with _launch_on(ts, library):
-        rc = fn(ts.data_ptr(), sid.data_ptr(), vals.data_ptr(), valid.data_ptr(),
-                None if mask is None else mask.data_ptr(), t0, bucket_ms, lo, local_series,
-                num_buckets, n, safe.data_ptr(), flat.data_ptr(), vm.data_ptr(), w.data_ptr(),
-                ok.data_ptr(), _stream(dev))
-    _build.check(library, rc)
+    _build.launch(library, fn, dev, ts.data_ptr(), sid.data_ptr(), vals.data_ptr(),
+                  valid.data_ptr(), None if mask is None else mask.data_ptr(), t0, bucket_ms,
+                  lo, local_series, num_buckets, n, safe.data_ptr(), flat.data_ptr(),
+                  vm.data_ptr(), w.data_ptr(), ok.data_ptr())
     return safe, flat, vm, w, ok.view(torch.bool)
 
 
@@ -250,16 +243,16 @@ def ssm_local(key: torch.Tensor, key_bits: int, seq_width: int, splitters: torch
            "sample_sort_merge: row ids and send lanes are int32-indexed")
     if dev.type == "cpu":
         return ssm_local_plain(key, key_bits, seq_width, splitters, d_slots, cap, row_base)
+    _on_card(dev, "sample_sort_merge")
     send_k = torch.empty(d_slots * cap, dtype=torch.int64, device=dev)
     send_i = torch.empty(d_slots * cap, dtype=torch.int32, device=dev)
     nbytes = _build.kernel("sample_sort_merge", "ssm_local_scratch_bytes",
                            [ctypes.c_int64, ctypes.c_int64], ctypes.c_int64)(n, d_slots)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     fn = _build.kernel("sample_sort_merge", "ssm_local_launch", _LOCAL_ARGTYPES)
-    with _launch_on(key, "sample_sort_merge"):
-        rc = fn(key.data_ptr(), n, key_bits, seq_width, splitters.data_ptr(), d_slots, cap,
-                row_base, send_k.data_ptr(), send_i.data_ptr(), scratch.data_ptr(), _stream(dev))
-    _build.check("sample_sort_merge", rc)
+    _build.launch("sample_sort_merge", fn, dev, key.data_ptr(), n, key_bits, seq_width,
+                  splitters.data_ptr(), d_slots, cap, row_base, send_k.data_ptr(),
+                  send_i.data_ptr(), scratch.data_ptr())
     return send_k, send_i
 
 
@@ -292,6 +285,7 @@ def ssm_merge(recv_k: torch.Tensor, recv_i: torch.Tensor, key_bits: int, seq_wid
            f"sample_sort_merge: key_bits {key_bits}, seq_width {seq_width} out of range")
     if dev.type == "cpu":
         return ssm_merge_plain(recv_k, recv_i, key_bits, seq_width, do_dedup)
+    _on_card(dev, "sample_sort_merge")
     if m == 0:
         return (torch.empty(0, dtype=torch.int32, device=dev),
                 torch.zeros(1, dtype=torch.int32, device=dev))
@@ -301,8 +295,7 @@ def ssm_merge(recv_k: torch.Tensor, recv_i: torch.Tensor, key_bits: int, seq_wid
                            [ctypes.c_int64], ctypes.c_int64)(m)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     fn = _build.kernel("sample_sort_merge", "ssm_merge_launch", _MERGE_ARGTYPES)
-    with _launch_on(recv_k, "sample_sort_merge"):
-        rc = fn(recv_k.data_ptr(), recv_i.data_ptr(), m, key_bits, seq_width, int(do_dedup),
-                out.data_ptr(), count.data_ptr(), scratch.data_ptr(), _stream(dev))
-    _build.check("sample_sort_merge", rc)
+    _build.launch("sample_sort_merge", fn, dev, recv_k.data_ptr(), recv_i.data_ptr(), m,
+                  key_bits, seq_width, int(do_dedup), out.data_ptr(), count.data_ptr(),
+                  scratch.data_ptr())
     return out, count

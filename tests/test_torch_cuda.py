@@ -817,6 +817,100 @@ def test_lane_sum_count_matches_plain(dev, n, cells, weighted):
     assert np.all(err <= 2.0 ** -20 * l1)
 
 
+def _calib_lane_case(klass: str, kind: str, weighted: bool):
+    """The calibration stream of `klass` in `kind` order with 3 ids < 0, 4
+    ids >= num_cells and 5 more rows (n % 8 = 5); sorted ids stay sorted."""
+    from horaedb_tpu_torch.ops import agg_registry
+
+    k, v, cells = agg_registry.calib_inputs(klass, kind)
+    rng = np.random.default_rng(len(klass) * 10 + len(kind))
+    extra = rng.integers(0, cells, 5).astype(np.int32)
+    k = np.concatenate([np.array([-1, -7, -2**31], np.int32), k, extra,
+                        np.array([cells, cells + 1, 2**31 - 1, cells], np.int32)])
+    if kind == "sorted":
+        k = np.sort(k)
+    v = np.concatenate([v, rng.normal(size=12).astype(np.float32)])
+    w = (rng.random(len(k)) > 0.3).astype(np.float32) if weighted else None
+    return k, v, w, cells
+
+
+def _lanes_within_budget(s, c, k, v, w, cells):
+    """Counts equal to the plain version's; sums within 2^-20 x the cell's
+    L1 mass of the plain version's."""
+    from horaedb_tpu_torch.ops.aggregate import lane_sum_count_plain
+
+    ps, pc = lane_sum_count_plain(torch.from_numpy(k), torch.from_numpy(v), cells,
+                                  w=None if w is None else torch.from_numpy(w))
+    assert s.dtype == c.dtype == torch.float32 and s.shape == c.shape == (cells,)
+    assert torch.equal(c.cpu(), pc)
+    l1 = np.bincount(np.clip(k, 0, cells), weights=np.abs(v.astype(np.float64)),
+                     minlength=cells + 1)[:cells]
+    err = np.abs(s.cpu().numpy().astype(np.float64) - ps.numpy().astype(np.float64))
+    assert np.all(err <= 2.0 ** -20 * l1)
+
+
+@pytest.mark.parametrize("klass", ["dense", "sparse"])
+@pytest.mark.parametrize("kind", ["sorted", "unsorted"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_lane_sum_count_calibration_shapes_match_plain(dev, klass, kind, weighted):
+    """2^18 + 12 rows into 16,384 or 524,288 cells, sorted and shuffled ids,
+    ids < 0 (cell 0) and >= num_cells (dropped), an n % 8 tail."""
+    from horaedb_tpu_torch.ops.aggregate import lane_segment_sum_count
+
+    k, v, w, cells = _calib_lane_case(klass, kind, weighted)
+    s, c = lane_segment_sum_count(torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev), cells,
+                                  w=None if w is None else torch.from_numpy(w).to(dev))
+    torch.cuda.synchronize()
+    _lanes_within_budget(s, c, k, v, w, cells)
+
+
+def _on_side_stream(dev, fn) -> list:
+    """fn()'s tensors, computed under a new stream while the default stream
+    sleeps and copied to pinned host memory on that stream; read before the
+    default stream is done. Had a launch gone to the default stream, the
+    copy would have read its output before it was written."""
+    side = torch.cuda.Stream(dev)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)
+    with torch.cuda.stream(side):
+        host = []
+        for t in fn():
+            host.append(torch.empty(t.shape, dtype=t.dtype, pin_memory=True))
+            host[-1].copy_(t, non_blocking=True)
+    side.synchronize()
+    assert not torch.cuda.default_stream(dev).query()
+    torch.cuda.synchronize()
+    return host
+
+
+def test_lane_sum_count_on_a_side_stream(dev):
+    from horaedb_tpu_torch.ops.aggregate import lane_segment_sum_count
+
+    k, v, w, cells = _calib_lane_case("dense", "sorted", True)
+    kt, vt, wt = (torch.from_numpy(a).to(dev) for a in (k, v, w))
+    s0, c0 = lane_segment_sum_count(kt, vt, cells, w=wt)
+    s1, c1 = _on_side_stream(dev, lambda: lane_segment_sum_count(kt, vt, cells, w=wt))
+    assert torch.equal(c1, c0.cpu())
+    _lanes_within_budget(s1, c1, k, v, w, cells)
+
+
+def test_lane_sum_count_on_a_device_that_is_not_current():
+    """A launch on cuda:1 from a thread whose current device is cuda:0 goes
+    to cuda:1."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from horaedb_tpu_torch.ops.aggregate import lane_segment_sum_count
+
+    k, v, w, cells = _calib_lane_case("sparse", "unsorted", False)
+    torch.cuda.set_device(0)
+    other = torch.device("cuda", 1)
+    s, c = lane_segment_sum_count(torch.from_numpy(k).to(other), torch.from_numpy(v).to(other),
+                                  cells)
+    torch.cuda.synchronize(other)
+    assert s.device == c.device == other and torch.cuda.current_device() == 0
+    _lanes_within_budget(s, c, k, v, w, cells)
+
+
 def _slv_case(name):
     rng = np.random.default_rng(len(name))
     n, segs = 1_000_003, 300_000
@@ -959,6 +1053,55 @@ def test_grid_fold_matches_plain_bitwise(dev, k, cells):
     want = mesh_ops.grid_fold_plain({key: torch.from_numpy(a) for key, a in grids.items()})
     for key in mesh_ops.FOLD_KEYS:
         assert np.array_equal(_u64(got[key]), _u64(want[key])), key
+
+
+def _fold_on_card(dev, grids: dict, offset: int = 0) -> dict:
+    """grid_fold of `grids` on the card; with `offset`, each lane is a view
+    `offset` doubles into a larger allocation (a misaligned base)."""
+    lanes = {}
+    for key, a in grids.items():
+        t = torch.empty(a.size + offset, dtype=torch.float64, device=dev)
+        t[offset:] = torch.from_numpy(a.reshape(-1)).to(dev)
+        lanes[key] = t[offset:].view(a.shape)
+    return mesh_ops.grid_fold(lanes)
+
+
+@pytest.mark.parametrize("k,cells,offset,keys", [
+    (3, 75_001, 0, 4), (4, 75_002, 0, 4), (4, 75_000, 1, 4), (8, 1_002, 0, 4),
+    (9, 999, 0, 4), (12, 30_002, 1, 4), (6, 4_097, 0, 2), (2, 2, 1, 2)])
+def test_grid_fold_vector_edges_match_plain_bitwise(dev, k, cells, offset, keys):
+    """Odd cell counts (every other partial 8 bytes off 16), counts of 2 mod
+    4, misaligned views, the unrolled k <= 8 and the loop past it, sum and
+    count alone; NaN payloads, +-0.0, subnormals, infinities."""
+    grids = _edge_grids(np.random.default_rng(k + cells + offset), k, cells)
+    grids = {key: grids[key] for key in mesh_ops.FOLD_KEYS[:keys]}
+    got = _fold_on_card(dev, grids, offset)
+    want = mesh_ops.grid_fold_plain({key: torch.from_numpy(a) for key, a in grids.items()})
+    assert list(got) == list(want)
+    for key in got:
+        assert got[key].shape == (cells,)
+        assert np.array_equal(_u64(got[key]), _u64(want[key])), key
+
+
+def test_grid_fold_at_the_slot_shape_matches_plain_bitwise(dev):
+    """Phase 4's slot of the scatter-gather fold, [4, 2,500, 30]."""
+    k, s, b = 4, 2_500, 30
+    grids = {key: a.reshape(k, s, b) for key, a in
+             _edge_grids(np.random.default_rng(2500), k, s * b).items()}
+    got = _fold_on_card(dev, grids)
+    want = mesh_ops.grid_fold_plain({key: torch.from_numpy(a) for key, a in grids.items()})
+    for key in mesh_ops.FOLD_KEYS:
+        assert got[key].shape == (s, b) and got[key].is_contiguous()
+        assert np.array_equal(_u64(got[key]), _u64(want[key])), key
+
+
+def test_grid_fold_on_a_side_stream_is_bitwise_the_default_streams(dev):
+    grids = _edge_grids(np.random.default_rng(77), 4, 75_000)
+    lanes = {key: torch.from_numpy(a).to(dev) for key, a in grids.items()}
+    on_default = mesh_ops.grid_fold(lanes)
+    on_side = _on_side_stream(dev, lambda: mesh_ops.grid_fold(lanes).values())
+    for key, got in zip(mesh_ops.FOLD_KEYS, on_side):
+        assert np.array_equal(_u64(got), _u64(on_default[key])), key
 
 
 def test_grid_fold_keeps_subnormals_on_the_card(dev):

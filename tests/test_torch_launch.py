@@ -1,0 +1,222 @@
+"""The launch path of kernels `grid_fold`, `lane_sum_count` and the other
+mesh steps, on the CPU.
+
+Each wrapper checks its inputs before it picks a route: malformed input
+raises `HoraeError` with the texts below, whatever device the lanes are on.
+`meta` tensors stand in for a device that is neither the CPU nor a card.
+`_build.kernel` binds an entry point once and serves later lookups from its
+cache without the build lock.
+"""
+
+import ctypes
+
+import pytest
+import torch
+
+from horaedb_tpu_torch.common.error import HoraeError
+from horaedb_tpu_torch.ops import _build
+from horaedb_tpu_torch.ops.aggregate import lane_segment_sum_count
+from horaedb_tpu_torch.ops import mesh
+from horaedb_tpu_torch.ops.mesh import grid_fold
+
+
+def _grids(k=2, cells=3, **change):
+    out = {key: torch.zeros(k, cells, dtype=torch.float64)
+           for key in ("sum", "count", "min", "max")}
+    out.update(change)
+    return {key: t for key, t in out.items() if t is not None}
+
+
+F64 = "torch.float64"
+GRID_CASES = {
+    "missing max": (
+        _grids(max=None),
+        "grid_fold: needs sum and count, and min with max, got ['count', 'min', 'sum']"),
+    "min without max or count": (
+        _grids(count=None, max=None),
+        "grid_fold: needs sum and count, and min with max, got ['min', 'sum']"),
+    "no partials": (_grids(k=0), "grid_fold: needs k >= 1 partials"),
+    "0-d sum": (_grids(sum=torch.tensor(1.0, dtype=torch.float64)),
+                "grid_fold: needs k >= 1 partials"),
+    "wrong dtype": (_grids(count=torch.zeros(2, 3, dtype=torch.float32)),
+                    "grid_fold: count must be a contiguous f64 (2, 3) on cpu, "
+                    "got torch.float32(2, 3) on cpu"),
+    "wrong shape": (_grids(min=torch.zeros(2, 4, dtype=torch.float64)),
+                    f"grid_fold: min must be a contiguous f64 (2, 3) on cpu, "
+                    f"got {F64}(2, 4) on cpu"),
+    "non-contiguous": (_grids(max=torch.zeros(3, 2, dtype=torch.float64).t()),
+                       f"grid_fold: max must be a contiguous f64 (2, 3) on cpu, "
+                       f"got {F64}(2, 3) on cpu"),
+    "another device": (_grids(count=torch.zeros(2, 3, dtype=torch.float64, device="meta")),
+                       f"grid_fold: count must be a contiguous f64 (2, 3) on cpu, "
+                       f"got {F64}(2, 3) on meta"),
+    "unsupported device": ({key: torch.zeros(2, 3, dtype=torch.float64, device="meta")
+                            for key in ("sum", "count")},
+                           "grid_fold: unsupported device meta"),
+}
+
+
+@pytest.mark.parametrize("case", list(GRID_CASES))
+def test_grid_fold_refuses_malformed_input(case):
+    stacked, text = GRID_CASES[case]
+    with pytest.raises(HoraeError) as err:
+        grid_fold(stacked)
+    assert str(err.value) == text
+
+
+def _lanes(n=5, **change):
+    out = {"k": torch.zeros(n, dtype=torch.int32), "v": torch.zeros(n, dtype=torch.float32),
+           "w": None}
+    out.update(change)
+    return out
+
+
+LANE_CASES = {
+    "ids not int32": (_lanes(k=torch.zeros(5, dtype=torch.int64)), 16,
+                      "lane_sum_count: ids must be int32, got torch.int64"),
+    "short values": (_lanes(v=torch.zeros(4)), 16,
+                     "lane_sum_count: v must be a contiguous 1-D lane of 5 rows on cpu, "
+                     "got torch.float32(4,) on cpu"),
+    "2-D ids": (_lanes(k=torch.zeros(5, 2, dtype=torch.int32)), 16,
+                "lane_sum_count: k must be a contiguous 1-D lane of 5 rows on cpu, "
+                "got torch.int32(5, 2) on cpu"),
+    "non-contiguous ids": (_lanes(k=torch.zeros(10, dtype=torch.int32)[::2]), 16,
+                           "lane_sum_count: k must be a contiguous 1-D lane of 5 rows on cpu, "
+                           "got torch.int32(5,) on cpu"),
+    "long weights": (_lanes(w=torch.ones(6)), 16,
+                     "lane_sum_count: w must be a contiguous 1-D lane of 5 rows on cpu, "
+                     "got torch.float32(6,) on cpu"),
+    "values on another device": (_lanes(v=torch.zeros(5, device="meta")), 16,
+                                 "lane_sum_count: v must be a contiguous 1-D lane of 5 rows on "
+                                 "cpu, got torch.float32(5,) on meta"),
+    "negative cell count": (_lanes(), -1, "lane_sum_count: num_cells -1 outside [0, 2^31)"),
+    "too many cells": (_lanes(), 2**31, "lane_sum_count: num_cells 2147483648 outside [0, 2^31)"),
+    "unsupported device": ({"k": torch.zeros(5, dtype=torch.int32, device="meta"),
+                            "v": torch.zeros(5, device="meta"), "w": None}, 16,
+                           "lane_sum_count: unsupported device meta"),
+}
+
+
+@pytest.mark.parametrize("case", list(LANE_CASES))
+def test_lane_sum_count_refuses_malformed_input(case):
+    lanes, cells, text = LANE_CASES[case]
+    with pytest.raises(HoraeError) as err:
+        lane_segment_sum_count(lanes["k"], lanes["v"], cells, w=lanes["w"])
+    assert str(err.value) == text
+
+
+def test_well_formed_input_takes_the_plain_version_on_the_cpu():
+    stacked = _grids(k=3, cells=4)
+    stacked["sum"] = torch.arange(12, dtype=torch.float64).reshape(3, 4)
+    out = grid_fold(stacked)
+    assert torch.equal(out["sum"], stacked["sum"].sum(0))
+    s, c = lane_segment_sum_count(torch.tensor([0, 1, 1, -4, 9], dtype=torch.int32),
+                                  torch.tensor([1.0, 2.0, 3.0, 4.0, 5.0]), 4)
+    assert s.tolist() == [5.0, 5.0, 0.0, 0.0] and c.tolist() == [2.0, 2.0, 0.0, 0.0]
+
+
+class _NoLock:
+    def __enter__(self):
+        raise AssertionError("a cached entry point took the build lock")
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_kernel_binds_an_entry_point_once(monkeypatch):
+    """The first lookup binds argtypes and restype under the lock; a later
+    one returns the same bound entry without the lock, whatever it asks."""
+    monkeypatch.setattr(_build, "_libs", {"grid_fold": ctypes.CDLL(None)})
+    monkeypatch.setattr(_build, "_fns", {})
+    fn = _build.kernel("grid_fold", "labs", [ctypes.c_long], ctypes.c_long)
+    assert fn(-7) == 7 and fn.argtypes == [ctypes.c_long]
+    monkeypatch.setattr(_build, "_lock", _NoLock())
+    assert _build.kernel("grid_fold", "labs", [ctypes.c_long], ctypes.c_long) is fn
+
+
+class _Card:
+    """Stands in for torch.cuda on a box without a card: `current` is the
+    thread's current device; `entered` records torch.cuda.device entries;
+    the raw stream handle of device i is 1000 + i."""
+
+    def __init__(self, monkeypatch, current: int):
+        self.current, self.entered = current, []
+        card = self
+
+        class Device:
+            def __init__(self, dev):
+                self.index = dev.index
+
+            def __enter__(self):
+                card.entered.append(self.index)
+                card.current, self.prev = self.index, card.current
+
+            def __exit__(self, *exc):
+                card.current = self.prev
+                return False
+
+        monkeypatch.setattr(torch.cuda, "current_device", lambda: card.current)
+        monkeypatch.setattr(torch.cuda, "device", Device)
+        monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 1000 + i,
+                            raising=False)
+
+    def kernel(self, rc: int = 0):
+        calls = []
+
+        def fn(*args):
+            calls.append((self.current, args))
+            return rc
+
+        return fn, calls
+
+
+@pytest.mark.parametrize("current,target,entered", [(0, 0, []), (0, 1, [1]), (1, 1, [])])
+def test_launch_runs_on_the_tensors_device_and_its_stream(monkeypatch, current, target, entered):
+    """The entry point gets the target device's stream, with the target
+    current during the call; torch.cuda.device is entered only when the
+    target is not already current, and the thread's device is restored."""
+    card = _Card(monkeypatch, current)
+    fn, calls = card.kernel()
+    before = _build.launch_counts()["grid_fold"]
+    _build.launch("grid_fold", fn, torch.device("cuda", target), 7, None)
+    assert calls == [(target, (7, None, 1000 + target))]
+    assert card.entered == entered and card.current == current
+    assert _build.launch_counts()["grid_fold"] == before + 1
+
+
+def test_launch_raises_kernel_error_on_a_failed_launch(monkeypatch):
+    card = _Card(monkeypatch, 0)
+    fn, _ = card.kernel(rc=700)
+    before = _build.launch_counts()["lane_sum_count"]
+    with pytest.raises(_build.KernelError, match="lane_sum_count: CUDA launch failed"):
+        _build.launch("lane_sum_count", fn, torch.device("cuda", 0))
+    assert _build.launch_counts()["lane_sum_count"] == before
+
+
+def _meta(n, dtype):
+    return torch.zeros(n, dtype=dtype, device="meta")
+
+
+MESH_STEPS = {
+    "sharded_keys": (lambda: mesh.sharded_keys(
+        _meta(4, torch.int64), _meta(4, torch.int32), _meta(4, torch.float64),
+        _meta(4, torch.bool), None, 0, 10, 0, 2, 3), "sharded_downsample"),
+    "ssm_local": (lambda: mesh.ssm_local(_meta(4, torch.int64), 8, 2, _meta(1, torch.int64),
+                                         2, 4, 0), "sample_sort_merge"),
+    "ssm_merge": (lambda: mesh.ssm_merge(_meta(0, torch.int64), _meta(0, torch.int32), 8, 2,
+                                         True), "sample_sort_merge"),
+}
+
+
+@pytest.mark.parametrize("step", list(MESH_STEPS))
+def test_mesh_steps_refuse_an_unsupported_device_before_the_build(monkeypatch, step):
+    """A lane on neither the CPU nor a card raises before any library is
+    built or looked up."""
+    def no_build(*a, **kw):
+        raise AssertionError("looked up a kernel for a meta tensor")
+
+    monkeypatch.setattr(_build, "kernel", no_build)
+    call, name = MESH_STEPS[step]
+    with pytest.raises(HoraeError) as err:
+        call()
+    assert str(err.value) == f"{name}: unsupported device meta"
