@@ -6,6 +6,10 @@
     python3 chip_ab.py id-cache [--seed N]
     python3 chip_ab.py solo-fold [--root DIR] [--seed N]
     python3 chip_ab.py launch [--root DIR] [--seed N]
+    python3 chip_ab.py merge [--root DIR] [--seed N]
+    python3 chip_ab.py burst [--root DIR] [--seed N] [--rounds N]
+    python3 chip_ab.py burst-pair --root DIR [--seed N] [--rounds N]
+    python3 chip_ab.py scan-pair --root DIR [--seed N] [--rounds N] [--no-warm-turn]
 
 `reduce` builds and times, with chip_smoke's CUDA-event timer, the kernels
 that share `horaedb_tpu_torch/ops/csrc/segreduce.cuh`:
@@ -57,6 +61,44 @@ call that does no work). It splits the other rows under 0.1 ms the same
 way (the four decode kernels on 2^17-row synthetic lanes, the mesh key
 kernel on 3.6M rows). `--root` as for `reduce`, for a tree that has
 `_build.launch`.
+
+`merge` splits the three merges that sort through a digit sort at the
+smoke's main shapes: `index_merge_mask` and `index_merge_filter` (rows 19
+and 20: one 2 h segment of chip_smoke.make_data, about 7.56M rows, its
+sort-key lanes; the filter an InSet of 1,000 tsids and a ts range) and
+`sample_sort_merge` (row 14: that segment's dense (series_id, ts, seq)
+key, 42 bits, over 8 slots of the card). For each: `events_ms` and
+`device_ms` as for `launch`, `device_ms_by_part` (torch.profiler, by
+kernel name: the predicate, the partition, the key passes, the digit
+sweeps or radix passes, the single-block tile scans, the compaction,
+the bucket scatter, copies and memsets), `device_ms_by_kernel`, and
+`host_us` / `wall_us` over 50 calls; then, end to end, seven raw scans
+of that segment (written as phase 3a writes it) on each route that
+launches kernel F (`scans`: host seconds after a synchronise, and the
+kernels launched). `--root` as for `reduce`.
+
+`burst` times phase 3i's burst A end to end: chip_smoke's TSBS cpu-only
+write (NUM_SERIES hosts x 10 fields x 180 scrapes, 60 payloads through
+`MetricEngine.write_payload`), then `--rounds` rounds after one warm-up
+round, each the 16 rack panels one by one with HORAEDB_BATCH=off
+(`solo_sum_s`, the sum of their host seconds) and then together through
+the 2 ms batcher (`burst_s`, host wall). Every burst must launch
+stacked_downsample once and answer as the solo run did. `--root` as for
+`reduce`; run the trees in alternating pairs in one call.
+`burst-pair` runs burst A on both trees in one process: the package of
+this checkout ("change") and that of `--root` ("parent"), each imported
+apart and swapped into sys.modules while its engine runs, each engine
+written with the same payloads; the two take turns every round (change
+first in even rounds), so both see the same host.
+`scan-pair` does the same for the raw scans of segment 0 that launch
+rows 19, 20 and 14 (each tree writes it as phase 3a does, and into 3d's
+dense table): `auto_metric_eq` (index_merge_mask), `device_inset_1000`
+(HORAEDB_SCAN_PATH=device, index_merge_filter) and `sharded` (3l's scan
+of the dense table on an 8-slot mesh, sample_sort_merge); host seconds
+after a synchronise, the device allocations each scan made and, for the
+first two, the index merge's device ms inside the scan (CUDA events). An
+untimed `auto_metric_eq` scan opens each tree's turn (`--no-warm-turn`
+drops it), so that no timed scan follows the other tree's.
 
 Each mode prints the card's name and power limit, then one JSON line.
 """
@@ -356,6 +398,416 @@ def small_rows(torch, cs, rng, dev) -> dict:
     return out
 
 
+# (part, pattern of the profiler's kernel name), the first match wins
+MERGE_PARTS = (
+    ("predicate", ("predicate", "program")),
+    ("partition", ("MaskFlag", "NotSentinel")),
+    ("compaction", ("KeepLast", "AllFlag", "AllRowIds")),
+    ("tile scan (radix::scan_kernel, one block)", ("radix::scan_kernel",)),
+    ("key passes", ("onesweep::key_kernel", "onesweep::decide_kernel", "onesweep::zero_kernel",
+                    "onesweep::compact_kernel", "radix::gather_kernel", "iota_kernel")),
+    ("digit sweeps", ("onesweep::sweep_kernel", "radix::hist_kernel", "radix::scatter_kernel")),
+    ("bucket scatter", ("starts_kernel", "fill_kernel", "scatter_kernel")),
+    ("copies and the exchange's torch ops", ("Memcpy", "at::native")),
+    ("memsets", ("Memset",)),
+)
+
+
+def merge_part(name: str) -> str:
+    for part, patterns in MERGE_PARTS:
+        if any(p in name for p in patterns):
+            return part
+    return "other"
+
+
+def merge_split(torch, cs, fn, iters: int = 50) -> dict:
+    """launch_split's events, device and host times of fn(), with the
+    device time also split into MERGE_PARTS."""
+    out = {"events_ms": cs.cuda_ms(torch, fn, iters=10, warmup=2)}
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    by_kernel, by_part = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 5e3
+            name = cs.kernel_name(e.name)
+            by_kernel[name] = by_kernel.get(name, 0.0) + ms
+            part = merge_part(name)
+            by_part[part] = by_part.get(part, 0.0) + ms
+    out["device_ms"] = sum(by_kernel.values())
+    out["device_ms_by_part"] = dict(sorted(by_part.items(), key=lambda kv: -kv[1]))
+    out["device_ms_by_kernel"] = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1]))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t_host = time.perf_counter()
+    torch.cuda.synchronize()
+    out["host_us"] = (t_host - t) / iters * 1e6
+    out["wall_us"] = (time.perf_counter() - t) / iters * 1e6
+    return out
+
+
+def merge_times(torch, cs, rng, dev) -> dict:
+    from horaedb_tpu_torch.backend import order_key
+    from horaedb_tpu_torch.ops import filter as F
+    from horaedb_tpu_torch.ops import merge
+    from horaedb_tpu_torch.parallel import merge as pmerge
+    from horaedb_tpu_torch.storage.read import _pack_sort_keys, predicate_lanes, sort_key_lanes
+
+    data = cs.make_data(rng)
+    seg = cs.segment_runs(rng, data, 0)
+    n = len(seg["ts"])
+    keys, bounds, num_pk, key_names = sort_key_lanes(seg.__getitem__, cs.SORT_KEYS, dev)
+    mask = torch.from_numpy((seg["metric_id"] == cs.METRIC_ID).astype(np.uint8)).to(dev)
+    out = {"index_merge_mask_shape": f"{n} rows x {len(keys)} key lanes ({', '.join(key_names)})"}
+    out["index_merge_mask"] = merge_split(
+        torch, cs, lambda: merge.index_merge_mask(keys, bounds, num_pk, mask, True, False))
+    subset = np.sort(rng.choice(data[0], cs.SUBSET, replace=False))
+    pred = F.And(F.InSet("tsid", tuple(int(t) for t in subset)),
+                 F.time_range_pred("ts", cs.T0 + 600_000, cs.T0 + cs.SEGMENT_MS - 600_000))
+    pcols = {c: seg[c] for c in ("tsid", "ts")}
+    prog = F.compile_program(pred, {c: a.dtype for c, a in pcols.items()})
+    plane = predicate_lanes(pcols, dict(zip(key_names, keys)), dev)
+    _idx, kept = merge.index_merge_filter(keys, bounds, num_pk, prog, plane, n, True, False, dev)
+    out["index_merge_filter_shape"] = (f"as index_merge_mask, InSet of {cs.SUBSET} + ts range, "
+                                       f"{int(kept.item())} survivors")
+    out["index_merge_filter"] = merge_split(
+        torch, cs, lambda: merge.index_merge_filter(keys, bounds, num_pk, prog, plane, n, True,
+                                                    False, dev))
+    packed, width, bits = _pack_sort_keys(seg.__getitem__, ("series_id", "ts", "__seq__"), n)
+    mesh = cs.card_mesh(torch, dev, cs.MERGE_SLOTS)
+    plan = pmerge.SamplePlan(packed, width, True, mesh, bits)
+    out["sample_sort_merge_shape"] = (f"{n} rows over {plan.d_slots} slots of one card, "
+                                      f"{bits}-bit key")
+    out["sample_sort_merge"] = merge_split(torch, cs, plan.run, iters=10)
+    key = torch.from_numpy(order_key(packed)).to(dev)
+    out["one_key_sort_ms"] = cs.cuda_ms(torch, lambda: torch.sort(key, stable=True), iters=5)
+    out["scans"] = asyncio.run(scan_times(torch, cs, rng, dev, data))
+    return out
+
+
+async def scan_times(torch, cs, rng, dev, data, runs: int = 7) -> dict:
+    """End to end: segment 0 of the data written as chip_smoke's phase 3a
+    writes it, then `runs` raw scans of it, host clock after a synchronise,
+    after one warm-up, on the two routes that launch kernel F: the
+    planner's own (a metric_id predicate) and HORAEDB_SCAN_PATH=device with
+    an InSet of 1,000 tsids and a ts range (index_merge_filter)."""
+    from horaedb_tpu_torch import launch_counts, reset_launch_counts
+    from horaedb_tpu_torch.objstore import LocalStore
+    from horaedb_tpu_torch.ops import filter as F
+    from horaedb_tpu_torch.storage import ObjectBasedStorage, ScanRequest, TimeRange
+
+    seg0 = TimeRange(cs.T0, cs.T0 + cs.SEGMENT_MS)
+    subset = np.sort(rng.choice(cs.NUM_SERIES, cs.SUBSET, replace=False))
+    inset = F.And(F.InSet("tsid", tuple(int(v) for v in data[0][subset])),
+                  F.time_range_pred("ts", cs.T0 + 600_000, cs.T0 + cs.SEGMENT_MS - 600_000))
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_ab_") as workdir:
+        st = await ObjectBasedStorage.try_new(
+            "tsbs", LocalStore(workdir), cs.arrow_schema(False), 4, cs.SEGMENT_MS,
+            enable_compaction_scheduler=False, start_background_merger=False, device=dev)
+        await cs.write_all(st, rng, data, segments=(0,))
+        for name, pred, env in (
+                ("auto_metric_eq", F.Compare("metric_id", "eq", cs.METRIC_ID), {}),
+                ("device_inset_1000", inset, {"HORAEDB_SCAN_PATH": "device"})):
+            secs = []
+            with cs.EnvPin(**env):
+                for i in range(runs + 1):
+                    reset_launch_counts()
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    rows = 0
+                    async for b in st.scan(ScanRequest(seg0, predicate=pred)):
+                        rows += b.num_rows
+                    torch.cuda.synchronize()
+                    if i:
+                        secs.append(time.perf_counter() - t)
+            out[name] = {"rows": rows, "s": secs, "median_s": float(np.median(secs)),
+                         "route": sorted(k for k, v in launch_counts().items() if v)}
+        await st.close()
+    return out
+
+
+PKG = "horaedb_tpu_torch"
+
+
+def _pkg_modules() -> dict:
+    return {k: m for k, m in sys.modules.items() if k == PKG or k.startswith(PKG + ".")}
+
+
+def use_tree(mods: dict) -> None:
+    """Put one checkout's package modules in sys.modules, so that the
+    imports its code makes inside functions resolve to that checkout."""
+    for k in _pkg_modules():
+        del sys.modules[k]
+    sys.modules.update(mods)
+
+
+def load_tree(root: str) -> dict:
+    """Import the package of checkout `root`, and the modules burst A and
+    the scans drive, apart from any copy already imported; its sys.modules entries,
+    for use_tree."""
+    use_tree({})
+    path = os.path.abspath(root)
+    sys.path.insert(0, path)
+    try:
+        for name in ("", ".common.time_ext", ".engine", ".objstore", ".ops.filter",
+                     ".parallel.mesh", ".server.batching", ".serving", ".storage",
+                     ".storage.scanstats"):
+            importlib.import_module(PKG + name)
+    finally:
+        sys.path.remove(path)
+    return _pkg_modules()
+
+
+class Tree:
+    """One checkout's package, loaded beside another in one process."""
+
+    def __init__(self, root: str):
+        self.mods = load_tree(root)
+        self.package = os.path.dirname(self.mods[PKG].__file__)
+
+    def mod(self, name: str):
+        return self.mods[f"{PKG}.{name}" if name else PKG]
+
+
+class BurstTree(Tree):
+    """Phase 3i's engine and burst A on one checkout's package."""
+
+    eng = None
+
+    async def close(self) -> None:
+        if self.eng is not None:
+            use_tree(self.mods)
+            await self.eng.close()
+
+    async def open(self, torch, cs, dev, workdir: str, writer, flat, ts0) -> float:
+        """The engine, written with chip_smoke's 60 payloads; the seconds
+        the writes took, payload encoding included."""
+        use_tree(self.mods)
+        os.makedirs(workdir)
+        self.eng = await self.mod("engine").MetricEngine.open(
+            "tsbs_engine", self.mod("objstore").LocalStore(workdir), enable_compaction=False,
+            serving=self.mod("serving").ServingTierConfig(enabled=False), device=dev)
+        t = time.perf_counter()
+        for p in range(cs.ENGINE_SCRAPES // cs.ENGINE_PER_PAYLOAD):
+            sl = slice(p * cs.ENGINE_PER_PAYLOAD, (p + 1) * cs.ENGINE_PER_PAYLOAD)
+            await self.eng.write_payload(writer.payload(flat[:, sl], ts0[sl]))
+        torch.cuda.synchronize()
+        batching = self.mod("server.batching")
+        self.batcher = batching.GLOBAL_BATCHER
+        self.batcher.configure(batching.BatchingConfig(
+            max_delay=self.mod("common.time_ext").ReadableDuration.millis(cs.ENGINE_MAX_DELAY_MS)))
+        return time.perf_counter() - t
+
+    async def round(self, cs, racks: list) -> tuple[float, float, dict]:
+        """The panels one by one with HORAEDB_BATCH=off, then together: the
+        solo queries' summed seconds, the burst's wall and its launches."""
+        use_tree(self.mods)
+        port, scanstats = self.mod(""), self.mod("storage.scanstats")
+        reqs = [self.mod("engine").QueryRequest(
+            metric=b"cpu_usage_user", start_ms=cs.T0, end_ms=cs.T0 + cs.ENGINE_WINDOW_MS,
+            bucket_ms=cs.ENGINE_BUCKET_MS, filters=[(b"rack", b"%d" % r)]) for r in racks]
+
+        async def one(req):
+            with scanstats.scan_stats():  # as chip_smoke's burst: a collector a panel
+                return await self.eng.query(req)
+
+        solo, secs = [], 0.0
+        with cs.EnvPin(HORAEDB_BATCH="off"):
+            for req in reqs:
+                t = time.perf_counter()
+                solo.append(await self.eng.query(req))
+                secs += time.perf_counter() - t
+        port.reset_launch_counts()
+        tok = self.batcher.begin()  # the dashboard's token: the first panel waits too
+        try:
+            t = time.perf_counter()
+            got = await asyncio.gather(*(one(req) for req in reqs))
+            wall = time.perf_counter() - t
+        finally:
+            self.batcher.end(tok)
+        counts = port.launch_counts()
+        cs.require(counts["stacked_downsample"] == 1,
+                   f"burst A launched stacked_downsample {counts['stacked_downsample']} times")
+        cs.require(all(cs.same_answer(g, w) for g, w in zip(got, solo)),
+                   "burst A differs from its HORAEDB_BATCH=off run")
+        return secs, wall, {k: v for k, v in counts.items() if v}
+
+
+async def burst_times(torch, cs, rng, dev, rounds: int, roots: list[tuple[str, str]]) -> dict:
+    """Burst A on each (tag, checkout) of `roots`, each with its own engine
+    written with the same payloads; the trees take turns a round, the first
+    going first in even rounds, after a warm-up round."""
+    tags, rack = cs.engine_hosts(rng)
+    values = rng.uniform(0, 100, (cs.NUM_SERIES, len(cs.CPU_FIELDS), cs.ENGINE_SCRAPES))
+    flat = values.reshape(cs.NUM_SERIES * len(cs.CPU_FIELDS), cs.ENGINE_SCRAPES)
+    ts0 = cs.T0 + np.arange(cs.ENGINE_SCRAPES, dtype=np.int64) * cs.INTERVAL_MS
+    writer = cs.PayloadWriter(tags, cs.CPU_FIELDS)
+    per_rack = np.bincount(rack, minlength=100)
+    racks = [r for r in range(100) if 65 <= per_rack[r] <= 128][:cs.BURST_A_PANELS]
+    cs.require(len(racks) == cs.BURST_A_PANELS, f"only {len(racks)} racks hold 65-128 hosts")
+    trees = {tag: BurstTree(root) for tag, root in roots}
+    out = {tag: {"package": tree.package, "solo_sum_s": [], "burst_s": []}
+           for tag, tree in trees.items()}
+    with tempfile.TemporaryDirectory(prefix="chip_ab_") as workdir:
+        try:
+            for tag, tree in trees.items():
+                out[tag]["write_s"] = await tree.open(torch, cs, dev, f"{workdir}/{tag}", writer,
+                                                      flat, ts0)
+            for r in range(rounds + 1):
+                for tag in list(trees) if r % 2 == 0 else list(trees)[::-1]:
+                    secs, wall, out[tag]["launches"] = await trees[tag].round(cs, racks)
+                    if r:
+                        out[tag]["solo_sum_s"].append(secs)
+                        out[tag]["burst_s"].append(wall)
+        finally:
+            for tree in trees.values():
+                await tree.close()
+    for o in out.values():
+        for k in ("solo_sum_s", "burst_s"):
+            o[f"{k[:-2]}_median_s"] = float(np.median(o[k]))
+    return {"panels": len(racks), "hosts": int(per_rack[racks].sum()), "trees": out}
+
+
+class ScanTree(Tree):
+    """Segment 0 of chip_smoke's data on one checkout's package, written as
+    phase 3a writes it twice: the 4-key table and 3d's dense table. The
+    package's `index_merge_mask` and `index_merge_filter` are wrapped in a
+    pair of CUDA events each, which time their device work inside a scan."""
+
+    def __init__(self, root: str):
+        super().__init__(root)
+        self.tables, self.events = {}, []
+        merge = self.mod("ops.merge")
+        for name in ("index_merge_mask", "index_merge_filter"):
+            setattr(merge, name, self._timed(getattr(merge, name)))
+
+    def _timed(self, fn):
+        import torch
+
+        def call(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = fn(*args, **kwargs)
+            end.record()
+            self.events.append((start, end))
+            return res
+        return call
+
+    async def open(self, torch, cs, dev, workdir: str, data, seed: int) -> None:
+        use_tree(self.mods)
+        rng = np.random.default_rng(seed)  # the same writes for every tree
+        store = self.mod("objstore").LocalStore(workdir)
+        storage = self.mod("storage")
+        for name, dense in (("tsbs", False), ("dense", True)):
+            st = await storage.ObjectBasedStorage.try_new(
+                name, store, cs.arrow_schema(dense), 2 if dense else 4, cs.SEGMENT_MS,
+                enable_compaction_scheduler=False, start_background_merger=False, device=dev)
+            await cs.write_all(st, rng, data, dense=dense, segments=(0,))
+            self.tables[name] = st
+        self.mesh8 = cs.card_mesh(torch, dev, cs.MERGE_SLOTS)
+
+    async def scan(self, torch, cs, route: str, inset_ids) -> tuple:
+        """One raw scan of segment 0 on `route`: its table, host seconds
+        after a synchronise, the kernels it launched and the caching
+        allocator's device allocations (cudaMalloc calls) during it; the
+        index merges' device ms in it are left in `merge_ms`."""
+        use_tree(self.mods)
+        F, storage = self.mod("ops.filter"), self.mod("storage")
+        set_active_mesh = self.mod("parallel.mesh").set_active_mesh
+        seg0 = storage.TimeRange(cs.T0, cs.T0 + cs.SEGMENT_MS)
+        pred, table, env = None, "tsbs", {}
+        if route == "auto_metric_eq":
+            pred = F.Compare("metric_id", "eq", cs.METRIC_ID)
+        elif route == "device_inset_1000":
+            pred = F.And(F.InSet("tsid", tuple(int(v) for v in inset_ids)),
+                         F.time_range_pred("ts", cs.T0 + 600_000, cs.T0 + cs.SEGMENT_MS - 600_000))
+            env = {"HORAEDB_SCAN_PATH": "device"}
+        else:  # 3l's sharded scan of the dense table on 8 slots
+            table, env = "dense", {"HORAEDB_SCAN_PATH": "sharded"}
+        self.mod("").reset_launch_counts()
+        set_active_mesh(self.mesh8 if route == "sharded" else None)
+        self.events.clear()
+        allocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
+        try:
+            with cs.EnvPin(**env):
+                torch.cuda.synchronize()
+                got, secs = await cs.timed_scan(self.tables[table],
+                                                storage.ScanRequest(seg0, predicate=pred))
+        finally:
+            set_active_mesh(None)
+        allocs = torch.cuda.memory_stats().get("num_device_alloc", 0) - allocs
+        torch.cuda.synchronize()
+        self.merge_ms = sum(a.elapsed_time(b) for a, b in self.events)
+        self.events.clear()
+        return got, secs, sorted(k for k, v in self.mod("").launch_counts().items() if v), allocs
+
+    async def close(self) -> None:
+        use_tree(self.mods)
+        for st in self.tables.values():
+            await st.close()
+
+
+SCAN_ROUTES = {"auto_metric_eq": "index_merge_mask", "device_inset_1000": "index_merge_filter",
+               "sharded": "sample_sort_merge"}
+
+
+async def scan_pair_times(torch, cs, rng, dev, rounds: int, roots: list[tuple[str, str]],
+                          seed: int, warm_turn: bool) -> dict:
+    """The raw scans that launch rows 19, 20 and 14 on each (tag, checkout)
+    of `roots`, in one process: the trees take turns every round (the first
+    going first in even rounds), after a warm-up round in which every route
+    must launch its kernel and give the first tree's table lane for lane.
+    With `warm_turn`, an untimed scan opens each turn, so that no timed scan
+    follows the other tree's."""
+    data = cs.make_data(rng)
+    inset_ids = data[0][np.sort(rng.choice(cs.NUM_SERIES, cs.SUBSET, replace=False))]
+    trees = {tag: ScanTree(root) for tag, root in roots}
+    out = {tag: {"package": tree.package, **{r: [] for r in SCAN_ROUTES},
+                 **{f"{r}_device_allocs": [] for r in ("opening", *SCAN_ROUTES)},
+                 **{f"{r}_merge_ms": [] for r in SCAN_ROUTES if r != "sharded"}}
+           for tag, tree in trees.items()}
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="chip_ab_") as workdir:
+        try:
+            for tag, tree in trees.items():
+                await tree.open(torch, cs, dev, f"{workdir}/{tag}", data, seed)
+            for r in range(rounds + 1):
+                first = {}
+                for tag in list(trees) if r % 2 == 0 else list(trees)[::-1]:
+                    if warm_turn:
+                        *_, allocs = await trees[tag].scan(torch, cs, "auto_metric_eq", inset_ids)
+                        if r:
+                            out[tag]["opening_device_allocs"].append(allocs)
+                    for route, kernel in SCAN_ROUTES.items():
+                        got, secs, launched, allocs = await trees[tag].scan(torch, cs, route,
+                                                                            inset_ids)
+                        cs.require(kernel in launched, f"{tag} {route}: launched {launched}")
+                        if r == 0:
+                            lanes = cs.table_lanes(got)
+                            cs.require(route not in first or cs.lanes_equal(lanes, first[route]),
+                                       f"{tag} {route}: differs from the other tree's scan")
+                            first[route] = lanes
+                            rows[route] = int(got.num_rows)
+                        else:
+                            out[tag][route].append(secs)
+                            out[tag][f"{route}_device_allocs"].append(allocs)
+                            if route != "sharded":
+                                out[tag][f"{route}_merge_ms"].append(trees[tag].merge_ms)
+        finally:
+            for tree in trees.values():
+                await tree.close()
+    for o in out.values():
+        for route in SCAN_ROUTES:
+            o[f"{route}_median_s"] = float(np.median(o[route]))
+    return {"rows": rows, "trees": out}
+
+
 class NeverHit(dict):
     """An id cache that never hits and keeps nothing."""
 
@@ -410,9 +862,14 @@ async def id_cache_times(torch, cs, rng, dev) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
-    ap.add_argument("mode", choices=("reduce", "reduce-split", "id-cache", "solo-fold", "launch"))
+    ap.add_argument("mode", choices=("reduce", "reduce-split", "id-cache", "solo-fold", "launch",
+                                     "merge", "burst", "burst-pair", "scan-pair"))
     ap.add_argument("--root", default=None, help="import horaedb_tpu_torch from this checkout")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-warm-turn", action="store_true",
+                    help="scan-pair: no untimed scan opening each tree's turn")
+    ap.add_argument("--rounds", type=int, default=5,
+                    help="burst, burst-pair, scan-pair: timed rounds after a warm-up")
     args = ap.parse_args()
     cs = load_smoke()
     if args.root is not None:
@@ -438,9 +895,25 @@ def main() -> int:
         out = solo_fold_times(torch, cs, rng, dev)
     elif args.mode == "launch":
         out = launch_times(torch, cs, rng, dev)
+    elif args.mode == "merge":
+        out = merge_times(torch, cs, rng, dev)
+    elif args.mode == "burst":
+        res = asyncio.run(burst_times(torch, cs, rng, dev, args.rounds,
+                                      [("tree", args.root or HERE)]))
+        out = {"panels": res["panels"], "hosts": res["hosts"], **res["trees"]["tree"]}
+    elif args.mode == "scan-pair":
+        cs.require(args.root is not None, "scan-pair: --root names the other checkout")
+        out = asyncio.run(scan_pair_times(torch, cs, rng, dev, args.rounds,
+                                          [("change", HERE), ("parent", args.root)], args.seed,
+                                          not args.no_warm_turn))
+    elif args.mode == "burst-pair":
+        cs.require(args.root is not None, "burst-pair: --root names the other checkout")
+        out = asyncio.run(burst_times(torch, cs, rng, dev, args.rounds,
+                                      [("change", HERE), ("parent", args.root)]))
     else:
         out = asyncio.run(id_cache_times(torch, cs, rng, dev))
-    out.update(mode=args.mode, package=os.path.dirname(horaedb_tpu_torch.__file__), card=card)
+    out.setdefault("package", os.path.dirname(horaedb_tpu_torch.__file__))
+    out.update(mode=args.mode, card=card)
     print(json.dumps(out), flush=True)
     return 0
 

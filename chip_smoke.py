@@ -13,8 +13,10 @@ Phases, each of which exits non-zero on failure:
    of a segment scan: packed_merge (D), the predicate kernel (E) and
    index_merge_mask / index_merge_filter (F) - edge cases n = 0 and 1,
    all rejected, one group, keys >= 2^63, NaN and -0.0 lanes, InSet of 0,
-   1, 128, 129 and 65,536 members, presorted and shuffled rows, and one
-   segment of about 7.56M rows; and the fused route's scan_kernel,
+   1, 128, 129 and 65,536 members, presorted and shuffled rows, 4,095,
+   4,096 and 4,097 kept rows (the look-back sort's tile), a tsid lane over
+   all 64 bits, and one segment of about 7.56M rows, whose records name
+   the packed sort keys, their digits and the sort path; and the fused route's scan_kernel,
    downsample and grouped_stats on edge cases (f64, int64 and uint64
    values, NaN and -0.0, ids out of range, masked rows, empty cells, rows
    before t0, presorted and shuffled rows, dedup on and off, no predicate,
@@ -112,7 +114,9 @@ Phases, each of which exits non-zero on failure:
       a window of twice its matchers' measured resolution time, which
       must make one launch that every query rode (the matchers resolve in
       worker threads, so their arrivals spread past 2 ms); a lone query
-      must take the solo route; burst A runs again under torch.profiler;
+      must take the solo route; burst A runs again under torch.profiler,
+      its device time split by kernel (`device_by_kernel`: the look-back
+      sort's key passes and sweeps inside index_merge_filter apart);
    j. PromQL on 3i's engine before it closes, from a fresh calibration
       file of the aggregation dispatcher (so the first pushdown calibrates
       on the card, lane_sum_count included): `evaluate_range` of
@@ -165,7 +169,7 @@ Phases, each of which exits non-zero on failure:
    payloads, +-0.0, subnormals and infinities, k = 1, 5 and 9, odd and
    even cell counts;
    sample_sort_merge on random, all-sentinel, one-group and skewed keys
-   (and against packed_merge); sharded_downsample on prime series counts,
+   and on 42- and 63-bit keys (and against packed_merge); sharded_downsample on prime series counts,
    sorted and unsorted, with a predicate; multisegment_downsample.
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
@@ -517,12 +521,12 @@ def same_survivors(torch, got, want) -> bool:
 
 def merge_edge_cases(rng):
     """(name, sort-key lanes, mask, presorted) for kernels D and F."""
-    def lanes(n, pk_lo=0, pk_hi=50):
+    def lanes(n, pk_lo=0, pk_hi=50, g=rng):
         return {"metric_id": np.ones(n, np.uint64),
-                "tsid": rng.integers(2**63, 2**63 + pk_hi - pk_lo, n, dtype=np.uint64),
+                "tsid": g.integers(2**63, 2**63 + pk_hi - pk_lo, n, dtype=np.uint64),
                 "field_id": np.zeros(n, np.uint64),
-                "ts": T0 + rng.integers(0, 40, n).astype(np.int64),
-                "__seq__": rng.integers(10**18, 10**18 + 5, n).astype(np.uint64)}
+                "ts": T0 + g.integers(0, 40, n).astype(np.int64),
+                "__seq__": g.integers(10**18, 10**18 + 5, n).astype(np.uint64)}
 
     def sort(c):
         order = np.lexsort(tuple(c[k] for k in reversed(SORT_KEYS)))
@@ -539,6 +543,19 @@ def merge_edge_cases(rng):
     c = lanes(70_001, 0, 4000)
     yield "shuffled, keys >= 2^63", c, rng.random(70_001) < 0.7, False
     yield "presorted", sort(c), rng.random(70_001) < 0.7, True
+    # kept counts around the look-back sort's 4,096-row tile, and a tsid
+    # lane over all 64 bits (a key of 8 digits); their own draws, so the
+    # later phases' data stays as it was
+    g = np.random.default_rng(10)
+    for kept in (4095, 4096, 4097):
+        c = lanes(20_011, 0, 4000, g)
+        mask = np.zeros(20_011, bool)
+        mask[g.choice(20_011, kept, replace=False)] = True
+        yield f"kept {kept} of 20,011", c, mask, False
+    c = lanes(70_001, 0, 4000, g)
+    c["tsid"] = g.choice(g.integers(0, 2**64 - 1, 3000, dtype=np.uint64, endpoint=True), 70_001)
+    c["tsid"][:2] = [0, 2**64 - 1]
+    yield "tsid over all 64 bits", c, g.random(70_001) < 0.7, False
 
 
 def predicate_edge_cases(F):
@@ -647,12 +664,20 @@ def check_merge_kernels(torch, rng, dev, data) -> list[dict]:
     })
     # F with a host mask: metric_id eq keeps every row of this data
     keys, bounds, num_pk, key_names = sort_key_lanes(seg.__getitem__, SORT_KEYS, dev)
+    packed_keys = [{"lanes": [key_names[i] for i in lanes], "shifts": list(shifts),
+                    "digits": digits} for lanes, shifts, digits in merge.pack_lanes(bounds)]
+    sort_path = (f"mask partition, then the look-back LSD (onesweep.cuh, u64 keys, int32 rows) "
+                 f"over {len(packed_keys)} packed keys: "
+                 f"{sum(k['digits'] for k in packed_keys)} sweeps, {len(packed_keys)} key passes")
     mask_t = torch.from_numpy((seg["metric_id"] == METRIC_ID).astype(np.uint8)).to(dev)
     got = merge.index_merge_mask(keys, bounds, num_pk, mask_t, True, False)
     want = merge.index_merge_plain(keys, num_pk, mask_t, True, False)
     require(same_survivors(torch, got, want), "index_merge_mask != plain at the main path shape")
     k = int(got[1].item())
-    nb, kind = bound(n * (8 * len(keys) + 1) + k * 4, 0)
+    # the mask read for every row, the key lanes only for the rows it keeps
+    # (here every row), 4 B per survivor written
+    kept = int(mask_t.sum().item())
+    nb, kind = bound(n + kept * sum(t.element_size() for t in keys) + k * 4, 0)
     records.append({
         "name": "index_merge_mask", "route": "cuda",
         "source": "horaedb_tpu_torch/ops/csrc/index_merge.cu",
@@ -665,6 +690,7 @@ def check_merge_kernels(torch, rng, dev, data) -> list[dict]:
                                                                    False), iters=5),
         "bound_ms": nb, "bound_by": kind, "library_ms": None,
         "one_key_sort_ms": cuda_ms(torch, lambda: torch.sort(keys[0], stable=True)),
+        "packed_keys": packed_keys, "sort_path": sort_path,
     })
     # E + F: InSet of 1,000 tsids and a ts range, evaluated on the device
     subset = np.sort(rng.choice(data[0], SUBSET, replace=False))
@@ -681,19 +707,24 @@ def check_merge_kernels(torch, rng, dev, data) -> list[dict]:
     require(torch.equal(F.eval_predicate(pred, plane, {c: a.dtype for c, a in pcols.items()}),
                         plain_mask), "predicate kernel != plain at the main path shape")
     k = int(got[1].item())
-    # each distinct lane read once (the predicate's tsid and ts are key
-    # lanes), the program and its literals, 4 B per survivor written
+    # the predicate's lanes read once for every row (tsid and ts are key
+    # lanes), the other key lanes (the seq rank) only for the rows the mask
+    # keeps, the program and its literals, 4 B per survivor written
+    pred_keys = [key for key in keys if any(t is key for t in plane.values())]
+    sort_only = [key for key in keys if not any(key is t for t in pred_keys)]
     own_lanes = [t for t in plane.values() if not any(t is key for key in keys)]
     literal_bytes = sum(a.nbytes for a in (prog.code, prog.lit_i64, prog.lit_f64, prog.set_i64,
                                            prog.set_f64))
-    nb, kind = bound(n * 8 * len(keys) + sum(t.numel() * t.element_size() for t in own_lanes)
+    kept = int(plain_mask.sum().item())
+    nb, kind = bound(n * sum(t.element_size() for t in pred_keys + own_lanes)
+                     + kept * sum(t.element_size() for t in sort_only)
                      + literal_bytes + k * 4, 0)
     records.append({
         "name": "index_merge_filter", "route": "cuda",
         "source": "horaedb_tpu_torch/ops/csrc/index_merge.cu + predicate.cu",
         "replaces": "horaedb_tpu/storage/read.py:586",
         "shape": f"{n} rows x {len(keys)} key lanes, the predicate reading tsid and ts from "
-                 f"them, InSet of {SUBSET} + ts range, {k} survivors",
+                 f"them, InSet of {SUBSET} + ts range, {kept} rows kept, {k} survivors",
         "max_abs_err": 0.0,
         "ms": cuda_ms(torch, lambda: merge.index_merge_filter(keys, bounds, num_pk, prog, plane,
                                                               n, True, False, dev)),
@@ -704,6 +735,8 @@ def check_merge_kernels(torch, rng, dev, data) -> list[dict]:
             prog, plane, n, torch.empty(n, dtype=torch.uint8, device=dev))),
         "predicate_plain_ms": cuda_ms(torch, lambda: F.eval_program_plain(prog, plane, n),
                                       iters=5),
+        "one_key_sort_ms": cuda_ms(torch, lambda: torch.sort(keys[0], stable=True)),
+        "packed_keys": packed_keys, "sort_path": sort_path,
     })
     return records
 
@@ -2941,8 +2974,27 @@ def device_summary(prof, wall: float) -> dict:
     d2h = sum(e.self_device_time_total for e in ev if "DtoH" in e.key) / 1e6
     top = sorted(((e.key[:60], e.self_device_time_total / 1e6) for e in ev),
                  key=lambda kv: -kv[1])[:8]
+    by_kernel = {}
+    for e in ev:
+        name = kernel_name(e.key)
+        by_kernel[name] = by_kernel.get(name, 0.0) + e.self_device_time_total / 1e6
     return {"wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
-            "h2d_s": h2d, "d2h_s": d2h, "kernels_s": busy - h2d - d2h, "device_top": top}
+            "h2d_s": h2d, "d2h_s": d2h, "kernels_s": busy - h2d - d2h, "device_top": top,
+            "device_by_kernel": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1]))}
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key without its return type and parameter list:
+    `onesweep::sweep_kernel<unsigned long, int>` for the look-back sweep."""
+    name = key.strip()
+    if name.endswith(")") and not name.startswith("Memcpy"):
+        depth = 0
+        for i in range(len(name) - 1, -1, -1):  # the '(' that opens the last group
+            depth += {")": 1, "(": -1}.get(name[i], 0)
+            if depth == 0:
+                name = name[:i].strip()
+                break
+    return name[5:] if name.startswith("void ") else name
 
 
 async def profiled_query(torch, storage, ids, window, bucket_ms, pred):
@@ -3124,26 +3176,33 @@ def check_mesh_kernels(torch, rng, dev) -> None:
             "device_fold_safe is False on the card")
 
     mesh8, cpu8 = card_mesh(torch, dev, MERGE_SLOTS), card_mesh(torch, cpu, MERGE_SLOTS)
-    for case in ("random", "sentinel", "single", "skew"):
+    # 42- and 63-bit keys (6 and 8 digit sweeps a step) draw from their own
+    # generator, so the later phases' data stays as it was
+    wide = np.random.default_rng(11)
+    for case, key_bits in (("random", None), ("sentinel", None), ("single", None),
+                           ("skew", None), ("random", 42), ("random", 63)):
         n, width = 300_007, 8
-        grp = rng.integers(0, 20_000, n).astype(np.uint64)
+        g = rng if key_bits is None else wide
+        grp = g.integers(0, 20_000 if key_bits is None else 2**(key_bits - width),
+                         n).astype(np.uint64)
         if case == "single":
             grp[:] = 77
         elif case == "skew":
             grp[: n * 9 // 10] = 5
-        packed = (grp << np.uint64(width)) | rng.integers(0, 1 << width, n).astype(np.uint64)
-        packed[rng.random(n) < 0.15] = pmerge._SENTINEL
+        packed = (grp << np.uint64(width)) | g.integers(0, 1 << width, n).astype(np.uint64)
+        packed[g.random(n) < 0.15] = pmerge._SENTINEL
         if case == "sentinel":
             packed[:] = pmerge._SENTINEL
+        what = case if key_bits is None else f"{case}, {key_bits}-bit keys"
         for dedup in (True, False):
-            got = pmerge.sharded_packed_merge(packed, width, dedup, mesh8)
+            got = pmerge.sharded_packed_merge(packed, width, dedup, mesh8, key_bits=key_bits)
             idx, cnt = merge.packed_merge(torch.from_numpy(u64_to_i64(packed)).to(dev), 63,
                                           width, dedup)
             require(np.array_equal(got, idx[: int(cnt.item())].cpu().numpy().astype(np.int64)),
-                    f"sample_sort_merge != packed_merge ({case}, dedup={dedup})")
+                    f"sample_sort_merge != packed_merge ({what}, dedup={dedup})")
             require(np.array_equal(got, pmerge.sharded_packed_merge_plain(packed, width, dedup,
                                                                           cpu8)),
-                    f"sample_sort_merge != plain ({case}, dedup={dedup})")
+                    f"sample_sort_merge != plain ({what}, dedup={dedup})")
 
     mesh4, cpu4 = card_mesh(torch, dev, MESH_SLOTS), card_mesh(torch, cpu, MESH_SLOTS)
     for num_series, sorted_rows, pred in ((7, True, None), (13, False, None),
@@ -3416,7 +3475,11 @@ def mesh_records(torch, dev, caps: dict, fold_cap) -> list[dict]:
         "ms": cuda_ms(torch, plan.run, iters=5, warmup=1),
         "plain_ms": cuda_ms(torch, lambda: plan.run(plain=True), iters=3, warmup=1),
         "bound_ms": nb, "bound_by": kind, "library_ms": None,
-        "one_key_sort_ms": cuda_ms(torch, lambda: torch.sort(key, stable=True), iters=5)})
+        "one_key_sort_ms": cuda_ms(torch, lambda: torch.sort(key, stable=True), iters=5),
+        "packed_keys": [{"lanes": ["packed"], "digits": -(-m["key_bits"] // 8)}],
+        "sort_path": f"valid-row partition, then {-(-m['key_bits'] // 8)} look-back sweeps "
+                     f"(onesweep.cuh, u64 keys, int32 rows) in each of {2 * plan.d_slots} "
+                     f"slot steps"})
     del plan, key
 
     # grid_fold: one slot's launch of 3l's scatter-gather fold

@@ -63,8 +63,9 @@ SOURCES = {
     "block_sum_count": ("block_sum_count.cu", "segreduce.cuh"),
     "block_min_max": ("block_min_max.cu", "segreduce.cuh"),
     "packed_merge": ("packed_merge.cu", "compact.cuh", "radix.cuh"),
-    "index_merge_mask": ("index_merge.cu", "compact.cuh", "radix.cuh"),
-    "index_merge_filter": ("index_merge.cu", "predicate.cu", "compact.cuh", "radix.cuh"),
+    "index_merge_mask": ("index_merge.cu", "compact.cuh", "radix.cuh", "onesweep.cuh"),
+    "index_merge_filter": ("index_merge.cu", "predicate.cu", "compact.cuh", "radix.cuh",
+                           "onesweep.cuh"),
     "scan_kernel": ("scan.cu", "predicate.cu", "compact.cuh", "radix.cuh"),
     "grouped_stats": ("grouped_stats.cu", "onesweep.cuh", "segreduce.cuh"),
     "decode_unpack": ("decode_unpack.cu", "bitunpack.cuh"),
@@ -74,7 +75,7 @@ SOURCES = {
     "stacked_downsample": ("stacked_downsample.cu",),
     "lane_sum_count": ("lane_sum_count.cu",),
     "segment_last_value": ("segment_last_value.cu",),
-    "sample_sort_merge": ("sample_sort_merge.cu", "compact.cuh", "radix.cuh"),
+    "sample_sort_merge": ("sample_sort_merge.cu", "compact.cuh", "radix.cuh", "onesweep.cuh"),
     "grid_fold": ("grid_fold.cu",),
     "sharded_downsample": ("sharded_downsample.cu", "predicate.cu"),
 }

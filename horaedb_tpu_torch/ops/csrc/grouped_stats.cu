@@ -23,9 +23,10 @@
 // value (8 B) and the mask (1 B) once per row (downsample: ts 8 B and sid
 // 4 B in place of the id) and writes 40 B per segment.
 // Design: no atomics on a float, so a grid is bitwise repeatable.
-//   1. onesweep.cuh sorts the rows by cell, stably, carrying each value:
+//   1. onesweep.cuh sorts the rows by cell, stably, carrying each value
+//      (its u32-key, u64-payload instantiation, digits from num_segments):
 //      its key pass computes each row's key (the cell, or num_segments for
-//      a dropped row) as u32; rows whose kept cells are already in order
+//      a dropped row, the sentinel) as u32; rows whose kept cells are already in order
 //      (the fused scan's output is) take one stable partition instead of
 //      the digit passes, with the same result;
 //   2. the segmented reduction of segreduce.cuh over the sorted keys and
@@ -135,6 +136,12 @@ struct CellKey {
     }
 };
 
+// u32 cell keys (at most 4 digits: num_segments < 2^32) carrying the 8 B
+// values; with p null, only the layout (and its bytes)
+onesweep::Scratch<uint32_t, uint64_t> carve(void* p, int64_t n, int64_t* bytes = nullptr) {
+    return onesweep::carve<uint32_t, uint64_t>(p, n, 4, 2, bytes);
+}
+
 template <int KIND, class T>
 __global__ void mean_kernel(const T* __restrict__ sum, const T* __restrict__ count,
                             double* __restrict__ mean, int64_t m) {
@@ -149,8 +156,10 @@ int run(const Src& src, const void* values, int64_t n, int64_t num_segments, voi
     const T* sorted = nullptr;
     const uint32_t* keys = nullptr;
     if (n > 0 && num_segments > 0) {
-        const onesweep::Sorted o = onesweep::sort(src, static_cast<const uint64_t*>(values), n,
-                                                  (uint32_t)num_segments, scratch, s);
+        const onesweep::Rows<uint32_t> rows{n, nullptr, true, (uint32_t)num_segments};
+        const auto o = onesweep::sort(src, static_cast<const uint64_t*>(values), rows,
+                                      onesweep::digits_for((uint64_t)num_segments),
+                                      carve(scratch, n), s);
         keys = o.keys;
         sorted = reinterpret_cast<const T*>(o.vals);
     }
@@ -185,10 +194,16 @@ int run_kind(int32_t kind, const Src& src, const void* values, int64_t n, int64_
 
 }  // namespace
 
-extern "C" int64_t grouped_stats_scratch_bytes(int64_t n) { return onesweep::scratch_bytes(n); }
+extern "C" int64_t grouped_stats_scratch_bytes(int64_t n) {
+    int64_t bytes = 0;
+    carve(nullptr, n, &bytes);
+    return bytes;
+}
 
 // where a launch over n rows leaves its presorted flag in the scratch
-extern "C" int64_t grouped_stats_flag_offset(int64_t n) { return onesweep::flag_offset(n); }
+extern "C" int64_t grouped_stats_flag_offset(int64_t n) {
+    return (int64_t)reinterpret_cast<uintptr_t>(carve(nullptr, n).flag);
+}
 
 // values: n values of `kind` (0 f64, 1 int64, 2 uint64 bits in int64);
 // index: int32[n] (index_is_64 = 0) or int64[n] segment ids; valid:

@@ -1,7 +1,8 @@
 // Stable LSD radix sort of (u64 key, int32 row) pairs over up to k integer
 // keys: the shared body of sort_perm.cu (kernel A), packed_merge.cu
-// (kernel D), index_merge.cu (kernel F), scan.cu (scan_kernel) and
-// grouped_stats.cu.
+// (kernel D) and scan.cu (scan_kernel); compact.cuh takes its tile helpers
+// and its scan. (grouped_stats.cu, index_merge.cu and sample_sort_merge.cu
+// sort through onesweep.cuh.)
 //
 // Keys arrive as int64 whose signed order is the desired order (u64 lanes
 // are mapped by flipping bit 63 on the host); (key - lo) taken as u64 is

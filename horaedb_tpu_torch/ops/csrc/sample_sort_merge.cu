@@ -13,19 +13,24 @@
 //
 // Keys arrive mapped to int64 (bit 63 flipped, backend.u64_to_i64), as
 // kernel D takes them: the sentinel (all ones) reads INT64_MAX, and
-// mapped - INT64_MIN is the raw key, so the radix digits, the group shift
-// and the splitter compares all run on raw u64 bits, as the JAX package's
-// do. The host computes the splitters (raw group ids) and the exact
+// mapped ^ 2^63 is the raw key, so the digits, the group shift and the
+// splitter compares all run on raw u64 bits, as the JAX package's do. The
+// host computes the splitters (raw group ids) and the exact
 // per-(slot, bucket) counts, so `cap` never overflows.
 //
 //   ssm_local_launch (per slot, before the exchange):
-//     1. stable partition of the valid rows (key != sentinel) to the
-//        front (compact.cuh): a sentinel row never leaves its slot, since
-//        the merge drops it anyway, and never costs a digit pass;
-//     2. the LSD radix passes of radix.cuh over the valid rows, digits
-//        from the packed width. The shard's rows are in global row order,
-//        so a stable sort by key alone leaves equal keys in row-id order:
-//        the two-key order (key, row id);
+//     1. stable partition of the valid rows (key != sentinel) to the front
+//        (compact.cuh), the valid count on the device: a sentinel row
+//        never leaves its slot, since the merge drops it anyway, and never
+//        costs a digit pass (sorted, the all-ones key would force 8);
+//     2. onesweep.cuh's u64-key, int32-payload sort of the valid rows:
+//        its key pass gathers each valid row's raw key through the
+//        partition, the digits come from key_bits (a 42-bit key takes 6
+//        look-back sweeps), the row carried as the payload; every pass
+//        reads the valid count on the device and skips the tiles past it.
+//        The shard's rows are in global row order, so a stable sort by key
+//        alone leaves equal keys in row-id order: the two-key order
+//        (key, row id);
 //     3. start of each bucket by binary search over the sorted groups (a
 //        bucket's rows are one contiguous range of them), then every row
 //        finds its bucket by binary search over the splitters (numpy's
@@ -38,15 +43,15 @@
 //   sorted runs, run d from slot d, whose row ids all lie below run
 //   d + 1's; so in received order equal keys are already in row-id order,
 //   and one stable sort by key gives (key, row id). Partition the valid
-//   rows, radix-sort them, and compact the last row of each group (next
-//   of the last valid row = the sentinel group) writing its row id.
+//   rows, sort them as above, and compact the last row of each group
+//   (next of the last valid row = the sentinel group) writing its row id.
 //
 // Bound on an H100: memory. Each step reads each key once (8 B/row) and
-// the merge writes 4 B per survivor; the radix passes move the keys a few
-// times more. Both steps carry radix.cuh's single-block digit scan
-// (ROADMAP R1). No host synchronisation inside a step: the valid-row
+// the merge writes 4 B per survivor; the sweeps move 12 B a valid row each
+// way per digit. No host synchronisation inside a step: the valid-row
 // count stays on the device.
 #include "compact.cuh"
+#include "onesweep.cuh"
 
 namespace {
 
@@ -54,6 +59,15 @@ struct NotSentinel {
     const int64_t* key;
     __device__ bool flag(int64_t i) const { return key[i] != INT64_MAX; }
     __device__ int32_t value(int64_t i) const { return (int32_t)i; }
+};
+
+// the raw key of valid row perm[i] (mapped ^ 2^63)
+struct RawKey {
+    const int64_t* mapped;
+    const int32_t* perm;
+    __device__ uint64_t key(int64_t i) const {
+        return (uint64_t)mapped[perm[i]] ^ 0x8000000000000000ULL;
+    }
 };
 
 // sorted position i ends its group: the last valid row, or the next row's
@@ -130,64 +144,57 @@ __global__ void scatter_kernel(const uint64_t* __restrict__ u, const int32_t* __
 }
 
 struct Scratch {
-    int32_t* perm;
-    int32_t* perm_tmp;
-    uint64_t* ua;
-    uint64_t* ub;
-    int32_t* hist;
+    onesweep::Scratch<uint64_t, int32_t> sort;
     int32_t* tiles;
     int32_t* nv;
     int32_t* start;
 };
 
-int64_t scratch_size(int64_t n, int64_t d_slots) {
-    using compact::Arena;
-    const int64_t m = n > 0 ? n : 1;
-    return 2 * Arena::size_of(4 * m) + 2 * Arena::size_of(8 * m) +
-           Arena::size_of(radix::hist_bytes(n)) + Arena::size_of(compact::scratch_bytes(n)) +
-           Arena::size_of(4) + Arena::size_of(4 * (d_slots + 1));
-}
+int digits_of(int32_t key_bits) { return (key_bits + 7) / 8; }
 
-Scratch carve(void* p, int64_t n, int64_t d_slots) {
-    compact::Arena a{static_cast<char*>(p)};
-    const int64_t m = n > 0 ? n : 1;
+// with p null, only the layout (and its bytes)
+Scratch carve(void* p, int64_t n, int32_t key_bits, int64_t d_slots, int64_t* bytes = nullptr) {
+    onesweep::Carver c{reinterpret_cast<uintptr_t>(p)};
     Scratch s;
-    s.perm = a.take<int32_t>(m);
-    s.perm_tmp = a.take<int32_t>(m);
-    s.ua = a.take<uint64_t>(m);
-    s.ub = a.take<uint64_t>(m);
-    s.hist = a.take<int32_t>(radix::hist_bytes(n) / 4);
-    s.tiles = a.take<int32_t>(compact::scratch_bytes(n) / 4);
-    s.nv = a.take<int32_t>(1);
-    s.start = a.take<int32_t>(d_slots + 1);
+    s.sort = onesweep::carve<uint64_t, int32_t>(p, n, digits_of(key_bits), 3, &c.used);
+    s.tiles = c.take<int32_t>(compact::scratch_bytes(n) / 4);
+    s.nv = c.take<int32_t>(1);
+    s.start = c.take<int32_t>(d_slots + 1);
+    if (bytes) *bytes = c.used;
     return s;
 }
 
-// partition the valid rows of key[0, n) and radix-sort them by raw key
-radix::Sorted sort_valid(const void* key, int64_t n, int32_t key_bits, const Scratch& sc,
-                         cudaStream_t s) {
+int64_t scratch_size(int64_t n, int32_t key_bits, int64_t d_slots) {
+    int64_t bytes = 0;
+    carve(nullptr, n, key_bits < 1 ? 1 : key_bits > 63 ? 63 : key_bits, d_slots, &bytes);
+    return bytes;
+}
+
+// partition the valid rows of key[0, n) and sort them by raw key
+onesweep::Sorted<uint64_t, int32_t> sort_valid(const void* key, int64_t n, int32_t key_bits,
+                                               const Scratch& sc, cudaStream_t s) {
     const int64_t* k = static_cast<const int64_t*>(key);
-    compact::run(NotSentinel{k}, n, nullptr, sc.tiles, sc.perm, sc.nv, s);
-    const void* keys[1] = {key};
-    const int64_t lo[1] = {INT64_MIN};  // mapped - INT64_MIN = the raw packed key
-    const int32_t digits[1] = {(key_bits + 7) / 8};
-    return radix::sort(keys, lo, digits, 1, n, sc.nv, sc.perm, sc.perm_tmp, sc.ua, sc.ub,
-                       sc.hist, s);
+    int32_t* part = sc.sort.v[2];
+    compact::run(NotSentinel{k}, n, nullptr, sc.tiles, part, sc.nv, s);
+    const onesweep::Rows<uint64_t> rows{n, sc.nv, false, 0};
+    return onesweep::sort(RawKey{k, part}, part, rows, digits_of(key_bits), sc.sort, s);
 }
 
 }  // namespace
 
-extern "C" int64_t ssm_local_scratch_bytes(int64_t n, int64_t d_slots) {
-    return scratch_size(n, d_slots);
+extern "C" int64_t ssm_local_scratch_bytes(int64_t n, int32_t key_bits, int64_t d_slots) {
+    return scratch_size(n, key_bits, d_slots);
 }
 
-extern "C" int64_t ssm_merge_scratch_bytes(int64_t m) { return scratch_size(m, 1); }
+extern "C" int64_t ssm_merge_scratch_bytes(int64_t m, int32_t key_bits) {
+    return scratch_size(m, key_bits, 1);
+}
 
 // key: int64[n] mapped packed keys of this slot's shard (INT64_MAX =
 // rejected or padding), in global row order from row id row_base;
 // splitters: d_slots - 1 raw u64 group ids, ascending, on the device;
 // send_k: int64[d_slots * cap], send_i: int32[d_slots * cap] out;
-// scratch: ssm_local_scratch_bytes(n, d_slots) bytes.
+// scratch: ssm_local_scratch_bytes(n, key_bits, d_slots) bytes.
 extern "C" int ssm_local_launch(const void* key, int64_t n, int32_t key_bits, int32_t seq_width,
                                 const void* splitters, int32_t d_slots, int64_t cap,
                                 int32_t row_base, void* send_k, void* send_i, void* scratch,
@@ -197,23 +204,23 @@ extern "C" int ssm_local_launch(const void* key, int64_t n, int32_t key_bits, in
         d_slots > 1023 || cap < 0) {
         return (int)cudaErrorInvalidValue;
     }
-    Scratch sc = carve(scratch, n, d_slots);
+    const Scratch sc = carve(scratch, n, key_bits, d_slots);
     int64_t* sk = static_cast<int64_t*>(send_k);
     int32_t* si = static_cast<int32_t*>(send_i);
     const int64_t m = (int64_t)d_slots * cap;
     if (m > 0) fill_kernel<<<radix::blocks_for(m, 256), 256, 0, s>>>(sk, si, m);
     if (n == 0) return (int)cudaGetLastError();
-    const radix::Sorted r = sort_valid(key, n, key_bits, sc, s);
+    const auto r = sort_valid(key, n, key_bits, sc, s);
     const uint64_t* sp = static_cast<const uint64_t*>(splitters);
-    starts_kernel<<<1, d_slots + 1, 0, s>>>(r.u, sc.nv, seq_width, sp, d_slots, sc.start);
+    starts_kernel<<<1, d_slots + 1, 0, s>>>(r.keys, sc.nv, seq_width, sp, d_slots, sc.start);
     scatter_kernel<<<radix::blocks_for(n, 256), 256, 0, s>>>(
-        r.u, r.perm, sc.nv, seq_width, sp, d_slots, sc.start, cap, row_base, n, sk, si);
+        r.keys, r.vals, sc.nv, seq_width, sp, d_slots, sc.start, cap, row_base, n, sk, si);
     return (int)cudaGetLastError();
 }
 
 // recv_k: int64[m] received mapped keys, recv_i: int32[m] their row ids;
 // out: int32[m], of which the first *count hold the survivors' row ids in
-// key order; count: int32[1]; scratch: ssm_merge_scratch_bytes(m) bytes.
+// key order; count: int32[1]; scratch: ssm_merge_scratch_bytes(m, key_bits) bytes.
 extern "C" int ssm_merge_launch(const void* recv_k, const void* recv_i, int64_t m,
                                 int32_t key_bits, int32_t seq_width, int32_t do_dedup, void* out,
                                 void* count, void* scratch, void* stream) {
@@ -221,16 +228,16 @@ extern "C" int ssm_merge_launch(const void* recv_k, const void* recv_i, int64_t 
     if (key_bits < 1 || key_bits > 63 || seq_width < 0 || seq_width > 63) {
         return (int)cudaErrorInvalidValue;
     }
-    Scratch sc = carve(scratch, m, 1);
+    const Scratch sc = carve(scratch, m, key_bits, 1);
     int32_t* o = static_cast<int32_t*>(out);
     int32_t* cnt = static_cast<int32_t*>(count);
     const int32_t* ids = static_cast<const int32_t*>(recv_i);
-    const radix::Sorted r = sort_valid(recv_k, m, key_bits, sc, s);
+    const auto r = sort_valid(recv_k, m, key_bits, sc, s);
     if (do_dedup) {
-        compact::run(KeepLastRowId{r.u, r.perm, ids, sc.nv, seq_width}, m, sc.nv, sc.tiles, o,
+        compact::run(KeepLastRowId{r.keys, r.vals, ids, sc.nv, seq_width}, m, sc.nv, sc.tiles, o,
                      cnt, s);
     } else {
-        compact::run(AllRowIds{r.perm, ids}, m, sc.nv, sc.tiles, o, cnt, s);
+        compact::run(AllRowIds{r.vals, ids}, m, sc.nv, sc.tiles, o, cnt, s);
     }
     return (int)cudaGetLastError();
 }

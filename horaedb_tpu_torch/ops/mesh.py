@@ -198,7 +198,7 @@ def ssm_local_plain(key: torch.Tensor, key_bits: int, seq_width: int, splitters:
     """Plain version of the local step: the valid rows sorted by key (stable,
     so equal keys stay in row order), bucketed by the splitters, written
     into the [d_slots * cap] send lanes (sentinel fill). `key_bits` only
-    sets the kernel's digit passes."""
+    sets the kernel's digit sweeps (ceil(key_bits / 8))."""
     dev = key.device
     send_k = torch.full((d_slots * cap,), I64_MAX, dtype=torch.int64, device=dev)
     send_i = torch.zeros(d_slots * cap, dtype=torch.int32, device=dev)
@@ -247,7 +247,8 @@ def ssm_local(key: torch.Tensor, key_bits: int, seq_width: int, splitters: torch
     send_k = torch.empty(d_slots * cap, dtype=torch.int64, device=dev)
     send_i = torch.empty(d_slots * cap, dtype=torch.int32, device=dev)
     nbytes = _build.kernel("sample_sort_merge", "ssm_local_scratch_bytes",
-                           [ctypes.c_int64, ctypes.c_int64], ctypes.c_int64)(n, d_slots)
+                           [ctypes.c_int64, ctypes.c_int32, ctypes.c_int64],
+                           ctypes.c_int64)(n, key_bits, d_slots)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     fn = _build.kernel("sample_sort_merge", "ssm_local_launch", _LOCAL_ARGTYPES)
     _build.launch("sample_sort_merge", fn, dev, key.data_ptr(), n, key_bits, seq_width,
@@ -292,7 +293,7 @@ def ssm_merge(recv_k: torch.Tensor, recv_i: torch.Tensor, key_bits: int, seq_wid
     out = torch.empty(m, dtype=torch.int32, device=dev)
     count = torch.empty(1, dtype=torch.int32, device=dev)
     nbytes = _build.kernel("sample_sort_merge", "ssm_merge_scratch_bytes",
-                           [ctypes.c_int64], ctypes.c_int64)(m)
+                           [ctypes.c_int64, ctypes.c_int32], ctypes.c_int64)(m, key_bits)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     fn = _build.kernel("sample_sort_merge", "ssm_merge_launch", _MERGE_ARGTYPES)
     _build.launch("sample_sort_merge", fn, dev, recv_k.data_ptr(), recv_i.data_ptr(), m,

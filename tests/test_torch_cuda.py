@@ -147,6 +147,84 @@ def test_index_merge_mask_matches_plain(dev, n, presorted, dedup):
                     merge.index_merge_plain(keys, num_pk, mask_t, dedup, presorted))
 
 
+def _lanes_on_card(dev, lanes: list):
+    """Mapped int64 lanes on the card and their (min, max) bounds."""
+    mapped = [torch.from_numpy(order_key(a)).to(dev) for a in lanes]
+    return mapped, [(int(m.min()), int(m.max())) if m.numel() else (0, 0) for m in mapped]
+
+
+@pytest.mark.parametrize("dedup", [True, False])
+def test_index_merge_full_64_bit_tsid_lane_matches_plain(dev, dedup):
+    """A tsid lane spanning all 64 bits takes one key of 8 digits."""
+    rng = np.random.default_rng(31)
+    n = 200_003
+    tsid = rng.choice(rng.integers(0, 2**64 - 1, 5000, dtype=np.uint64, endpoint=True), n)
+    tsid[:2] = [0, 2**64 - 1]
+    ts = rng.integers(0, 7_200_000, n).astype(np.int64)
+    seq = rng.integers(0, 25, n).astype(np.int64)
+    keys, bounds = _lanes_on_card(dev, [tsid, ts, seq])
+    assert [d for _, _, d in merge.pack_lanes(bounds)] == [8, 4]
+    mask = torch.from_numpy((rng.random(n) < 0.6).astype(np.uint8)).to(dev)
+    _same_survivors(merge.index_merge_mask(keys, bounds, 2, mask, dedup, False),
+                    merge.index_merge_plain(keys, 2, mask, dedup, False))
+
+
+@pytest.mark.parametrize("dedup", [True, False])
+@pytest.mark.parametrize("kept", [0, 1, 4095, 4096, 4097])
+def test_index_merge_kept_counts_around_a_tile_match_plain(dev, kept, dedup):
+    """Kept counts around the look-back sort's 4,096-row tile, of 20,011 rows."""
+    rng = np.random.default_rng(kept)
+    n = 20_011
+    cols, _ = _rows(n, kept + 7)
+    keys, bounds, num_pk, _ = sort_key_lanes(cols.__getitem__, SORT_KEYS, dev)
+    mask = np.zeros(n, np.uint8)
+    mask[rng.choice(n, kept, replace=False)] = 1
+    mask_t = torch.from_numpy(mask).to(dev)
+    _same_survivors(merge.index_merge_mask(keys, bounds, num_pk, mask_t, dedup, False),
+                    merge.index_merge_plain(keys, num_pk, mask_t, dedup, False))
+
+
+def test_index_merge_rows_equal_in_every_lane_keep_row_order(dev):
+    """Rows equal in every lane come out in row order (no dedup: the whole
+    permutation), bitwise the plain version's."""
+    rng = np.random.default_rng(33)
+    n = 50_001
+    lanes = [rng.integers(0, 2, n).astype(np.int64),
+             rng.integers(2**63, 2**63 + 2, n, dtype=np.uint64),
+             rng.integers(0, 2, n).astype(np.int64)]
+    keys, bounds = _lanes_on_card(dev, lanes)
+    mask = torch.from_numpy((rng.random(n) < 0.9).astype(np.uint8)).to(dev)
+    got = merge.index_merge_mask(keys, bounds, 2, mask, False, False)
+    _same_survivors(got, merge.index_merge_plain(keys, 2, mask, False, False))
+    out, k = got
+    key = sum(lane.astype(np.int64) << (2 - i) for i, lane in
+              enumerate([lanes[0], (lanes[1] - np.uint64(2**63)).astype(np.int64), lanes[2]]))
+    rows = out[: int(k)].cpu().numpy()
+    run = key[rows]
+    assert np.all(np.diff(run) >= 0)
+    assert np.all(np.diff(rows)[np.diff(run) == 0] > 0)
+
+
+@pytest.mark.parametrize("dedup", [True, False])
+@pytest.mark.parametrize("spans", [(40, 30, 20), (30, 30, 30), (64, 1, 63), (8, 8, 8)])
+def test_index_merge_three_lanes_lexicographic_match_plain(dev, spans, dedup):
+    """Three lanes of the given bit spans, packed as pack_lanes says (two
+    per key where they fit), in the lexicographic order of the plain
+    version."""
+    rng = np.random.default_rng(sum(spans))
+    n = 100_003
+    lanes = []
+    for bits in spans:
+        pool = rng.integers(0, 2**bits - 1, 3000, dtype=np.uint64, endpoint=True)
+        lane = rng.choice(pool, n)
+        lane[:2] = [0, 2**bits - 1]
+        lanes.append(lane)
+    keys, bounds = _lanes_on_card(dev, lanes)
+    mask = torch.from_numpy((rng.random(n) < 0.7).astype(np.uint8)).to(dev)
+    _same_survivors(merge.index_merge_mask(keys, bounds, 2, mask, dedup, False),
+                    merge.index_merge_plain(keys, 2, mask, dedup, False))
+
+
 def _pred_cases():
     members = tuple(range(2**63, 2**63 + 2))
     return {
@@ -1185,8 +1263,13 @@ def test_multisegment_downsample_matches_plain(dev):
     _grids_equal(got, want)
 
 
-def _packed_case(rng, case: str, n: int, seq_width: int = 8) -> np.ndarray:
-    grp = rng.integers(0, 9_000, n).astype(np.uint64)
+def _packed_case(rng, case: str, n: int, seq_width: int = 8,
+                 key_bits: int | None = None) -> np.ndarray:
+    if key_bits is None:
+        grp = rng.integers(0, 9_000, n).astype(np.uint64)
+    else:  # groups over the whole key, its largest among them
+        grp = rng.integers(0, 2**(key_bits - seq_width), n).astype(np.uint64)
+        grp[:1] = 2**(key_bits - seq_width) - 1
     if case == "skew":
         grp[: n * 9 // 10] = 5
     elif case == "single":
@@ -1201,14 +1284,16 @@ def _packed_case(rng, case: str, n: int, seq_width: int = 8) -> np.ndarray:
 
 @pytest.mark.parametrize("case", ["random", "skew", "single", "sentinel"])
 @pytest.mark.parametrize("do_dedup", [True, False])
-def test_sample_sort_merge_matches_packed_merge(dev, case, do_dedup):
-    """Eight slots of one card: the survivors equal kernel D's bytewise and
-    the plain version's."""
+@pytest.mark.parametrize("key_bits", [None, 42, 63])
+def test_sample_sort_merge_matches_packed_merge(dev, case, do_dedup, key_bits):
+    """Eight slots of one card, keys of the plan's own width and of 42 and
+    63 bits (6 and 8 digit sweeps a step): the survivors equal kernel D's
+    bytewise and the plain version's."""
     from horaedb_tpu_torch.backend import u64_to_i64
 
     mesh = make_mesh(8, series_parallel=2, devices=[dev] * 8)
-    packed = _packed_case(np.random.default_rng(21), case, 200_003)
-    got = pmerge.sharded_packed_merge(packed, 8, do_dedup, mesh)
+    packed = _packed_case(np.random.default_rng(21), case, 200_003, key_bits=key_bits)
+    got = pmerge.sharded_packed_merge(packed, 8, do_dedup, mesh, key_bits=key_bits)
     idx, cnt = merge.packed_merge(torch.from_numpy(u64_to_i64(packed)).to(dev), 63, 8, do_dedup)
     assert np.array_equal(got, idx[: int(cnt.item())].cpu().numpy().astype(np.int64))
     assert np.array_equal(got, pmerge.sharded_packed_merge_plain(packed, 8, do_dedup, mesh))

@@ -12,6 +12,7 @@
 """
 
 import ast
+import re
 from pathlib import Path
 
 import numpy as np
@@ -221,6 +222,20 @@ def test_downsample_computes_its_cells_in_the_grouped_stats_library():
     sources = _build.SOURCES[_build.library_of("downsample")]
     assert "onesweep.cuh" in sources and "radix.cuh" not in sources
     assert not (_build.CSRC / "downsample.cu").exists()
+
+
+@pytest.mark.parametrize("name", ["index_merge_mask", "index_merge_filter", "sample_sort_merge"])
+def test_merges_sort_through_the_look_back_header(name):
+    """Rows 19, 20 and 14 sort through onesweep.cuh: it is among their
+    sources, and their own sources call none of radix.cuh's digit passes
+    (compact.cuh, which they include, keeps its tile helpers)."""
+    sources = _build.SOURCES[_build.library_of(name)]
+    assert "onesweep.cuh" in sources
+    for src in (s for s in sources if s.endswith(".cu")):
+        text = (_build.CSRC / src).read_text()
+        assert "onesweep::sort(" in text or src == "predicate.cu"
+        assert not re.search(r"radix::(sort|passes|gather_kernel|hist_kernel|scatter_kernel)",
+                             text)
 
 
 @pytest.mark.parametrize("name", KERNELS)

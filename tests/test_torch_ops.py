@@ -370,6 +370,89 @@ def test_index_merge_filter_matches_jax(pred):
     np.testing.assert_array_equal(out[: int(k)].numpy(), want)
 
 
+def _packed_lane_order(keys, bounds, mask) -> np.ndarray:
+    """The kept rows in the order kernel F's sort gives them: pack_lanes'
+    keys built here with numpy's u64 arithmetic, one stable sort per key,
+    the least significant first."""
+    rows = np.flatnonzero(mask)
+    for lanes, shifts, digits in reversed(tmerge.pack_lanes(bounds)):
+        key = np.zeros(len(rows), np.uint64)
+        for i, shift in zip(lanes, shifts):
+            part = keys[i].numpy()[rows].view(np.uint64) - np.uint64(bounds[i][0] % 2**64)
+            assert int(part.max(initial=0)).bit_length() + shift <= 8 * digits
+            key |= part << np.uint64(shift)
+        rows = rows[np.argsort(key, kind="stable")]
+    return rows
+
+
+def _wide_rows():
+    """Lanes whose spans pack two to a key: pk1 40 bits, pk2 30, and a
+    seq of 3,000 distinct values (a 12-bit rank)."""
+    rng = np.random.default_rng(13)
+    cols = {"pk1": rng.integers(-(2**39), 2**39, MERGE_N).astype(np.int64),
+            "pk2": rng.integers(2**63, 2**63 + 2**30, MERGE_N, dtype=np.uint64),
+            "__seq__": rng.permutation(MERGE_N).astype(np.uint64) + np.uint64(10**18)}
+    cols["pk1"][: MERGE_N // 2] = cols["pk1"][MERGE_N // 2:]  # ties on pk1
+    return cols, rng.random(MERGE_N) < 0.8
+
+
+@pytest.mark.parametrize("case", ["mixed", "one_group", "all_rejected", "one_row", "wide"])
+def test_pack_lanes_order_matches_jax(case):
+    """Sorting by pack_lanes' keys gives the JAX kernel's order of the kept
+    rows (no dedup: the whole permutation)."""
+    cols, mask = _wide_rows() if case == "wide" else _merge_rows(case)
+    want, wk = _jax_index(cols, mask, None, (), False, False)
+    keys, bounds, _, _ = tread.sort_key_lanes(cols.__getitem__, SORT_KEYS, torch.device("cpu"))
+    if case == "wide":
+        assert [d for _, _, d in tmerge.pack_lanes(bounds)] == [5, 6]
+    np.testing.assert_array_equal(_packed_lane_order(keys, bounds, mask), want)
+    assert len(want) == wk
+
+
+def test_pack_lanes_layouts():
+    """The main scan shape's lanes (a 64-bit tsid hash, 2 h of ms, 25
+    write sequences) pack into a key of 8 digits and one of 4; spans of 64
+    bits fill a key; constant lanes go nowhere."""
+    u64 = 2**64 - 1
+    assert tmerge.pack_lanes([(-(2**63), 2**63 - 1), (0, 7_199_999), (0, 24)]) == [
+        ((0,), (0,), 8), ((1, 2), (5, 0), 4)]
+    assert tmerge.pack_lanes([(0, 2**40), (5, 5), (0, 2**20)]) == [((0, 2), (21, 0), 8)]
+    assert tmerge.pack_lanes([(0, 1), (0, 2**63 - 1)]) == [((0, 1), (63, 0), 8)]
+    assert tmerge.pack_lanes([(0, u64), (0, u64)]) == [((0,), (0,), 8), ((1,), (0,), 8)]
+    assert tmerge.pack_lanes([(3, 3)]) == []
+    assert tmerge.pack_lanes([]) == []
+
+
+def test_index_merge_hands_the_packed_layout_to_the_kernel(monkeypatch):
+    """On a card, kernel F gets pack_lanes' layout flattened: the lanes and
+    shifts of each key, the keys' starts and digits, and a scratch sized
+    by the most digits (a fake entry point records the call; the tensors
+    stay on the CPU)."""
+    seen = {}
+
+    def kernel(name, fn_name, argtypes, restype=None):
+        def scratch_bytes(n, digits):
+            seen["scratch"] = (n, digits)
+            return 64
+        return scratch_bytes if fn_name == "index_merge_scratch_bytes" else "launch"
+
+    def launch(name, fn, dev, *args):
+        seen["launch"] = (name, fn, args)
+
+    monkeypatch.setattr(tmerge._build, "kernel", kernel)
+    monkeypatch.setattr(tmerge._build, "launch", launch)
+    n = 5
+    keys = [torch.zeros(n, dtype=torch.int64) for _ in range(3)]
+    bounds = [(-(2**63), 2**63 - 1), (0, 7_199_999), (0, 24)]
+    tmerge._launch_index("index_merge_mask", keys, bounds, 2, torch.ones(n, dtype=torch.uint8),
+                         True, False)
+    name, fn, args = seen["launch"]
+    assert (name, fn, seen["scratch"]) == ("index_merge_mask", "launch", (n, 8))
+    assert list(args[1]) == [lo for lo, _ in bounds] and args[2:4] == (3, 2)
+    assert [list(a) for a in args[4:8]] == [[0, 1, 2], [0, 5, 0], [0, 1, 3], [8, 4]]
+    assert (args[8], args[9], args[11], args[12]) == (2, n, 0, 1)  # keys, rows, presorted, dedup
+
+
 def _pred_lanes():
     rng = np.random.default_rng(21)
     n = 1000
