@@ -7,6 +7,8 @@
     python3 chip_ab.py solo-fold [--root DIR] [--seed N]
     python3 chip_ab.py launch [--root DIR] [--seed N]
     python3 chip_ab.py merge [--root DIR] [--seed N]
+    python3 chip_ab.py sort-split [--root DIR] [--seed N]
+    python3 chip_ab.py default-device [--root DIR] [--seed N]
     python3 chip_ab.py burst [--root DIR] [--seed N] [--rounds N]
     python3 chip_ab.py burst-pair --root DIR [--seed N] [--rounds N]
     python3 chip_ab.py scan-pair --root DIR [--seed N] [--rounds N] [--no-warm-turn]
@@ -76,6 +78,34 @@ the bucket scatter, copies and memsets), `device_ms_by_kernel`, and
 of that segment (written as phase 3a writes it) on each route that
 launches kernel F (`scans`: host seconds after a synchronise, and the
 kernels launched). `--root` as for `reduce`.
+
+`sort-split` splits the two kernels that sort through the packed-key
+chain since the look-back rework (keychain.cuh), at chip_smoke's shapes:
+`scan_kernel` (row 21) on the fused query's pass of phase 3e, built on the
+card (FUSED_SERIES series x 60 samples and the 5 % re-send = 63M rows, in
+the order the scan reads them: 20 writes of shuffled rows, each sorted as
+its SST is, then the re-send; tsid, ts and the seq rank as key lanes, the
+pass's eight gathered lanes, the metric_id and ts-range predicate on the
+device) and `sort_perm` (row 4) on phase 2's write batch (302,400 rows of
+tsid and ts). For each: `events_ms`, `device_ms`, `device_ms_by_part`
+(SORT_PARTS: the predicate, the partition, the one-block tile scans, the
+key passes, the digit sweeps or radix passes, the lane gather, the flags,
+copies, memsets), `device_ms_by_kernel`, `host_us` and `wall_us`, as for
+`merge`; the plain version's and one stable torch.sort's events ms; and a
+check that the kernel's output equals the plain version's. `--root` as for
+`reduce`.
+
+`default-device` opens storage and the metric engine with the default
+device (`device=` left out: a bare "cuda") and runs, on a small table of
+2^17 series, an InSet raw scan under HORAEDB_SCAN_PATH=device (kernels E
+and F), the fused downsample over all 2^17 series (scan_kernel), and an
+engine write and raw query of one host under HORAEDB_SCAN_PATH=device
+(kernels E and F in the data table's scan); each read again on storage
+and an engine opened on cuda:0. It reports, per read, the kernels it
+launched and the exception the default device raised (type and text), or
+whether its answer equals cuda:0's bit for bit. `--root` as for `reduce`:
+a tree whose `resolve_device` leaves a bare "cuda" without an index
+raises on the first two reads and the engine's.
 
 `burst` times phase 3i's burst A end to end: chip_smoke's TSBS cpu-only
 write (NUM_SERIES hosts x 10 fields x 180 scrapes, 60 payloads through
@@ -413,16 +443,16 @@ MERGE_PARTS = (
 )
 
 
-def merge_part(name: str) -> str:
-    for part, patterns in MERGE_PARTS:
+def merge_part(name: str, parts=MERGE_PARTS) -> str:
+    for part, patterns in parts:
         if any(p in name for p in patterns):
             return part
     return "other"
 
 
-def merge_split(torch, cs, fn, iters: int = 50) -> dict:
+def merge_split(torch, cs, fn, iters: int = 50, parts=MERGE_PARTS) -> dict:
     """launch_split's events, device and host times of fn(), with the
-    device time also split into MERGE_PARTS."""
+    device time also split into `parts` (MERGE_PARTS by default)."""
     out = {"events_ms": cs.cuda_ms(torch, fn, iters=10, warmup=2)}
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -435,7 +465,7 @@ def merge_split(torch, cs, fn, iters: int = 50) -> dict:
             ms = e.time_range.elapsed_us() / 5e3
             name = cs.kernel_name(e.name)
             by_kernel[name] = by_kernel.get(name, 0.0) + ms
-            part = merge_part(name)
+            part = merge_part(name, parts)
             by_part[part] = by_part.get(part, 0.0) + ms
     out["device_ms"] = sum(by_kernel.values())
     out["device_ms_by_part"] = dict(sorted(by_part.items(), key=lambda kv: -kv[1]))
@@ -487,6 +517,192 @@ def merge_times(torch, cs, rng, dev) -> dict:
     key = torch.from_numpy(order_key(packed)).to(dev)
     out["one_key_sort_ms"] = cs.cuda_ms(torch, lambda: torch.sort(key, stable=True), iters=5)
     out["scans"] = asyncio.run(scan_times(torch, cs, rng, dev, data))
+    return out
+
+
+# (part, patterns of the profiler's kernel name), the first match wins
+SORT_PARTS = (
+    ("predicate", ("predicate", "program")),
+    ("partition", ("RowFlag", "MaskFlag")),
+    ("tile scan (radix::scan_kernel, one block)", ("radix::scan_kernel",)),
+    ("key passes", ("onesweep::key_kernel", "onesweep::decide_kernel", "onesweep::zero_kernel",
+                    "onesweep::compact_kernel", "radix::gather_kernel", "iota_kernel")),
+    ("digit sweeps", ("onesweep::sweep_kernel", "radix::hist_kernel", "radix::scatter_kernel")),
+    ("lane gather", ("gather_kernel",)),
+    ("flags", ("flags_kernel",)),
+    ("copies", ("Memcpy",)),
+    ("memsets", ("Memset",)),
+)
+
+
+def fused_scan_inputs(torch, cs, rng, dev):
+    """scan_kernel's arguments at the fused query's main shape (phase 3e),
+    built on the card: rows of FUSED_SERIES series x 60 samples in (tsid,
+    ts) order, read back as 20 writes of shuffled rows each sorted as its
+    SST is, then the 5 % re-send (seq rank 20)."""
+    from horaedb_tpu_torch.backend import u64_to_i64
+    from horaedb_tpu_torch.ops import filter as F
+
+    per = cs.FUSED_WINDOW_MS // cs.INTERVAL_MS
+    n0 = cs.FUSED_SERIES * per
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(2**31)))
+    parts = torch.randperm(n0, device=dev, generator=gen).chunk(cs.FUSED_WRITES)
+    resend = torch.randperm(n0, device=dev, generator=gen)[: int(n0 * cs.RESEND_FRACTION)]
+    src = torch.cat([torch.sort(p).values for p in parts] + [torch.sort(resend).values])
+    seq = torch.cat([torch.full((len(p),), i, dtype=torch.int64, device=dev)
+                     for i, p in enumerate(list(parts) + [resend])])
+    del parts, resend
+    tsids = np.sort(rng.choice(np.unique(rng.integers(1, 2**64 - 1, cs.FUSED_SERIES * 2,
+                                                      dtype=np.uint64)),
+                               cs.FUSED_SERIES, replace=False))
+    tsid = torch.from_numpy(u64_to_i64(tsids)).to(dev)[src // per]
+    ts = cs.T0 + (src % per) * cs.INTERVAL_MS
+    n = len(src)
+    metric = torch.full((n,), int(u64_to_i64(np.array([cs.METRIC_ID], np.uint64))[0]),
+                        dtype=torch.int64, device=dev)
+    lanes = {"metric_id": metric, "tsid": tsid, "field_id": torch.full_like(metric, -(2**63)),
+             "ts": ts, "value": torch.rand(n, dtype=torch.float64, device=dev, generator=gen),
+             "__seq__": seq + 10**18, "__reserved__": torch.zeros_like(metric),
+             "__sid__": (src // per).to(torch.int32)}
+    keys = [tsid, ts, seq]
+    bounds = [(int(k.min()), int(k.max())) for k in keys]
+    pred = F.And(F.Compare("metric_id", "eq", cs.METRIC_ID),
+                 F.time_range_pred("ts", cs.T0, cs.T0 + cs.FUSED_WINDOW_MS))
+    prog = F.compile_program(pred, {"metric_id": np.dtype(np.uint64), "ts": np.dtype(np.int64)})
+    return lanes, keys, bounds, prog, n
+
+
+def sort_split(torch, cs, rng, dev) -> dict:
+    """Rows 21 and 4 split by part (module docstring)."""
+    from horaedb_tpu_torch.backend import order_key
+    from horaedb_tpu_torch.ops import filter as F
+    from horaedb_tpu_torch.ops import scan as scan_ops
+    from horaedb_tpu_torch.ops import sort as sort_ops
+
+    out = {}
+    lanes, keys, bounds, prog, n = fused_scan_inputs(torch, cs, rng, dev)
+
+    def kern():
+        return scan_ops.scan_kernel(lanes, keys, bounds, 2, prog, n, True, False, dev)
+
+    def plain():
+        return scan_ops.scan_kernel_plain(lanes, keys, 2, F.eval_program_plain(prog, lanes, n),
+                                          True, False)
+
+    got, want = kern(), plain()
+    k = int(got[4].item())
+    cs.require(k == int(want[4].item()) == n and torch.equal(got[1][:k], want[1][:k])
+               and torch.equal(got[2], want[2]) and torch.equal(got[3], want[3]),
+               "scan_kernel differs from its plain version")
+    del got, want
+    out["scan_kernel_shape"] = (f"{n} rows, key lanes tsid, ts, seq rank {bounds}, "
+                                f"{len(lanes)} gathered lanes, the predicate on the device")
+    out["scan_kernel"] = merge_split(torch, cs, kern, iters=10, parts=SORT_PARTS)
+    out["scan_kernel"]["plain_ms"] = cs.cuda_ms(torch, plain, iters=3, warmup=1)
+    out["scan_kernel"]["one_key_sort_ms"] = cs.cuda_ms(
+        torch, lambda: torch.sort(keys[0], stable=True), iters=5, warmup=1)
+    del lanes, keys
+
+    m = round(cs.NUM_SERIES * cs.WINDOW_MS / cs.INTERVAL_MS * (1 + cs.RESEND_FRACTION) / 50)
+    series = rng.integers(0, 2**64 - 1, cs.NUM_SERIES, dtype=np.uint64, endpoint=True)
+    host = [series[rng.integers(0, cs.NUM_SERIES, m)],
+            cs.T0 + rng.integers(0, cs.SEGMENT_MS // cs.INTERVAL_MS, m) * cs.INTERVAL_MS]
+    skeys = [torch.from_numpy(order_key(a)).to(dev) for a in host]
+    sbounds = [(int(k.min()), int(k.max())) for k in skeys]
+    cs.require(torch.equal(sort_ops.sort_perm(skeys, sbounds), sort_ops.sort_perm_plain(skeys)),
+               "sort_perm differs from its plain version")
+    out["sort_perm_shape"] = f"{m} rows x 2 keys (tsid, ts) {sbounds}"
+    out["sort_perm"] = merge_split(torch, cs, lambda: sort_ops.sort_perm(skeys, sbounds),
+                                   parts=SORT_PARTS)
+    out["sort_perm"]["plain_ms"] = cs.cuda_ms(torch, lambda: sort_ops.sort_perm_plain(skeys))
+    out["sort_perm"]["one_key_sort_ms"] = cs.cuda_ms(
+        torch, lambda: torch.sort(skeys[0], stable=True))
+    return out
+
+
+async def default_device_reads(torch, cs, rng, dev) -> dict:
+    """The `default-device` mode (module docstring)."""
+    import pyarrow as pa
+
+    from horaedb_tpu_torch import launch_counts, reset_launch_counts
+    from horaedb_tpu_torch.engine import MetricEngine, QueryRequest
+    from horaedb_tpu_torch.engine_query import query_downsample
+    from horaedb_tpu_torch.objstore import MemStore
+    from horaedb_tpu_torch.ops import filter as F
+    from horaedb_tpu_torch.serving import ServingTierConfig
+    from horaedb_tpu_torch.storage import ObjectBasedStorage, ScanRequest, TimeRange, WriteRequest
+
+    series = 1 << 17  # the packed pass declines at 2^17 series: the fused route
+    tsids = np.sort(rng.choice(np.unique(rng.integers(1, 2**64 - 1, 2 * series, dtype=np.uint64)),
+                               series, replace=False))
+    used = np.sort(rng.choice(series, 300, replace=False))
+    n = 3000
+    sid = used[rng.integers(0, len(used), n)]
+    ts = cs.T0 + rng.integers(0, cs.SEGMENT_MS // 60_000, n) * 60_000
+    seg = TimeRange(cs.T0, cs.T0 + cs.SEGMENT_MS)
+    batch = pa.RecordBatch.from_pydict(
+        {"metric_id": np.full(n, cs.METRIC_ID, np.uint64), "tsid": tsids[sid],
+         "field_id": np.zeros(n, np.uint64), "ts": ts, "value": rng.normal(size=n)},
+        schema=cs.arrow_schema(False))
+    inset = F.And(F.InSet("tsid", tuple(int(t) for t in tsids[used[::3]])),
+                  F.time_range_pred("ts", seg.start + 600_000, seg.end - 600_000))
+    fpred = F.And(F.Compare("metric_id", "eq", cs.METRIC_ID),
+                  F.time_range_pred("ts", seg.start, seg.end))
+    tags = cs.engine_hosts(rng)[0][:100]
+    writer = cs.PayloadWriter(tags, cs.CPU_FIELDS[:1])
+    payload = writer.payload(rng.uniform(0, 100, (len(tags), cs.ENGINE_PER_PAYLOAD)),
+                             cs.T0 + np.arange(cs.ENGINE_PER_PAYLOAD) * cs.INTERVAL_MS)
+    query = QueryRequest(metric=b"cpu_usage_user", start_ms=cs.T0,
+                         end_ms=cs.T0 + cs.ENGINE_PER_PAYLOAD * cs.INTERVAL_MS,
+                         filters=[tags[0][0]])  # raw rows: the storage scan's device merge
+
+    async def reads(kw) -> dict:
+        got = {"launches": {}}
+        st = await ObjectBasedStorage.try_new("db", MemStore(), cs.arrow_schema(False), 4,
+                                              cs.SEGMENT_MS, enable_compaction_scheduler=False,
+                                              start_background_merger=False, **kw)
+        got["device"] = str(st._device)
+        await st.write(WriteRequest(batch, seg))
+        for name, read in (
+                ("inset_scan", lambda: cs.timed_scan(st, ScanRequest(seg, predicate=inset))),
+                ("fused_query", lambda: query_downsample(st, tsids, seg, 30 * 60_000, fpred))):
+            reset_launch_counts()
+            try:
+                with cs.EnvPin(**({"HORAEDB_SCAN_PATH": "device"} if name == "inset_scan"
+                                  else {})):
+                    r = await read()
+                got[name] = cs.table_lanes(r[0]) if name == "inset_scan" else r
+            except Exception as e:  # the fault under study: report it, never hide it
+                got[name] = f"{type(e).__name__}: {e}"
+            got["launches"][name] = {k: v for k, v in launch_counts().items() if v}
+        await st.close()
+        try:
+            eng = await MetricEngine.open("eng", MemStore(), enable_compaction=False,
+                                          serving=ServingTierConfig(enabled=False), **kw)
+            try:
+                await eng.write_payload(payload)
+                reset_launch_counts()
+                with cs.EnvPin(HORAEDB_SCAN_PATH="device"):
+                    got["engine_query"] = cs.table_lanes(await eng.query(query))
+                got["launches"]["engine_query"] = {k: v for k, v in launch_counts().items() if v}
+            finally:
+                await eng.close()
+        except Exception as e:
+            got["engine_query"] = f"{type(e).__name__}: {e}"
+        return got
+
+    default = await reads({})
+    card0 = await reads({"device": dev})
+    out = {"default_device": default.pop("device"), "cuda0_device": card0.pop("device"),
+           "default_launches": default.pop("launches"), "cuda0_launches": card0.pop("launches")}
+    for name, want in card0.items():
+        got = default[name]
+        if isinstance(got, str) or isinstance(want, str):
+            out[name] = {"default": got if isinstance(got, str) else "ok",
+                         "cuda0": want if isinstance(want, str) else "ok"}
+        else:
+            out[name] = {"default": "ok", "cuda0": "ok", "bitwise_equal": cs.lanes_equal(got, want)}
     return out
 
 
@@ -863,7 +1079,8 @@ async def id_cache_times(torch, cs, rng, dev) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     ap.add_argument("mode", choices=("reduce", "reduce-split", "id-cache", "solo-fold", "launch",
-                                     "merge", "burst", "burst-pair", "scan-pair"))
+                                     "merge", "sort-split", "default-device", "burst",
+                                     "burst-pair", "scan-pair"))
     ap.add_argument("--root", default=None, help="import horaedb_tpu_torch from this checkout")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-warm-turn", action="store_true",
@@ -897,6 +1114,10 @@ def main() -> int:
         out = launch_times(torch, cs, rng, dev)
     elif args.mode == "merge":
         out = merge_times(torch, cs, rng, dev)
+    elif args.mode == "sort-split":
+        out = sort_split(torch, cs, rng, dev)
+    elif args.mode == "default-device":
+        out = asyncio.run(default_device_reads(torch, cs, rng, dev))
     elif args.mode == "burst":
         res = asyncio.run(burst_times(torch, cs, rng, dev, args.rounds,
                                       [("tree", args.root or HERE)]))

@@ -5,19 +5,25 @@
 
 Phases, each of which exits non-zero on failure:
 1. print the card's name and power limit, build the kernels from
-   horaedb_tpu_torch/ops/csrc (one nvcc per library, in parallel);
+   horaedb_tpu_torch/ops/csrc (one nvcc per library, in parallel), and
+   print the occupancy of onesweep.cuh's sweep kernel for both of its
+   instantiations (blocks an SM with its dynamic shared memory, and the
+   registers a thread of the compiled kernel);
 2. hold each kernel against its plain PyTorch version on the card, on edge
    cases and at the main path's shapes, and time kernel, plain version and
    a PyTorch library call where one computes the same function:
-   sort_perm (A), block_sum_count (B), block_min_max (C), and the merges
+   sort_perm (A: row counts around the look-back sort's 4,096-row tile,
+   keys over all 64 bits, three packed keys), block_sum_count (B),
+   block_min_max (C), and the merges
    of a segment scan: packed_merge (D), the predicate kernel (E) and
    index_merge_mask / index_merge_filter (F) - edge cases n = 0 and 1,
    all rejected, one group, keys >= 2^63, NaN and -0.0 lanes, InSet of 0,
    1, 128, 129 and 65,536 members, presorted and shuffled rows, 4,095,
    4,096 and 4,097 kept rows (the look-back sort's tile), a tsid lane over
    all 64 bits, and one segment of about 7.56M rows, whose records name
-   the packed sort keys, their digits and the sort path; and the fused route's scan_kernel,
-   downsample and grouped_stats on edge cases (f64, int64 and uint64
+   the packed sort keys, their digits and the sort path; and the fused
+   route's scan_kernel (rows 0, 1, a tile +-1 and 70,001), downsample and
+   grouped_stats on edge cases (f64, int64 and uint64
    values, NaN and -0.0, ids out of range, masked rows, empty cells, rows
    before t0, presorted and shuffled rows, dedup on and off, no predicate,
    a Compare, an InSet of 200 members, a host mask, u64 keys >= 2^63);
@@ -149,6 +155,11 @@ Phases, each of which exits non-zero on failure:
       to query(); entry.dryrun_multichip(4), then 3a's two segments in one
       3-axis (seg 2 x rows 2 x series 2) multisegment_downsample step,
       equal to 3b's grids segment by segment;
+   m. storage opened with the default device (a bare "cuda", which
+      resolves to the current card with its index): 3d's InSet scan under
+      HORAEDB_SCAN_PATH=device (index_merge_filter) and 3e's fused
+      downsample over 200,000 series (scan_kernel), each bitwise equal to
+      the same read on the tables opened on cuda:0;
    every kernel must have launched on one of these paths; queries and a
    scan run under torch.profiler (and cProfile) for where the time goes;
 4. scan_kernel, downsample and grouped_stats against their plain versions
@@ -281,6 +292,26 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sweep_occupancy() -> dict:
+    """Phase 1: onesweep.cuh's sweep kernel in each instantiation, as the
+    runtime reports the compiled kernel: blocks an SM with its dynamic
+    shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), its
+    registers a thread and its shared bytes a block."""
+    import ctypes
+
+    from horaedb_tpu_torch.ops import _build
+
+    out = {}
+    for library, inst in (("grouped_stats", "u32 keys, u64 values (grouped_stats.cu)"),
+                          ("sort_perm", "u64 keys, int32 rows (keychain.cuh, sort_perm.cu)")):
+        buf = (ctypes.c_int32 * 4)()
+        rc = _build.kernel(library, f"{library}_sweep_occupancy", [ctypes.c_void_p])(buf)
+        require(rc == 0, f"{library}: the sweep's occupancy query failed with cudaError {rc}")
+        out[inst] = {"blocks_per_sm": buf[0], "registers_per_thread": buf[1],
+                     "static_smem_bytes": buf[2], "dynamic_smem_bytes": buf[3]}
+    return out
+
+
 # -- phase 2: kernels against their plain versions ---------------------------
 
 def sort_cases(rng):
@@ -302,6 +333,16 @@ def sort_cases(rng):
                                 rng.integers(0, 2**64 - 1, n, dtype=np.uint64, endpoint=True),
                                 np.zeros(n, np.uint64),
                                 rng.integers(-(2**40), 2**40, n).astype(np.int64)]
+    # row counts around the look-back sort's 4,096-row tile (tsid and ts, two
+    # packed keys), and three keys of 60-bit spans (three packed keys); their
+    # own draws, so the later phases' data stays as it was
+    own = np.random.default_rng(7)
+    for n in (4095, 4096, 4097):
+        yield f"{n} rows", [own.choice(own.integers(0, 2**64 - 1, 600, dtype=np.uint64,
+                                                    endpoint=True), n),
+                            own.integers(0, 7_200_000, n).astype(np.int64)]
+    yield "three packed keys", [own.choice(own.integers(0, 2**60, 40), 50_001).astype(np.int64)
+                                for _ in range(3)]
 
 
 def segment_cases(rng):
@@ -383,7 +424,7 @@ def check_long_runs(torch, rng, dev) -> dict:
 
 def check_kernels(torch, rng, dev) -> list[dict]:
     from horaedb_tpu_torch.backend import order_key
-    from horaedb_tpu_torch.ops import blockagg
+    from horaedb_tpu_torch.ops import blockagg, keychain
     from horaedb_tpu_torch.ops import sort as sort_ops
 
     records = []
@@ -417,13 +458,16 @@ def check_kernels(torch, rng, dev) -> list[dict]:
     want = sort_ops.sort_perm_plain(keys_v)
     require(torch.equal(got, want), "sort_perm != plain at the write batch shape")
     sort_err = float((got.long() - want.long()).abs().max())
+    packed = keychain.pack_lanes(bounds_v)
     # each sorted key read once (8 B/row), the int32 permutation written once
     nb, kind = bound(n * (8 * len(keys_v) + 4), 0)
     records.append({
         "name": "sort_perm", "route": "cuda",
-        "source": "horaedb_tpu_torch/ops/csrc/sort_perm.cu",
+        "source": "horaedb_tpu_torch/ops/csrc/sort_perm.cu + keychain.cuh, onesweep.cuh",
         "replaces": "horaedb_tpu/ops/sort.py:22",
         "shape": f"{n} rows x {len(keys_v)} keys (tsid, ts)",
+        "sort_path": (f"{len(packed)} packed keys, {sum(d for _, _, d in packed)} look-back "
+                      f"sweeps over {-(-n // 4096)} tiles"),
         "max_abs_err": sort_err,
         "ms": cuda_ms(torch, lambda: sort_ops.sort_perm(keys_v, bounds_v)),
         "plain_ms": cuda_ms(torch, lambda: sort_ops.sort_perm_plain(keys_v)),
@@ -600,7 +644,7 @@ def segment_runs(rng, data, seg: int):
 def check_merge_kernels(torch, rng, dev, data) -> list[dict]:
     from horaedb_tpu_torch.backend import device_lane, order_key
     from horaedb_tpu_torch.ops import filter as F
-    from horaedb_tpu_torch.ops import merge
+    from horaedb_tpu_torch.ops import keychain, merge
     from horaedb_tpu_torch.storage.read import _pack_sort_keys, predicate_lanes, sort_key_lanes
 
     # edge cases: D and F against their plain versions
@@ -665,8 +709,8 @@ def check_merge_kernels(torch, rng, dev, data) -> list[dict]:
     # F with a host mask: metric_id eq keeps every row of this data
     keys, bounds, num_pk, key_names = sort_key_lanes(seg.__getitem__, SORT_KEYS, dev)
     packed_keys = [{"lanes": [key_names[i] for i in lanes], "shifts": list(shifts),
-                    "digits": digits} for lanes, shifts, digits in merge.pack_lanes(bounds)]
-    sort_path = (f"mask partition, then the look-back LSD (onesweep.cuh, u64 keys, int32 rows) "
+                    "digits": digits} for lanes, shifts, digits in keychain.pack_lanes(bounds)]
+    sort_path = (f"mask partition, then keychain.cuh's look-back sorts (u64 keys, int32 rows) "
                  f"over {len(packed_keys)} packed keys: "
                  f"{sum(k['digits'] for k in packed_keys)} sweeps, {len(packed_keys)} key passes")
     mask_t = torch.from_numpy((seg["metric_id"] == METRIC_ID).astype(np.uint8)).to(dev)
@@ -680,7 +724,7 @@ def check_merge_kernels(torch, rng, dev, data) -> list[dict]:
     nb, kind = bound(n + kept * sum(t.element_size() for t in keys) + k * 4, 0)
     records.append({
         "name": "index_merge_mask", "route": "cuda",
-        "source": "horaedb_tpu_torch/ops/csrc/index_merge.cu",
+        "source": "horaedb_tpu_torch/ops/csrc/index_merge.cu + keychain.cuh, onesweep.cuh",
         "replaces": "horaedb_tpu/storage/read.py:580",
         "shape": f"{n} rows x {len(keys)} key lanes (tsid, ts, seq rank) + mask, {k} survivors",
         "max_abs_err": 0.0,
@@ -721,7 +765,7 @@ def check_merge_kernels(torch, rng, dev, data) -> list[dict]:
                      + literal_bytes + k * 4, 0)
     records.append({
         "name": "index_merge_filter", "route": "cuda",
-        "source": "horaedb_tpu_torch/ops/csrc/index_merge.cu + predicate.cu",
+        "source": "horaedb_tpu_torch/ops/csrc/index_merge.cu + predicate.cu, keychain.cuh",
         "replaces": "horaedb_tpu/storage/read.py:586",
         "shape": f"{n} rows x {len(keys)} key lanes, the predicate reading tsid and ts from "
                  f"them, InSet of {SUBSET} + ts range, {kept} rows kept, {k} survivors",
@@ -828,7 +872,7 @@ def check_fused_kernels(torch, rng, dev) -> None:
     preds = {"none": None,
              "compare": F.And(F.Compare("metric_id", "eq", METRIC_ID), F.Compare("ts", "lt", T0 + 90)),
              "inset 200": F.Or(F.InSet("tsid", members), F.Compare("value", "ne", 0.0))}
-    for n in (0, 1, 70_001):
+    for n in (0, 1, 4095, 4096, 4097, 70_001):
         for presorted in (False, True):
             cols = {"metric_id": rng.integers(1, 3, n).astype(np.uint64),
                     "tsid": rng.integers(2**63 - 3, 2**63 + 40, n, dtype=np.uint64),
@@ -1064,6 +1108,7 @@ def fused_records(torch, cap: CaptureFused, dev, seed: int) -> list[dict]:
     each with the path its sort took and the library yardstick."""
     from horaedb_tpu_torch.ops import aggregate as agg
     from horaedb_tpu_torch.ops import filter as F
+    from horaedb_tpu_torch.ops import keychain
     from horaedb_tpu_torch.ops import scan as scan_ops
 
     require(cap.scan is not None and cap.down is not None, "the fused query ran no scan pass")
@@ -1080,6 +1125,7 @@ def fused_records(torch, cap: CaptureFused, dev, seed: int) -> list[dict]:
 
     same_scan(torch, got, plain_scan(), "scan_kernel at the main path shape")
     kept = int(got[4].item())
+    packed = keychain.pack_lanes(bounds)
     # each distinct input lane read once (the tsid and ts key lanes are also
     # gathered lanes), every gathered lane written once, 4 B of perm and 2 B
     # of flags per row
@@ -1092,11 +1138,13 @@ def fused_records(torch, cap: CaptureFused, dev, seed: int) -> list[dict]:
     del got
     records.append({
         "name": "scan_kernel", "route": "cuda",
-        "source": "horaedb_tpu_torch/ops/csrc/scan.cu + predicate.cu",
+        "source": "horaedb_tpu_torch/ops/csrc/scan.cu + predicate.cu, keychain.cuh, onesweep.cuh",
         "replaces": "horaedb_tpu/storage/read.py:926",
         "shape": f"{n} rows, {len(keys)} key lanes ({', '.join(str(b) for b in bounds)}), "
                  f"{len(lanes)} gathered lanes ({', '.join(lanes)}), presorted={presorted}, "
                  f"predicate on the device={prog is not None}, {kept} kept",
+        "sort_path": (f"partition, then {len(packed)} packed keys, "
+                      f"{sum(d for _, _, d in packed)} look-back sweeps over the kept rows"),
         "max_abs_err": 0.0,
         "ms": cuda_ms(torch, lambda: scan_ops.scan_kernel(lanes, keys, bounds, num_pk, prog, n,
                                                           dedup, presorted, dev, mask=mask),
@@ -1925,6 +1973,24 @@ async def main_paths(torch, rng, dev, data, workdir) -> dict:
                    scan_oracle(data, np.arange(NUM_SERIES), seg0.start, seg0.end, True),
                    {"HORAEDB_SCAN_PATH": "device", "HORAEDB_LINK_PROFILE": "skip"})
     out["scans"] = scans
+    # m. the default device (a bare "cuda"): 3d's InSet scan, bitwise
+    default_dev = await ObjectBasedStorage.try_new(
+        "tsbs", store, arrow_schema(False), 4, SEGMENT_MS, enable_compaction_scheduler=False,
+        start_background_merger=False)
+    require(default_dev._device == dev, f"default device {default_dev._device}, not {dev}")
+    inset_req = ScanRequest(seg0, predicate=inset)
+    with EnvPin(HORAEDB_SCAN_PATH="device"):
+        port.reset_launch_counts()
+        got, secs = await timed_scan(default_dev, inset_req)
+        counts = port.launch_counts()
+        counted("default_device_inset", counts)
+        want_scan, _ = await timed_scan(storage, inset_req)
+    require(counts["index_merge_filter"] > 0, "default device: the InSet scan ran no kernel F")
+    require(got is not None and lanes_equal(table_lanes(got), table_lanes(want_scan)),
+            "default device: the InSet scan differs from cuda:0's")
+    out["default_device"] = {"device": str(default_dev._device), "inset_rows": got.num_rows,
+                             "inset_s": secs}
+    await default_dev.close()
     out["profile"] = await profile_paths(torch, storage, tsids, window, query_pred, seg0)
     # l. the mesh on 3a's tables: the sharded scan, the mesh downsample, multisegment
     out["mesh"], out["mesh_capture"] = await mesh_scan_paths(
@@ -1984,7 +2050,21 @@ async def main_paths(torch, rng, dev, data, workdir) -> dict:
     fsub = np.sort(rng.choice(FUSED_SERIES, FUSED_SUBSET, replace=False))
     g_sub = await fused_query("fused_subset", ftsids[fsub])
     check_grids(g_sub, fused_oracle(fdata[5], fsub), "200,000-series subset, fused route")
-    del g_sub, g_all, fdata
+    # m. the default device: the same fused query, bitwise
+    default_dev = await ObjectBasedStorage.try_new(
+        "tsbs1m", store, arrow_schema(False), 4, SEGMENT_MS,
+        config=StorageConfig(scan_block_rows=FUSED_BLOCK_ROWS), enable_compaction_scheduler=False,
+        start_background_merger=False)
+    port.reset_launch_counts()
+    t = time.perf_counter()
+    g_dd = await query_downsample(default_dev, ftsids[fsub], fwindow, FUSED_BUCKET_MS, fpred)
+    out["default_device"]["fused_subset_s"] = time.perf_counter() - t
+    counts = port.launch_counts()
+    counted("default_device_fused", counts)
+    require(counts["scan_kernel"] > 0, "default device: the fused query ran no scan_kernel")
+    require(bitwise_equal(g_dd, g_sub), "default device: the fused query differs from cuda:0's")
+    await default_dev.close()
+    del g_sub, g_dd, g_all, fdata
     await fused.close()
 
     # f. append mode over binary values
@@ -3633,6 +3713,8 @@ def run_smoke(torch, seed: int) -> int:
     built = _build.build_all()
     print(f"build: {time.perf_counter() - t:.1f} s wall, per kernel "
           + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()), flush=True)
+    occupancy = sweep_occupancy()
+    print(f"onesweep sweep_kernel occupancy [{card}]: {json.dumps(occupancy)}", flush=True)
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(seed)
@@ -3650,6 +3732,7 @@ def run_smoke(torch, seed: int) -> int:
         result = asyncio.run(main_paths(torch, rng, dev, data, workdir))
     result["long_runs"] = long_runs
     result["sort_paths"] = sort_paths
+    result["sweep_occupancy"] = occupancy
     print(f"phase 3: {time.perf_counter() - t_all:.1f} s", flush=True)
     records += fused_records(torch, result.pop("fused_capture"), dev, seed)
     records += decode_records(torch, result.pop("decode_capture"), dev)

@@ -25,7 +25,10 @@ _SIGN = np.uint64(1 << 63)
 
 def resolve_device(device: str | torch.device = DEFAULT_DEVICE) -> torch.device:
     """The torch device for `device`; raises when a CUDA device is asked
-    for and none is present (no silent fallback to the CPU)."""
+    for and none is present (no silent fallback to the CPU). A bare "cuda"
+    gets the index of the current device: tensors made on it report
+    `cuda:<index>`, and the wrappers compare devices with `==`, under which
+    `cuda` and `cuda:0` differ."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -33,6 +36,8 @@ def resolve_device(device: str | torch.device = DEFAULT_DEVICE) -> torch.device:
                 "no CUDA device is available; pass device='cpu' to run the "
                 "plain PyTorch versions of the kernels on the host"
             )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":
         raise HoraeError(f"unsupported device {dev} (cuda or cpu)")
     return dev

@@ -43,8 +43,10 @@ from horaedb_tpu_torch.common.error import HoraeError
 
 # catalog names are the JAX package's (`common/xprof.py` kernel names);
 # each maps to its sources: every `.cu` is compiled into one library, the
-# headers are hashed into its name. The four decode kernels share
-# bitunpack.cuh. predicate.cu is kernel E, which runs
+# headers are hashed into its name (radix.cuh wherever compact.cuh, which
+# includes it, is). The four decode kernels share bitunpack.cuh;
+# keychain.cuh's chain of look-back sorts serves sort_perm, scan_kernel and
+# the index merges. predicate.cu is kernel E, which runs
 # inside index_merge_filter and scan_kernel and is not a catalog kernel of
 # its own. downsample computes its cell ids in grouped_stats' key pass: it
 # loads that library (SHARED), and a downsample call counts once under
@@ -59,14 +61,16 @@ KERNELS = ("sort_perm", "block_sum_count", "block_min_max", "packed_merge",
            "stacked_downsample", "lane_sum_count", "segment_last_value",
            "sample_sort_merge", "grid_fold", "sharded_downsample", "multisegment_downsample")
 SOURCES = {
-    "sort_perm": ("sort_perm.cu", "radix.cuh"),
+    "sort_perm": ("sort_perm.cu", "keychain.cuh", "onesweep.cuh"),
     "block_sum_count": ("block_sum_count.cu", "segreduce.cuh"),
     "block_min_max": ("block_min_max.cu", "segreduce.cuh"),
     "packed_merge": ("packed_merge.cu", "compact.cuh", "radix.cuh"),
-    "index_merge_mask": ("index_merge.cu", "compact.cuh", "radix.cuh", "onesweep.cuh"),
-    "index_merge_filter": ("index_merge.cu", "predicate.cu", "compact.cuh", "radix.cuh",
-                           "onesweep.cuh"),
-    "scan_kernel": ("scan.cu", "predicate.cu", "compact.cuh", "radix.cuh"),
+    "index_merge_mask": ("index_merge.cu", "keychain.cuh", "onesweep.cuh", "compact.cuh",
+                         "radix.cuh"),
+    "index_merge_filter": ("index_merge.cu", "predicate.cu", "keychain.cuh", "onesweep.cuh",
+                           "compact.cuh", "radix.cuh"),
+    "scan_kernel": ("scan.cu", "predicate.cu", "keychain.cuh", "onesweep.cuh", "compact.cuh",
+                    "radix.cuh"),
     "grouped_stats": ("grouped_stats.cu", "onesweep.cuh", "segreduce.cuh"),
     "decode_unpack": ("decode_unpack.cu", "bitunpack.cuh"),
     "decode_dod": ("decode_dod.cu", "bitunpack.cuh"),

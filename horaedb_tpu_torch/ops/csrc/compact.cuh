@@ -1,5 +1,6 @@
 // Stable compaction by a per-row flag: the partition and keep-last passes
-// shared by packed_merge.cu (kernel D) and index_merge.cu (kernel F).
+// shared by packed_merge.cu (kernel D), index_merge.cu (kernel F), scan.cu
+// and sample_sort_merge.cu.
 //
 // Three launches, no atomics, no host synchronisation:
 //   count_kernel    one block per TILE rows counts its flagged rows;

@@ -253,3 +253,9 @@ extern "C" int grouped_stats_downsample_launch(const void* values, int32_t kind,
     return run_kind(kind, src, values, n, cells, out_sum, out_count, out_min, out_max, out_mean,
                     scratch, static_cast<cudaStream_t>(stream));
 }
+
+// The u32-key instantiation's sweep (onesweep::sweep_occupancy): blocks an
+// SM, registers a thread, static and dynamic shared bytes.
+extern "C" int grouped_stats_sweep_occupancy(int32_t* out) {
+    return onesweep::sweep_occupancy<uint32_t, uint64_t>(out);
+}

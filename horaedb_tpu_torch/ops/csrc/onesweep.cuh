@@ -3,9 +3,10 @@
 // and an exact presorted shortcut. Two instantiations:
 //   - u32 keys carrying a u64 payload (grouped_stats.cu: cell ids and the
 //     8 B values), rows dropped by a sentinel key;
-//   - u64 keys carrying an int32 payload (index_merge.cu: packed sort-key
-//     lanes and the row permutation; sample_sort_merge.cu: raw packed keys
-//     and their rows), with a row count that stays on the device.
+//   - u64 keys carrying an int32 payload (keychain.cuh's chain of packed
+//     sort-key lanes and the row permutation, for index_merge.cu, scan.cu
+//     and sort_perm.cu; sample_sort_merge.cu: raw packed keys and their
+//     rows), with a row count that may stay on the device.
 //
 // Which rows take part (`Rows`): the first n, or the first *len when a
 // device-side count is given (written by an earlier kernel, such as a
@@ -494,6 +495,29 @@ sweep_kernel(const K* __restrict__ k_in, const V* __restrict__ v_in, K* __restri
         k_out[pos] = k;
         v_out[pos] = sv[i];
     }
+}
+
+// The occupancy of sweep_kernel<K, V> with its dynamic shared memory, as
+// the runtime reports it for the compiled kernel: out[0] blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] registers a
+// thread, out[2] static and out[3] dynamic shared bytes a block.
+template <class K, class V>
+inline int sweep_occupancy(int32_t* out) {
+    constexpr int SMEM = sweep_smem<K, V>();
+    cudaFuncAttributes a{};
+    int blocks = 0;
+    cudaError_t e = cudaFuncSetAttribute(sweep_kernel<K, V>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, sweep_kernel<K, V>);
+    if (e == cudaSuccess) {
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, sweep_kernel<K, V>, THREADS,
+                                                          SMEM);
+    }
+    out[0] = blocks;
+    out[1] = a.numRegs;
+    out[2] = (int32_t)a.sharedSizeBytes;
+    out[3] = SMEM;
+    return (int)e;
 }
 
 template <class K, class V>

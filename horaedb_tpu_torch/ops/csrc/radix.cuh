@@ -1,8 +1,9 @@
 // Stable LSD radix sort of (u64 key, int32 row) pairs over up to k integer
-// keys: the shared body of sort_perm.cu (kernel A), packed_merge.cu
-// (kernel D) and scan.cu (scan_kernel); compact.cuh takes its tile helpers
-// and its scan. (grouped_stats.cu, index_merge.cu and sample_sort_merge.cu
-// sort through onesweep.cuh.)
+// keys. Its clients left: packed_merge.cu (kernel D) sorts through it, and
+// compact.cuh takes its tile helpers and its one-block scan of the tile
+// counts. (Every other sort goes through onesweep.cuh: grouped_stats.cu,
+// sample_sort_merge.cu, and keychain.cuh's chain for index_merge.cu,
+// scan.cu and sort_perm.cu.)
 //
 // Keys arrive as int64 whose signed order is the desired order (u64 lanes
 // are mapped by flipping bit 63 on the host); (key - lo) taken as u64 is
@@ -46,11 +47,6 @@ inline unsigned blocks_for(int64_t n, int threads) {
 }
 
 inline int64_t tiles_for(int64_t n) { return n > 0 ? (n + TILE - 1) / TILE : 1; }
-
-__global__ void iota_kernel(int32_t* __restrict__ perm, int64_t n) {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) perm[i] = (int32_t)i;
-}
 
 // u[i] = key[perm[i]] - lo, as u64
 __global__ void gather_kernel(const int64_t* __restrict__ key, uint64_t lo,

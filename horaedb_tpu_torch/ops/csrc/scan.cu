@@ -21,10 +21,13 @@
 //   1. sorting by (~mask, keys..., iota) equals a stable partition by the
 //      mask followed by a stable sort of the kept rows, so the partition of
 //      compact.cuh runs first (no mask: every row is kept);
-//   2. the LSD radix passes of radix.cuh over the kept rows only, each key
-//      offset by its minimum so only the digits of its span are sorted (the
-//      caller ranks __seq__ densely and drops constant keys); presorted
-//      rows skip this step;
+//   2. the chain of look-back sorts of keychain.cuh over the kept rows
+//      only, the kept count as its device-side row count: the host packs
+//      the key lanes into u64 keys (ops/keychain.py::pack_lanes: each lane
+//      offset by its minimum, adjacent lanes sharing a key where their
+//      spans fit; the caller ranks __seq__ densely and drops constant
+//      keys), and each key gets a key pass through the current permutation
+//      and one look-back sweep per digit; presorted rows skip this step;
 //   3. one gather kernel reads each row's source index once and copies
 //      every lane (1, 2, 4 or 8 bytes wide) as raw bits, so NaN payloads
 //      and -0.0 pass unchanged;
@@ -33,10 +36,11 @@
 //      row, or differs from the row after).
 // The kept count lives on the device between the steps: no synchronisation.
 #include "compact.cuh"
+#include "keychain.cuh"
 
 namespace {
 
-constexpr int MAX_KEYS = 16;
+using keychain::MAX_KEYS;
 constexpr int MAX_LANES = 32;
 
 // mask == nullptr keeps every row
@@ -106,53 +110,51 @@ __global__ void flags_kernel(PkKeys pk, const int32_t* __restrict__ perm, int64_
 }
 
 struct Scratch {
-    int32_t* perm;
-    int32_t* perm_tmp;
-    uint64_t* ua;
-    uint64_t* ub;
-    int32_t* hist;
+    keychain::Scratch sort;  // its third payload buffer takes the partition
     int32_t* tiles;
 };
 
-Scratch carve(void* p, int64_t n) {
-    compact::Arena a{static_cast<char*>(p)};
-    const int64_t m = n > 0 ? n : 1;
+// with p null, only the layout (and its bytes)
+Scratch carve(void* p, int64_t n, int digits, int64_t* bytes = nullptr) {
+    onesweep::Carver c{reinterpret_cast<uintptr_t>(p)};
     Scratch s;
-    s.perm = a.take<int32_t>(m);
-    s.perm_tmp = a.take<int32_t>(m);
-    s.ua = a.take<uint64_t>(m);
-    s.ub = a.take<uint64_t>(m);
-    s.hist = a.take<int32_t>(radix::hist_bytes(n) / 4);
-    s.tiles = a.take<int32_t>(compact::scratch_bytes(n) / 4);
+    s.sort = keychain::carve(p, n, digits, &c.used);
+    s.tiles = c.take<int32_t>(compact::scratch_bytes(n) / 4);
+    if (bytes) *bytes = c.used;
     return s;
 }
 
 }  // namespace
 
-extern "C" int64_t scan_scratch_bytes(int64_t n) {
-    using compact::Arena;
-    const int64_t m = n > 0 ? n : 1;
-    return 2 * Arena::size_of(4 * m) + 2 * Arena::size_of(8 * m) +
-           Arena::size_of(radix::hist_bytes(n)) + Arena::size_of(compact::scratch_bytes(n));
+// n rows whose packed keys take at most `digits` digits (1-8)
+extern "C" int64_t scan_scratch_bytes(int64_t n, int32_t digits) {
+    int64_t bytes = 0;
+    carve(nullptr, n, digits < 1 ? 1 : digits, &bytes);
+    return bytes;
 }
 
 // keys: num_keys pointers to int64[n] mapped sort-key lanes, most
-// significant first, the first num_pk of them the primary key; lo[i] /
-// digits[i]: key i's minimum and its 8-bit passes (as for sort_perm); mask:
-// uint8[n] (0 = rejected) or null (keep every row); lanes_in / lanes_out /
-// widths: num_lanes device lanes of n rows, their gathered outputs and
-// their byte widths (1, 2, 4 or 8); perm_out: int32[n]; keep_out,
-// starts_out: uint8[n]; kept_out: int32[1]; scratch: scan_scratch_bytes(n)
-// bytes.
-extern "C" int scan_launch(const void* const* keys, const int64_t* lo, const int32_t* digits,
-                           int32_t num_keys, int32_t num_pk, int64_t n, const void* mask,
+// significant first, the first num_pk of them the primary key; lo[i]: key
+// i's minimum; lane_of, shift_of, group_start, group_digits, num_groups:
+// the packed keys (keychain::Layout); mask: uint8[n] (0 = rejected) or
+// null (keep every row); lanes_in / lanes_out / widths: num_lanes device
+// lanes of n rows, their gathered outputs and their byte widths (1, 2, 4
+// or 8); perm_out: int32[n]; keep_out, starts_out: uint8[n]; kept_out:
+// int32[1]; scratch: scan_scratch_bytes(n, the most group_digits) bytes.
+extern "C" int scan_launch(const void* const* keys, const int64_t* lo, int32_t num_keys,
+                           int32_t num_pk, const int32_t* lane_of, const int32_t* shift_of,
+                           const int32_t* group_start, const int32_t* group_digits,
+                           int32_t num_groups, int64_t n, const void* mask,
                            int32_t presorted, int32_t do_dedup, const void* const* lanes_in,
                            void* const* lanes_out, const int32_t* widths, int32_t num_lanes,
                            void* perm_out, void* keep_out, void* starts_out, void* kept_out,
                            void* scratch, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (num_keys < 0 || num_keys > MAX_KEYS || num_pk < 0 || num_pk > num_keys ||
-        num_lanes < 0 || n >= ((int64_t)1 << 31)) {
+    const keychain::Layout layout{keys,     lo,          num_keys,     lane_of,
+                                  shift_of, group_start, group_digits, num_groups};
+    const int max_digits = keychain::max_digits(layout);
+    if (max_digits == 0 || num_keys > MAX_KEYS || num_pk < 0 || num_pk > num_keys ||
+        num_lanes < 0 || n < 0 || n >= ((int64_t)1 << 31)) {
         return (int)cudaErrorInvalidValue;
     }
     for (int k = 0; k < num_lanes; ++k) {
@@ -161,13 +163,13 @@ extern "C" int scan_launch(const void* const* keys, const int64_t* lo, const int
         }
     }
     int32_t* kept = static_cast<int32_t*>(kept_out);
-    Scratch sc = carve(scratch, n);
-    compact::run(RowFlag{static_cast<const uint8_t*>(mask)}, n, nullptr, sc.tiles, sc.perm, kept,
-                 s);
-    int32_t* perm = sc.perm;
-    if (!presorted && num_keys > 0) {
-        perm = radix::sort(keys, lo, digits, num_keys, n, kept, sc.perm, sc.perm_tmp, sc.ua,
-                           sc.ub, sc.hist, s).perm;
+    const Scratch sc = carve(scratch, n, max_digits);
+    int32_t* part = sc.sort.v[2];  // the partition's permutation feeds the first sort
+    compact::run(RowFlag{static_cast<const uint8_t*>(mask)}, n, nullptr, sc.tiles, part, kept, s);
+    const int32_t* perm = part;
+    if (!presorted && n > 1) {
+        perm = keychain::sort(layout, perm, onesweep::Rows<uint64_t>{n, kept, false, 0}, sc.sort,
+                              s);
     }
     if (n == 0) return (int)cudaGetLastError();
     const unsigned blocks = radix::blocks_for(n, 256);

@@ -25,13 +25,13 @@ Lanes are int64 whose signed order is the wanted order
 from __future__ import annotations
 
 import ctypes
-import itertools
 
 import torch
 
 from horaedb_tpu_torch.common.error import HoraeError, ensure
 from horaedb_tpu_torch.ops import _build
 from horaedb_tpu_torch.ops import filter as filter_ops
+from horaedb_tpu_torch.ops import keychain
 from horaedb_tpu_torch.ops.dedup import dedup_last_value
 from horaedb_tpu_torch.ops.sort import sort_perm_plain
 
@@ -126,38 +126,13 @@ def index_merge_plain(keys: list[torch.Tensor], num_pk: int, mask: torch.Tensor,
     return _compacted(perm, keep)
 
 
-MAX_KEYS = 16  # sort-key lanes kernel F takes (index_merge.cu)
+MAX_KEYS = keychain.MAX_KEYS  # sort-key lanes kernel F takes (index_merge.cu)
 _INDEX_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
     ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p,
 ]
-
-
-def pack_lanes(bounds: list[tuple[int, int]]) -> list[tuple[tuple[int, ...], tuple[int, ...], int]]:
-    """The u64 keys kernel F sorts by, most significant first: each
-    `(lanes, shifts, digits)` packs the lanes (indices into `bounds`, most
-    significant first) into one key, the sum of `(lane - lo) << shift`,
-    of `digits` 8-bit digits. Filled from the least significant lane,
-    adjacent lanes share a key while their spans fit 64 bits together;
-    a constant lane (span 0) is in no key, as it orders nothing. The
-    lexicographic order of the keys is that of the lanes."""
-    keys, lanes, shifts, used = [], [], [], 0
-    for i in reversed(range(len(bounds))):
-        lo, hi = bounds[i]
-        bits = (hi - lo).bit_length()
-        if bits == 0:
-            continue
-        if used + bits > 64:
-            keys.append((tuple(lanes), tuple(shifts), -(-used // 8)))
-            lanes, shifts, used = [], [], 0
-        lanes.insert(0, i)
-        shifts.insert(0, used)
-        used += bits
-    if lanes:
-        keys.append((tuple(lanes), tuple(shifts), -(-used // 8)))
-    return keys[::-1]
 
 
 def _check_keys(name: str, keys, bounds, num_pk: int, n: int, dev) -> None:
@@ -168,32 +143,24 @@ def _check_keys(name: str, keys, bounds, num_pk: int, n: int, dev) -> None:
         ensure(key.device == dev, f"{name}: keys and mask must share one device")
 
 
-def _ints(xs: list[int]):
-    return (ctypes.c_int32 * max(len(xs), 1))(*xs)
-
-
 def _launch_index(name: str, keys, bounds, num_pk: int, mask: torch.Tensor,
                   do_dedup: bool, presorted: bool):
     n = mask.shape[0]
     dev = mask.device
     ensure(n < 2**31, f"{name}: {n} rows exceed int32 indices")
-    packed = pack_lanes(bounds)
-    lane_of = [i for lanes, _, _ in packed for i in lanes]
-    shift_of = [sh for _, shifts, _ in packed for sh in shifts]
-    starts = list(itertools.accumulate((len(lanes) for lanes, _, _ in packed), initial=0))
-    digits = [d for _, _, d in packed]
+    chain, digits = keychain.layout(bounds)
     out_idx = torch.empty(n, dtype=torch.int32, device=dev)
     count = torch.empty(1, dtype=torch.int32, device=dev)
     nbytes = _build.kernel(name, "index_merge_scratch_bytes", [ctypes.c_int64, ctypes.c_int32],
-                           ctypes.c_int64)(n, max(digits, default=1))
+                           ctypes.c_int64)(n, digits)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     k = len(keys)
     ptrs = (ctypes.c_void_p * max(k, 1))(*[key.data_ptr() for key in keys])
     los = (ctypes.c_int64 * max(k, 1))(*[lo for lo, _ in bounds])
     fn = _build.kernel(name, "index_merge_launch", _INDEX_ARGTYPES)
-    _build.launch(name, fn, dev, ptrs, los, k, num_pk, _ints(lane_of), _ints(shift_of),
-                  _ints(starts), _ints(digits), len(packed), n, mask.data_ptr(), int(presorted),
-                  int(do_dedup), out_idx.data_ptr(), count.data_ptr(), scratch.data_ptr())
+    _build.launch(name, fn, dev, ptrs, los, k, num_pk, *chain, n, mask.data_ptr(),
+                  int(presorted), int(do_dedup), out_idx.data_ptr(), count.data_ptr(),
+                  scratch.data_ptr())
     return out_idx, count
 
 

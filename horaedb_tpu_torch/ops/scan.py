@@ -6,8 +6,8 @@ sort by (~mask, pk..., __seq__, row) or, for presorted rows, a stable
 partition, every lane gathered through the permutation, the overwrite-mode
 keep-last mask and the run starts over the primary key among the kept
 rows, and the kept count. Here `csrc/scan.cu` (with the predicate kernel E
-of `csrc/predicate.cu`) computes the same on CUDA tensors, and
-`scan_kernel_plain` on CPU ones.
+of `csrc/predicate.cu`, and the sort of `csrc/keychain.cuh`) computes the
+same on CUDA tensors, and `scan_kernel_plain` on CPU ones.
 
 Contract of `scan_kernel`'s outputs `(sorted_lanes, perm, keep, starts,
 kept)`:
@@ -38,18 +38,19 @@ import ctypes
 import torch
 
 from horaedb_tpu_torch.common.error import HoraeError, ensure
-from horaedb_tpu_torch.ops import _build
+from horaedb_tpu_torch.ops import _build, keychain
 from horaedb_tpu_torch.ops import filter as filter_ops
 from horaedb_tpu_torch.ops.dedup import last_in_group_mask, run_starts
-from horaedb_tpu_torch.ops.sort import num_digits, sort_perm_plain
+from horaedb_tpu_torch.ops.sort import sort_perm_plain
 
-MAX_KEYS = 16  # sort-key lanes scan.cu takes
+MAX_KEYS = keychain.MAX_KEYS  # sort-key lanes scan.cu takes
 
 _ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
-    ctypes.c_int64, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
+    ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 ]
 
 
@@ -112,27 +113,32 @@ def scan_kernel(lanes: dict[str, torch.Tensor], keys: list[torch.Tensor],
     if program is not None:
         mask = torch.empty(n, dtype=torch.uint8, device=dev)
         filter_ops.launch_program(program, lanes, n, mask, library="scan_kernel")
+    return _launch(lanes, keys, bounds, num_pk, n, mask, do_dedup, presorted, dev)
+
+
+def _launch(lanes: dict[str, torch.Tensor], keys: list[torch.Tensor],
+            bounds: list[tuple[int, int]], num_pk: int, n: int, mask: torch.Tensor | None,
+            do_dedup: bool, presorted: bool, dev: torch.device):
     sorted_lanes = {name: torch.empty_like(lane) for name, lane in lanes.items()}
     perm = torch.empty(n, dtype=torch.int32, device=dev)
     keep = torch.empty(n, dtype=torch.bool, device=dev)
     starts = torch.empty(n, dtype=torch.bool, device=dev)
     kept = torch.empty(1, dtype=torch.int32, device=dev)
-    scratch = torch.empty(_build.scratch_bytes("scan_kernel", "scan_scratch_bytes", n),
-                          dtype=torch.uint8, device=dev)
+    chain, digits = keychain.layout(bounds)
+    nbytes = _build.kernel("scan_kernel", "scan_scratch_bytes", [ctypes.c_int64, ctypes.c_int32],
+                           ctypes.c_int64)(n, digits)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     k = len(keys)
     names = list(lanes)
     m = len(names)
     key_ptrs = (ctypes.c_void_p * max(k, 1))(*[key.data_ptr() for key in keys])
     los = (ctypes.c_int64 * max(k, 1))(*[lo for lo, _ in bounds])
-    digs = (ctypes.c_int32 * max(k, 1))(*[num_digits(lo, hi) for lo, hi in bounds])
     ins = (ctypes.c_void_p * max(m, 1))(*[lanes[c].data_ptr() for c in names])
     outs = (ctypes.c_void_p * max(m, 1))(*[sorted_lanes[c].data_ptr() for c in names])
     widths = (ctypes.c_int32 * max(m, 1))(*[lanes[c].element_size() for c in names])
     fn = _build.kernel("scan_kernel", "scan_launch", _ARGTYPES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(key_ptrs, los, digs, k, num_pk, n, 0 if mask is None else mask.data_ptr(),
-                int(presorted), int(do_dedup), ins, outs, widths, m, perm.data_ptr(),
-                keep.data_ptr(), starts.data_ptr(), kept.data_ptr(), scratch.data_ptr(), stream)
-    _build.check("scan_kernel", rc)
+    _build.launch("scan_kernel", fn, dev, key_ptrs, los, k, num_pk, *chain, n,
+                  0 if mask is None else mask.data_ptr(), int(presorted), int(do_dedup), ins,
+                  outs, widths, m, perm.data_ptr(), keep.data_ptr(), starts.data_ptr(),
+                  kept.data_ptr(), scratch.data_ptr())
     return sorted_lanes, perm, keep, starts, kept

@@ -2,9 +2,10 @@
 
 The JAX package sorts the write batch's primary key with one variadic
 stable `lax.sort` (`horaedb_tpu/ops/sort.py::_sort_perm`). Here the same
-permutation comes from a hand-written LSD radix sort (`csrc/sort_perm.cu`)
-on a CUDA tensor, or from its plain version (a chain of stable
-`torch.sort` passes, least significant key first) on a CPU tensor.
+permutation comes from a hand-written chain of look-back sorts over packed
+u64 keys (`csrc/sort_perm.cu`, `csrc/keychain.cuh`) on a CUDA tensor, or
+from its plain version (a chain of stable `torch.sort` passes, least
+significant key first) on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 
 from horaedb_tpu_torch.backend import DEFAULT_DEVICE, order_key, resolve_device, to_device
 from horaedb_tpu_torch.common.error import HoraeError, ensure
-from horaedb_tpu_torch.ops import _build
+from horaedb_tpu_torch.ops import _build, keychain
 
 
 def sort_perm_plain(keys: list[torch.Tensor]) -> torch.Tensor:
@@ -30,15 +31,22 @@ def sort_perm_plain(keys: list[torch.Tensor]) -> torch.Tensor:
 
 
 def num_digits(lo: int, hi: int) -> int:
-    """8-bit radix passes that separate every key in [lo, hi]."""
+    """8-bit digits that separate every key in [lo, hi]."""
     return -(-(hi - lo).bit_length() // 8)
+
+
+_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p,
+]
 
 
 def sort_perm(keys: list[torch.Tensor], bounds: list[tuple[int, int]]) -> torch.Tensor:
     """Stable permutation (int32) ordering rows by `keys`, most significant
     first. Keys are 1-D int64 tensors whose signed order is the wanted order
     (`backend.order_key`); `bounds[i]` is (min, max) of key i, which sets
-    the number of radix passes, so it must bound the key."""
+    how keys pack and how many digits they take, so it must bound the key."""
     ensure(len(keys) > 0 and len(keys) == len(bounds), "one (min, max) bound per key")
     n = keys[0].shape[0]
     dev = keys[0].device
@@ -50,28 +58,24 @@ def sort_perm(keys: list[torch.Tensor], bounds: list[tuple[int, int]]) -> torch.
         return sort_perm_plain(keys)
     if dev.type != "cuda":
         raise HoraeError(f"sort_perm: unsupported device {dev}")
+    return _launch(keys, bounds)
+
+
+def _launch(keys: list[torch.Tensor], bounds: list[tuple[int, int]]) -> torch.Tensor:
+    n = keys[0].shape[0]
+    dev = keys[0].device
     ensure(n < 2**31, f"sort_perm: {n} rows exceed int32 indices")
-    digits = [num_digits(lo, hi) for lo, hi in bounds]
+    chain, digits = keychain.layout(bounds)
     perm = torch.empty(n, dtype=torch.int32, device=dev)
-    perm_tmp = torch.empty_like(perm)
-    kbuf = torch.empty(n, dtype=torch.int64, device=dev)
-    kbuf_tmp = torch.empty_like(kbuf)
-    hist = torch.empty(_build.scratch_bytes("sort_perm", "sort_perm_hist_bytes", n),
-                       dtype=torch.uint8, device=dev)
+    nbytes = _build.kernel("sort_perm", "sort_perm_scratch_bytes", [ctypes.c_int64, ctypes.c_int32],
+                           ctypes.c_int64)(n, digits)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     k = len(keys)
-    fn = _build.kernel("sort_perm", "sort_perm_launch", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
-        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ])
     ptrs = (ctypes.c_void_p * k)(*[key.data_ptr() for key in keys])
     los = (ctypes.c_int64 * k)(*[lo for lo, _ in bounds])
-    digs = (ctypes.c_int32 * k)(*digits)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(ptrs, los, digs, k, n, perm.data_ptr(), perm_tmp.data_ptr(),
-                kbuf.data_ptr(), kbuf_tmp.data_ptr(), hist.data_ptr(), stream)
-    _build.check("sort_perm", rc)
+    fn = _build.kernel("sort_perm", "sort_perm_launch", _ARGTYPES)
+    _build.launch("sort_perm", fn, dev, ptrs, los, k, *chain, n, perm.data_ptr(),
+                  scratch.data_ptr())
     return perm
 
 

@@ -40,6 +40,68 @@ def test_sort_perm_matches_plain(dev, n, keys):
     assert torch.equal(got, sort_ops.sort_perm_plain(mapped))
 
 
+TILE = 4096  # rows of a look-back tile (onesweep.cuh)
+
+
+def _sort_perm_matches_plain(dev, lanes: list, bounds=None) -> torch.Tensor:
+    """sort_perm over the mapped lanes (bounds from the data unless given)
+    bitwise equal to its plain version; returns the permutation."""
+    mapped = [torch.from_numpy(order_key(a)).to(dev) for a in lanes]
+    if bounds is None:
+        bounds = [(int(m.min()), int(m.max())) if m.numel() else (0, 0) for m in mapped]
+    got = sort_ops.sort_perm(mapped, bounds)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, sort_ops.sort_perm_plain(mapped))
+    return got
+
+
+@pytest.mark.parametrize("n", [0, 1, TILE - 1, TILE, TILE + 1])
+def test_sort_perm_row_counts_around_a_tile_match_plain(dev, n):
+    """The write batch's two keys (a 64-bit tsid, 2 h of ms) over row counts
+    around one tile; fewer than two rows give the identity."""
+    rng = np.random.default_rng(n + 11)
+    tsid = rng.integers(0, 2**64 - 1, n, dtype=np.uint64, endpoint=True)
+    tsid = rng.choice(tsid, n) if n else tsid  # ties on the tsid
+    _sort_perm_matches_plain(dev, [tsid, rng.integers(0, 7_200_000, n).astype(np.int64)])
+
+
+def _chain_lanes(case: str, n: int, rng) -> tuple[list, list | None]:
+    """(lanes, bounds or None) of an edge of the packed-key chain."""
+    edges = np.array([0, 2**63, 2**64 - 1], np.uint64)
+    u64 = rng.integers(0, 2**64 - 1, n, dtype=np.uint64, endpoint=True)
+    u64[:3] = edges
+    if case == "full_64_bit":  # no two lanes pack: two keys of 8 digits
+        return [rng.choice(u64[:500], n), rng.permutation(u64)], None
+    if case == "three_keys":  # spans of 60 bits: three keys, ties in each
+        return [rng.choice(rng.integers(0, 2**60, 40), n).astype(np.int64) for _ in range(3)], None
+    if case == "equal_keys":  # wider bounds than the data: the chain runs
+        return [np.full(n, 7, np.int64), np.full(n, 2**63, np.uint64)], [(0, 2**40), (0, 2**20)]
+    lanes = [rng.integers(0, 50, n).astype(np.uint64), rng.integers(-(2**40), 2**40, n)]
+    order = np.lexsort(tuple(reversed(lanes)))
+    return [a[order] for a in lanes], None  # "presorted"
+
+
+@pytest.mark.parametrize("case", ["full_64_bit", "three_keys", "equal_keys", "presorted"])
+def test_sort_perm_chain_edges_match_plain(dev, case):
+    """Keys that cannot pack, three packed keys, keys equal everywhere (the
+    order from the row alone: the identity) and rows already in order."""
+    lanes, bounds = _chain_lanes(case, 70_001, np.random.default_rng(len(case)))
+    if case == "three_keys":
+        mapped = [(int(a.min()), int(a.max())) for a in lanes]
+        assert len(keychain.pack_lanes(mapped)) == 3
+    got = _sort_perm_matches_plain(dev, lanes, bounds)
+    if case in ("equal_keys", "presorted"):
+        assert torch.equal(got.cpu(), torch.arange(len(lanes[0]), dtype=torch.int32))
+
+
+def test_sort_perm_single_key_of_the_sort_strategy_matches_plain(dev):
+    """blockagg's `sort` strategy: one key of clamped cell ids, its bounds
+    (0, num_cells) wider than the ids it gets."""
+    rng = np.random.default_rng(17)
+    ids = rng.integers(0, 5000, 300_001).astype(np.int64)
+    _sort_perm_matches_plain(dev, [ids], [(0, 65_536)])
+
+
 @pytest.mark.parametrize("n,cells", [(1, 1), (2048, 7), (4097, 3), (100_003, 5000),
                                      (1_000_000, 40_000)])
 def test_segment_kernels_match_plain(dev, n, cells):
@@ -96,6 +158,7 @@ def test_downsample_is_bitwise_repeatable(dev):
 
 from horaedb_tpu_torch.backend import device_lane  # noqa: E402
 from horaedb_tpu_torch.ops import filter as F  # noqa: E402
+from horaedb_tpu_torch.ops import keychain  # noqa: E402
 from horaedb_tpu_torch.ops import merge  # noqa: E402
 from horaedb_tpu_torch.storage.read import _pack_sort_keys, sort_key_lanes  # noqa: E402
 
@@ -163,7 +226,7 @@ def test_index_merge_full_64_bit_tsid_lane_matches_plain(dev, dedup):
     ts = rng.integers(0, 7_200_000, n).astype(np.int64)
     seq = rng.integers(0, 25, n).astype(np.int64)
     keys, bounds = _lanes_on_card(dev, [tsid, ts, seq])
-    assert [d for _, _, d in merge.pack_lanes(bounds)] == [8, 4]
+    assert [d for _, _, d in keychain.pack_lanes(bounds)] == [8, 4]
     mask = torch.from_numpy((rng.random(n) < 0.6).astype(np.uint8)).to(dev)
     _same_survivors(merge.index_merge_mask(keys, bounds, 2, mask, dedup, False),
                     merge.index_merge_plain(keys, 2, mask, dedup, False))
@@ -554,15 +617,71 @@ def test_scan_kernel_matches_plain(dev, n, how, presorted, dedup):
                   else mask_t if mask_t is not None else torch.ones(n, dtype=torch.bool,
                                                                      device=dev))
     want = scan_ops.scan_kernel_plain(lanes, keys, num_pk, plain_mask, dedup, presorted)
+    _same_scan(got, want)
+
+
+def _same_scan(got, want) -> int:
+    """kept, perm[:kept], every gathered lane's first kept rows (as raw
+    bits), keep and starts all equal; returns kept."""
     k = int(got[4].item())
     assert k == int(want[4].item())
     assert torch.equal(got[1][:k].cpu(), want[1][:k].cpu())
-    for name in lanes:
+    for name in got[0]:
         a, b = got[0][name][:k].cpu(), want[0][name][:k].cpu()
         if a.dtype == torch.float64:
             a, b = a.view(torch.int64), b.view(torch.int64)  # NaN payloads, -0.0
         assert torch.equal(a, b), name
     assert torch.equal(got[2].cpu(), want[2].cpu()) and torch.equal(got[3].cpu(), want[3].cpu())
+    return k
+
+
+def _scan_matches_plain(dev, key_lanes: list, num_pk: int, mask, dedup: bool, presorted: bool,
+                        bounds=None) -> int:
+    """scan_kernel over the mapped key lanes (gathered too, beside an f64
+    and a uint8 lane) and a host mask (None: every row) against its plain
+    version; returns kept."""
+    n = len(key_lanes[0])
+    rng = np.random.default_rng(n + num_pk)
+    keys = [torch.from_numpy(order_key(a)).to(dev) for a in key_lanes]
+    if bounds is None:
+        bounds = [(int(k.min()), int(k.max())) if n else (0, 0) for k in keys]
+    lanes = {f"k{i}": k for i, k in enumerate(keys)}
+    lanes["v"] = torch.from_numpy(rng.choice(np.array([np.nan, -0.0, 0.0, 1.5]), n)).to(dev)
+    lanes["f"] = torch.from_numpy((rng.random(n) < 0.5).astype(np.uint8)).to(dev)
+    mask_t = None if mask is None else torch.from_numpy(mask.astype(np.uint8)).to(dev)
+    got = scan_ops.scan_kernel(lanes, keys, bounds, num_pk, None, n, dedup, presorted, dev,
+                               mask=mask_t)
+    plain_mask = mask_t if mask_t is not None else torch.ones(n, dtype=torch.bool, device=dev)
+    return _same_scan(got, scan_ops.scan_kernel_plain(lanes, keys, num_pk, plain_mask, dedup,
+                                                      presorted))
+
+
+@pytest.mark.parametrize("dedup", [True, False])
+@pytest.mark.parametrize("kept", ["none", "some", "all"])
+@pytest.mark.parametrize("n", [0, 1, TILE - 1, TILE, TILE + 1])
+def test_scan_kernel_row_counts_around_a_tile_match_plain(dev, n, kept, dedup):
+    """Row counts around one tile, with every row rejected, some, and every
+    row kept (no mask)."""
+    rng = np.random.default_rng(n + 3)
+    lanes = [rng.integers(0, 300, n).astype(np.uint64), rng.integers(0, 7_200_000, n),
+             rng.integers(0, 4, n)]
+    mask = {"none": np.zeros(n, bool), "some": rng.random(n) < 0.6, "all": None}[kept]
+    k = _scan_matches_plain(dev, lanes, 2, mask, dedup, False)
+    assert k == {"none": 0, "some": int(mask.sum()) if mask is not None else 0, "all": n}[kept]
+
+
+@pytest.mark.parametrize("dedup", [True, False])
+@pytest.mark.parametrize("case", ["full_64_bit", "three_keys", "equal_keys", "presorted",
+                                  "sorted_unflagged"])
+def test_scan_kernel_chain_edges_match_plain(dev, case, dedup):
+    """Key lanes that cannot pack, three packed keys, keys equal everywhere
+    (the order from the row alone), and rows in key order, flagged
+    presorted (the partition alone) or not (the sort finds them in order)."""
+    rng = np.random.default_rng(len(case))
+    n = 70_001
+    lanes, bounds = _chain_lanes("presorted" if case == "sorted_unflagged" else case, n, rng)
+    mask = rng.random(n) < 0.7
+    _scan_matches_plain(dev, lanes, 1, mask, dedup, case == "presorted", bounds)
 
 
 def _decode_lanes():
@@ -1297,3 +1416,92 @@ def test_sample_sort_merge_matches_packed_merge(dev, case, do_dedup, key_bits):
     idx, cnt = merge.packed_merge(torch.from_numpy(u64_to_i64(packed)).to(dev), 63, 8, do_dedup)
     assert np.array_equal(got, idx[: int(cnt.item())].cpu().numpy().astype(np.int64))
     assert np.array_equal(got, pmerge.sharded_packed_merge_plain(packed, 8, do_dedup, mesh))
+
+
+# -- the default device ------------------------------------------------------------
+
+DD_SEGMENT_MS = 2 * 3600 * 1000
+DD_T0 = 40 * DD_SEGMENT_MS
+DD_SERIES = 1 << 17  # the packed pass declines at 2^17 series: the fused route
+
+
+def _default_device_batches(pa, seed: int = 5):
+    """One segment of writes touching 300 of 2^17 series: three shuffled
+    batches and a re-send, rows of a second metric and NaN values."""
+    rng = np.random.default_rng(seed)
+    tsids = np.unique(rng.integers(0, 2**64 - 1, 2 * DD_SERIES, dtype=np.uint64, endpoint=True))
+    tsids = np.sort(rng.choice(tsids, DD_SERIES, replace=False))
+    used = np.sort(rng.choice(DD_SERIES, 300, replace=False))
+    n = 3000
+    sid = used[rng.integers(0, len(used), n)]
+    ts = DD_T0 + rng.integers(0, DD_SEGMENT_MS // 60_000, n) * 60_000
+    metric = np.where(rng.random(n) < 0.05, 2, 1).astype(np.uint64)
+    values = rng.normal(size=n) * 10
+    values[rng.choice(n, 4, replace=False)] = np.nan
+    schema = pa.schema([("metric_id", pa.uint64()), ("tsid", pa.uint64()),
+                        ("field_id", pa.uint64()), ("ts", pa.int64()), ("value", pa.float64())])
+    rows = rng.permutation(n)
+    batches = [pa.RecordBatch.from_pydict(
+        {"metric_id": metric[part], "tsid": tsids[sid[part]],
+         "field_id": np.zeros(len(part), np.uint64), "ts": ts[part],
+         "value": values[part] if i < 3 else rng.normal(size=len(part))}, schema=schema)
+        for i, part in enumerate(np.array_split(rows, 3) + [rows[: n // 10]])]
+    return schema, tsids, tsids[used[::3]], batches
+
+
+async def _default_device_reads(pa, device_kw: dict) -> dict:
+    """The InSet raw scan on the device route (kernels E and F) and the
+    fused downsample over all 2^17 series (scan_kernel), on storage opened
+    with `device_kw`; the launches each made."""
+    from horaedb_tpu_torch import launch_counts, reset_launch_counts
+    from horaedb_tpu_torch.engine_query import query_downsample
+    from horaedb_tpu_torch.objstore import MemStore
+    from horaedb_tpu_torch.storage import ObjectBasedStorage, ScanRequest, TimeRange, WriteRequest
+
+    schema, tsids, subset, batches = _default_device_batches(pa)
+    st = await ObjectBasedStorage.try_new("db", MemStore(), schema, 4, DD_SEGMENT_MS,
+                                          enable_compaction_scheduler=False,
+                                          start_background_merger=False, **device_kw)
+    try:
+        seg = TimeRange(DD_T0, DD_T0 + DD_SEGMENT_MS)
+        for b in batches:
+            await st.write(WriteRequest(b, seg))
+        pred = F.And(F.InSet("tsid", tuple(int(t) for t in subset)),
+                     F.time_range_pred("ts", DD_T0 + 600_000, DD_T0 + DD_SEGMENT_MS - 600_000))
+        reset_launch_counts()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("HORAEDB_SCAN_PATH", "device")
+            scan = pa.Table.from_batches(
+                [b async for b in st.scan(ScanRequest(seg, predicate=pred))])
+        scan_launches = launch_counts()
+        fpred = F.And(F.Compare("metric_id", "eq", 1),
+                      F.time_range_pred("ts", seg.start, seg.end))
+        reset_launch_counts()
+        grids = await query_downsample(st, tsids, seg, 30 * 60_000, fpred)
+        return {"scan": scan, "grids": grids, "scan_launches": scan_launches,
+                "fused_launches": launch_counts(), "device": st._device}
+    finally:
+        await st.close()
+
+
+def test_default_device_storage_equals_cuda0_bitwise(dev, monkeypatch):
+    """Storage opened with the default device (a bare "cuda") keeps the
+    current device with its index, and its InSet raw scan and fused
+    downsample equal those of storage opened on cuda:0, bitwise."""
+    import asyncio
+
+    import pyarrow as pa
+
+    monkeypatch.setenv("HORAEDB_AGG_IMPL", "block")
+    got = asyncio.run(_default_device_reads(pa, {}))
+    want = asyncio.run(_default_device_reads(pa, {"device": torch.device("cuda", 0)}))
+    assert got["device"] == dev == want["device"]
+    assert got["scan_launches"]["index_merge_filter"] > 0
+    assert got["fused_launches"]["scan_kernel"] > 0
+    assert got["scan"].num_rows > 0 and got["scan"].schema == want["scan"].schema
+    pairs = [(got["scan"].column(c).to_numpy(), want["scan"].column(c).to_numpy())
+             for c in want["scan"].column_names]
+    pairs += [(np.asarray(got["grids"][k]), np.asarray(w)) for k, w in want["grids"].items()]
+    for a, b in pairs:  # raw bits: NaN payloads and -0.0 too
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8))

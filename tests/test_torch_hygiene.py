@@ -224,16 +224,22 @@ def test_downsample_computes_its_cells_in_the_grouped_stats_library():
     assert not (_build.CSRC / "downsample.cu").exists()
 
 
-@pytest.mark.parametrize("name", ["index_merge_mask", "index_merge_filter", "sample_sort_merge"])
+@pytest.mark.parametrize("name", ["index_merge_mask", "index_merge_filter", "sample_sort_merge",
+                                  "scan_kernel", "sort_perm"])
 def test_merges_sort_through_the_look_back_header(name):
-    """Rows 19, 20 and 14 sort through onesweep.cuh: it is among their
-    sources, and their own sources call none of radix.cuh's digit passes
-    (compact.cuh, which they include, keeps its tile helpers)."""
+    """Rows 19, 20, 14, 21 and 4 sort through onesweep.cuh, the chains of
+    packed keys through keychain.cuh: each header is among the sources of
+    the libraries that use it, and no source calls radix.cuh's digit
+    passes (compact.cuh, which some include, keeps its tile helpers)."""
     sources = _build.SOURCES[_build.library_of(name)]
     assert "onesweep.cuh" in sources
+    chain = (_build.CSRC / "keychain.cuh").read_text()
+    assert "onesweep::sort(" in chain
     for src in (s for s in sources if s.endswith(".cu")):
         text = (_build.CSRC / src).read_text()
-        assert "onesweep::sort(" in text or src == "predicate.cu"
+        assert ("onesweep::sort(" in text or src == "predicate.cu"
+                or "keychain::sort(" in text and "keychain.cuh" in sources)
+        assert ("radix.cuh" in sources) == ("compact.cuh" in sources)
         assert not re.search(r"radix::(sort|passes|gather_kernel|hist_kernel|scatter_kernel)",
                              text)
 

@@ -1,5 +1,6 @@
-"""The launch path of kernels `grid_fold`, `lane_sum_count` and the other
-mesh steps, on the CPU.
+"""The launch path of kernels `grid_fold`, `lane_sum_count`, the other
+mesh steps, `sort_perm` and `scan_kernel`, and the device the entry points
+resolve, on the CPU.
 
 Each wrapper checks its inputs before it picks a route: malformed input
 raises `HoraeError` with the texts below, whatever device the lanes are on.
@@ -13,8 +14,11 @@ import ctypes
 import pytest
 import torch
 
+from horaedb_tpu_torch.backend import resolve_device
 from horaedb_tpu_torch.common.error import HoraeError
-from horaedb_tpu_torch.ops import _build
+from horaedb_tpu_torch.ops import _build, keychain
+from horaedb_tpu_torch.ops import scan as scan_ops
+from horaedb_tpu_torch.ops import sort as sort_ops
 from horaedb_tpu_torch.ops.aggregate import lane_segment_sum_count
 from horaedb_tpu_torch.ops import mesh
 from horaedb_tpu_torch.ops.mesh import grid_fold
@@ -205,6 +209,11 @@ MESH_STEPS = {
                                          2, 4, 0), "sample_sort_merge"),
     "ssm_merge": (lambda: mesh.ssm_merge(_meta(0, torch.int64), _meta(0, torch.int32), 8, 2,
                                          True), "sample_sort_merge"),
+    "sort_perm": (lambda: sort_ops.sort_perm([_meta(4, torch.int64)] * 2, [(0, 9), (-3, 3)]),
+                  "sort_perm"),
+    "scan_kernel": (lambda: scan_ops.scan_kernel(
+        {"v": _meta(4, torch.float64)}, [_meta(4, torch.int64)], [(0, 9)], 1, None, 4, True,
+        False, torch.device("meta")), "scan_kernel"),
 }
 
 
@@ -220,3 +229,84 @@ def test_mesh_steps_refuse_an_unsupported_device_before_the_build(monkeypatch, s
     with pytest.raises(HoraeError) as err:
         call()
     assert str(err.value) == f"{name}: unsupported device meta"
+
+
+# the main scan shape's key lanes: a 64-bit tsid hash, 2 h of ms, 25 seqs
+MAIN_BOUNDS = [(-(2**63), 2**63 - 1), (0, 7_199_999), (0, 24)]
+MAIN_LAYOUT = [[0, 1, 2], [0, 5, 0], [0, 1, 3], [8, 4]]  # lanes, shifts, starts, digits
+
+
+def _fake_build(monkeypatch, scratch_fn: str) -> dict:
+    """Stands in for the build: records the scratch request and the launch."""
+    seen = {}
+
+    def kernel(name, fn_name, argtypes, restype=None):
+        def scratch_bytes(n, digits):
+            seen["scratch"] = (name, n, digits)
+            return 64
+        return scratch_bytes if fn_name == scratch_fn else f"{name}.{fn_name}"
+
+    def launch(name, fn, dev, *args):
+        seen["launch"] = (name, fn, args)
+
+    monkeypatch.setattr(_build, "kernel", kernel)
+    monkeypatch.setattr(_build, "launch", launch)
+    return seen
+
+
+def test_sort_perm_hands_the_packed_layout_to_the_kernel(monkeypatch):
+    """On a card, kernel A gets pack_lanes' layout flattened after the key
+    pointers and minimums, and a scratch sized by the most digits (a fake
+    entry point records the call; the tensors stay on the CPU)."""
+    seen = _fake_build(monkeypatch, "sort_perm_scratch_bytes")
+    n = 5
+    keys = [torch.zeros(n, dtype=torch.int64) for _ in MAIN_BOUNDS]
+    perm = sort_ops._launch(keys, MAIN_BOUNDS)
+    name, fn, args = seen["launch"]
+    assert (name, fn, seen["scratch"]) == ("sort_perm", "sort_perm.sort_perm_launch",
+                                           ("sort_perm", n, 8))
+    assert list(args[1]) == [lo for lo, _ in MAIN_BOUNDS] and args[2] == 3
+    assert [list(a) for a in args[3:7]] == MAIN_LAYOUT
+    assert (args[7], args[8], args[9]) == (2, n, perm.data_ptr())  # keys, rows, the output
+
+
+def test_scan_kernel_hands_the_packed_layout_to_the_kernel(monkeypatch):
+    """On a card, scan_kernel gets the same flattened layout after the key
+    pointers, their minimums and the primary-key count."""
+    seen = _fake_build(monkeypatch, "scan_scratch_bytes")
+    n = 5
+    keys = [torch.zeros(n, dtype=torch.int64) for _ in MAIN_BOUNDS]
+    lanes = {"v": torch.zeros(n, dtype=torch.float64), "f": torch.zeros(n, dtype=torch.uint8)}
+    scan_ops._launch(lanes, keys, MAIN_BOUNDS, 2, n, None, True, False, torch.device("cpu"))
+    name, fn, args = seen["launch"]
+    assert (name, fn, seen["scratch"]) == ("scan_kernel", "scan_kernel.scan_launch",
+                                           ("scan_kernel", n, 8))
+    assert list(args[1]) == [lo for lo, _ in MAIN_BOUNDS] and args[2:4] == (3, 2)
+    assert [list(a) for a in args[4:8]] == MAIN_LAYOUT
+    assert args[8:13] == (2, n, 0, 0, 1)  # keys, rows, no mask, presorted, dedup
+    assert list(args[15]) == [8, 1] and args[16] == 2  # the gathered lanes' widths
+
+
+@pytest.mark.parametrize("bounds,digits", [([(5, 5), (-3, -3)], 1), ([(0, 0)], 1),
+                                           ([(0, 2**64 - 1), (0, 2**64 - 1)], 8),
+                                           ([(0, 255), (0, 1)], 2)])
+def test_layout_counts_keys_and_the_most_digits(bounds, digits):
+    """Constant keys pack into no key (the kernels return the identity and
+    launch no sweep); the scratch is sized by the widest key, one digit at
+    least."""
+    args, most = keychain.layout(bounds)
+    assert most == digits
+    assert args[-1] == len(keychain.pack_lanes(bounds))
+
+
+@pytest.mark.parametrize("asked,current,want", [
+    ("cuda", 0, "cuda:0"), ("cuda", 1, "cuda:1"), (torch.device("cuda"), 1, "cuda:1"),
+    ("cuda:1", 0, "cuda:1"), (torch.device("cuda", 0), 1, "cuda:0"), ("cpu", 1, "cpu")])
+def test_resolve_device_gives_a_bare_cuda_the_current_index(monkeypatch, asked, current, want):
+    """A bare "cuda" resolves to the current device with its index, so it
+    equals the device of the tensors made on it; an index given stays, and
+    the CPU stays the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    dev = resolve_device(asked)
+    assert dev == torch.device(want) and str(dev) == want

@@ -253,6 +253,7 @@ from horaedb_tpu.ops.blocks import Block  # noqa: E402
 from horaedb_tpu.storage import read as jread  # noqa: E402
 from horaedb_tpu_torch.common.error import HoraeError  # noqa: E402
 from horaedb_tpu_torch.ops import filter as tfilter  # noqa: E402
+from horaedb_tpu_torch.ops import keychain as tkeychain  # noqa: E402
 from horaedb_tpu_torch.ops import merge as tmerge  # noqa: E402
 from horaedb_tpu_torch.storage import read as tread  # noqa: E402
 
@@ -375,7 +376,7 @@ def _packed_lane_order(keys, bounds, mask) -> np.ndarray:
     keys built here with numpy's u64 arithmetic, one stable sort per key,
     the least significant first."""
     rows = np.flatnonzero(mask)
-    for lanes, shifts, digits in reversed(tmerge.pack_lanes(bounds)):
+    for lanes, shifts, digits in reversed(tkeychain.pack_lanes(bounds)):
         key = np.zeros(len(rows), np.uint64)
         for i, shift in zip(lanes, shifts):
             part = keys[i].numpy()[rows].view(np.uint64) - np.uint64(bounds[i][0] % 2**64)
@@ -404,7 +405,7 @@ def test_pack_lanes_order_matches_jax(case):
     want, wk = _jax_index(cols, mask, None, (), False, False)
     keys, bounds, _, _ = tread.sort_key_lanes(cols.__getitem__, SORT_KEYS, torch.device("cpu"))
     if case == "wide":
-        assert [d for _, _, d in tmerge.pack_lanes(bounds)] == [5, 6]
+        assert [d for _, _, d in tkeychain.pack_lanes(bounds)] == [5, 6]
     np.testing.assert_array_equal(_packed_lane_order(keys, bounds, mask), want)
     assert len(want) == wk
 
@@ -414,13 +415,49 @@ def test_pack_lanes_layouts():
     write sequences) pack into a key of 8 digits and one of 4; spans of 64
     bits fill a key; constant lanes go nowhere."""
     u64 = 2**64 - 1
-    assert tmerge.pack_lanes([(-(2**63), 2**63 - 1), (0, 7_199_999), (0, 24)]) == [
+    assert tkeychain.pack_lanes([(-(2**63), 2**63 - 1), (0, 7_199_999), (0, 24)]) == [
         ((0,), (0,), 8), ((1, 2), (5, 0), 4)]
-    assert tmerge.pack_lanes([(0, 2**40), (5, 5), (0, 2**20)]) == [((0, 2), (21, 0), 8)]
-    assert tmerge.pack_lanes([(0, 1), (0, 2**63 - 1)]) == [((0, 1), (63, 0), 8)]
-    assert tmerge.pack_lanes([(0, u64), (0, u64)]) == [((0,), (0,), 8), ((1,), (0,), 8)]
-    assert tmerge.pack_lanes([(3, 3)]) == []
-    assert tmerge.pack_lanes([]) == []
+    assert tkeychain.pack_lanes([(0, 2**40), (5, 5), (0, 2**20)]) == [((0, 2), (21, 0), 8)]
+    assert tkeychain.pack_lanes([(0, 1), (0, 2**63 - 1)]) == [((0, 1), (63, 0), 8)]
+    assert tkeychain.pack_lanes([(0, u64), (0, u64)]) == [((0,), (0,), 8), ((1,), (0,), 8)]
+    assert tkeychain.pack_lanes([(3, 3)]) == []
+    assert tkeychain.pack_lanes([]) == []
+
+
+def _packed_sort_cases():
+    """Key lanes (most significant first) of 4,099 rows, u64 edges among them."""
+    rng = np.random.default_rng(41)
+    n = 4099
+    edges = np.array([0, 2**63, 2**64 - 1], np.uint64)
+    u64 = rng.integers(0, 2**64 - 1, n, dtype=np.uint64, endpoint=True)
+    u64[:3] = edges
+    ts = 1_700_000_000_000 + rng.integers(0, 7_200_000, n).astype(np.int64)
+    return {
+        # the write batch: tsid (8 digits) and ts (23 bits, 3 digits), two keys
+        "tsid_ts": [np.full(n, 1, np.uint64), rng.choice(u64, n), np.zeros(n, np.uint64), ts],
+        "u64_edges_only": [rng.choice(edges, n), rng.integers(0, 3, n).astype(np.int64)],
+        # three narrow lanes in one key, ties everywhere
+        "one_packed_key": [rng.integers(0, 5, n).astype(np.uint64),
+                           rng.integers(-3, 3, n).astype(np.int64),
+                           rng.integers(0, 2**40, n).astype(np.int64)],
+        # full spans: one key per lane, three keys
+        "full_spans": [rng.permutation(u64), u64,
+                       np.array([-(2**63), 2**63 - 1] * (n // 2) + [0], np.int64)],
+        "one_key": [u64],
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_packed_sort_cases()))
+def test_packed_keys_order_matches_jax_sort_perm(case):
+    """Sorting by the packed keys kernel A now sorts by (pack_lanes over
+    the mapped keys, one stable sort per key, the least significant first)
+    gives the JAX package's _sort_perm permutation."""
+    keys = _packed_sort_cases()[case]
+    mapped = [torch.from_numpy(order_key(k)) for k in keys]
+    bounds = [(int(m.min()), int(m.max())) for m in mapped]
+    got = _packed_lane_order(mapped, bounds, np.ones(len(keys[0]), bool))
+    want = np.asarray(jsort._sort_perm(tuple(jnp.asarray(k) for k in keys), len(keys)))
+    np.testing.assert_array_equal(got, want)
 
 
 def test_index_merge_hands_the_packed_layout_to_the_kernel(monkeypatch):
