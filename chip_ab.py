@@ -60,21 +60,29 @@ after it. Where `host_us` exceeds `device_ms`, the events loop measures
 the host. `host_parts_us` times the pieces a launch path is made of
 (an allocation, a view, the stream handle, a device switch, a ctypes
 call that does no work). It splits the other rows under 0.1 ms the same
-way (the four decode kernels on 2^17-row synthetic lanes, the mesh key
-kernel on 3.6M rows). `--root` as for `reduce`, for a tree that has
-`_build.launch`.
+way: the four decode kernels on the lanes phase 4 times them on (3g's
+re-send SST, 1.8M rows in 440 pages: `ts` dod, `tsid` rle, `field_id`
+dict; 3h's `up` values, 30,000 rows, xor), each with its library
+yardstick where one exists, and `decode_dod_host_parts_us` (the decode
+wrapper's checks, its output's allocation, the kernel lookup, the device
+context and Stream object the decoders entered before `_build.launch`,
+the raw stream handle); and the mesh key kernel on 3.6M rows. `--root` as
+for `reduce`, for a tree that has `_build.launch`.
 
-`merge` splits the three merges that sort through a digit sort at the
-smoke's main shapes: `index_merge_mask` and `index_merge_filter` (rows 19
-and 20: one 2 h segment of chip_smoke.make_data, about 7.56M rows, its
-sort-key lanes; the filter an InSet of 1,000 tsids and a ts range) and
-`sample_sort_merge` (row 14: that segment's dense (series_id, ts, seq)
-key, 42 bits, over 8 slots of the card). For each: `events_ms` and
-`device_ms` as for `launch`, `device_ms_by_part` (torch.profiler, by
-kernel name: the predicate, the partition, the key passes, the digit
-sweeps or radix passes, the single-block tile scans, the compaction,
-the bucket scatter, copies and memsets), `device_ms_by_kernel`, and
-`host_us` / `wall_us` over 50 calls; then, end to end, seven raw scans
+`merge` splits the four merges that sort through a digit sort at the
+smoke's main shapes: `packed_merge` (row 18: one 2 h segment of
+chip_smoke.make_data, about 7.56M rows, its dense (series_id, ts, seq)
+key, 42 bits; with its plain version's and its library yardstick's
+events ms), `index_merge_mask` and `index_merge_filter` (rows 19 and 20:
+that segment's sort-key lanes; the filter an InSet of 1,000 tsids and a
+ts range) and `sample_sort_merge` (row 14: the dense key over 8 slots of
+the card). For each: `events_ms` and `device_ms` as for `launch`,
+`device_ms_by_part` (torch.profiler, by kernel name: the predicate, the
+partition, the key passes, the look-back digit sweeps, radix.cuh's digit
+passes and, apart, their one-block scans of the (digit, tile) counts, the
+compactions' one-block tile scans, the compaction, the bucket scatter,
+copies and memsets), `device_ms_by_kernel`, and `host_us` / `wall_us`
+over 50 calls; then, end to end, seven raw scans
 of that segment (written as phase 3a writes it) on each route that
 launches kernel F (`scans`: host seconds after a synchronise, and the
 kernels launched). `--root` as for `reduce`.
@@ -137,6 +145,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import ctypes
 import importlib.util
 import json
 import os
@@ -316,6 +325,26 @@ def launch_split(torch, cs, fn, iters: int = 1000) -> dict:
     return out
 
 
+def timed_parts(parts: dict, iters: int = 10_000) -> dict:
+    """Host us a call of each part, perf_counter around `iters` calls
+    after one."""
+    out = {}
+    for name, part in parts.items():
+        part()
+        t = time.perf_counter()
+        for _ in range(iters):
+            part()
+        out[name] = (time.perf_counter() - t) / iters * 1e6
+    return out
+
+
+def _stream_in_context(torch, dev):
+    """The launch path the decoders took before `_build.launch`: the
+    device context and a Stream object on every launch."""
+    with torch.cuda.device(dev):
+        return torch.cuda.current_stream(dev).cuda_stream
+
+
 def host_parts(torch, dev, iters: int = 10_000) -> dict:
     """Host us a call of the pieces a launch path is made of, on this
     machine: perf_counter around `iters` calls."""
@@ -343,13 +372,7 @@ def host_parts(torch, dev, iters: int = 10_000) -> dict:
         "ctypes_call_no_work": lambda: fn(*nothing),
         "build_launch_no_work": lambda: _build.launch("lane_sum_count", fn, dev, *nothing[:-1]),
     }
-    out = {}
-    for name, part in parts.items():
-        part()
-        t = time.perf_counter()
-        for _ in range(iters):
-            part()
-        out[name] = (time.perf_counter() - t) / iters * 1e6
+    out = timed_parts(parts, iters)
     torch.cuda.synchronize()
     return out
 
@@ -387,32 +410,76 @@ def launch_times(torch, cs, rng, dev) -> dict:
     return out
 
 
-def small_rows(torch, cs, rng, dev) -> dict:
-    """The split of the other rows under 0.1 ms: the four decode kernels
-    on the calibration's synthetic lanes (2^17 rows; xor a constant lane,
-    as 3g's value lane is) and the mesh key kernel on one slot of 3l's
-    mesh downsample (3.6M sorted rows, 5,000 series x 48 buckets)."""
-    from horaedb_tpu_torch.ops import decode
-    from horaedb_tpu_torch.ops import mesh as mesh_ops
+def encoded_lanes(cs, rng) -> dict:
+    """The lanes phase 4 times the decode kernels on, as the smoke's
+    encoded writes make them: the largest SST of phase 3g is its 5 %
+    re-send (1.8M rows of TSBS cpu-only's ten fields, sorted by the primary
+    key as a write sorts them), whose ts lane encodes as dod, tsid as rle
+    and field_id as dict; phase 3h's SSTs hold three scrapes of Prometheus
+    `up` (30,000 rows), whose value lane encodes as xor at width 0. Each
+    lane through `encode_lane`, as `encode_table` picks its codec."""
     from horaedb_tpu_torch.storage import encoding as enc_mod
 
+    tsids, values, resend, _new, _final = cs.make_enc_data(rng)
+    hosts, fields, scrapes = values.shape
+    del values, _new, _final
+    flat = np.sort(resend)  # tsids ascend with the host: flat order is (tsid, field, ts)
+    h, rem = np.divmod(flat, fields * scrapes)
+    f, sc = np.divmod(rem, scrapes)
+    page_rows = enc_mod.DEFAULT_PAGE_ROWS
+    lanes = {"tsid": enc_mod.encode_lane("tsid", tsids[h], page_rows),
+             "field_id": enc_mod.encode_lane("field_id", f.astype(np.uint64), page_rows),
+             "ts": enc_mod.encode_lane("ts", cs.T0 + sc.astype(np.int64) * cs.INTERVAL_MS,
+                                       page_rows, prefer_ts=True),
+             "up": enc_mod.encode_lane("value", np.ones(3 * hosts), page_rows)}
+    return {lane.codec: (name, lane) for name, lane in lanes.items()}
+
+
+def small_rows(torch, cs, rng, dev) -> dict:
+    """The split of the other rows under 0.1 ms: the four decode kernels
+    on the lanes phase 4 times them on (`encoded_lanes`) and the mesh key
+    kernel on one slot of 3l's mesh downsample (3.6M sorted rows, 5,000
+    series x 48 buckets). Each decode also gets its library yardstick
+    where one computes its function (chip_smoke.decode_library), and
+    `host_parts_us` the pieces of a decode wrapper's host path."""
+    from horaedb_tpu_torch.ops import _build
+    from horaedb_tpu_torch.ops import decode
+    from horaedb_tpu_torch.ops import mesh as mesh_ops
+
     out = {}
+    lanes = encoded_lanes(cs, rng)
     for codec, name in cs.DECODE_NAMES.items():
-        if codec == "xor":  # the synthetic lane's normal floats leave the envelope
-            lane = enc_mod._encode_xor(np.full(1 << 17, 42.5), enc_mod.DEFAULT_PAGE_ROWS)
-        else:
-            lane, _ = decode._synth_lane(codec, 1 << 17)
+        cs.require(codec in lanes, f"no lane encoded as {codec}: {sorted(lanes)}")
+        lane_name, lane = lanes[codec]
         dt = np.dtype(lane.dtype)
         pages = [p for p in lane.pages if decode.in_envelope(codec, dt, p, lane.dict_values)]
-        if not pages:
-            continue
+        cs.require(len(pages) == len(lane.pages), f"{lane_name}: pages outside the envelope")
         s = decode.stage_pages(codec, dt, lane.payload, pages, lane.dict_values, dev)
         args = {"dict": (s.words, s.table, s.dict_bits, s.rows),
                 "rle": (s.words, s.table, s.cum, s.rows, dt.itemsize)}.get(
                     codec, (s.words, s.table, s.rows, dt.itemsize))
         kern = getattr(decode, name)
-        out[f"{name}_shape"] = f"{s.rows} rows, {len(pages)} pages"
+        got = decode.run_pages(s)
+        cs.require(torch.equal(got, decode.run_pages_plain(s)), f"{name} != plain")
+        widths = sorted({p.width for p in pages})
+        out[f"{name}_shape"] = f"{s.rows} rows, {len(pages)} pages, {lane_name}, widths {widths}"
         out[name] = launch_split(torch, cs, lambda kern=kern, args=args: kern(*args))
+        library = cs.decode_library(torch, decode, s, got)
+        if library is not None:
+            out[f"{name}_library"] = launch_split(torch, cs, library[0], iters=100)
+        if codec == "dod":
+            dod = s
+    p = ctypes.c_void_p
+    fn = _build.kernel("decode_dod", "decode_dod_launch", [p, p, ctypes.c_int64, ctypes.c_int,
+                                                           p, p])
+    out["decode_dod_host_parts_us"] = timed_parts({
+        "check": lambda: decode._check("decode_dod", dod.words, dod.table, 8),
+        "out_alloc": lambda: decode._out(dod.rows, 8, dev),
+        "kernel_lookup": lambda: _build.kernel("decode_dod", "decode_dod_launch",
+                                               fn.argtypes[:-1]),
+        "device_context_and_stream": lambda: _stream_in_context(torch, dev),
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+    })
     series, buckets = cs.NUM_SERIES // 2, cs.WINDOW_MS // cs.BUCKET_MS
     per = 720
     n = series * per
@@ -428,22 +495,29 @@ def small_rows(torch, cs, rng, dev) -> dict:
     return out
 
 
-# (part, pattern of the profiler's kernel name), the first match wins
+# (part, pattern of the profiler's kernel name), the first match wins;
+# radix::scan_kernel right after a radix::hist_kernel is a digit pass's
+# scan of its (digit, tile) counts, elsewhere a compaction's tile scan
+DIGIT_SCAN = "digit passes' scan (radix::scan_kernel, one block)"
 MERGE_PARTS = (
     ("predicate", ("predicate", "program")),
-    ("partition", ("MaskFlag", "NotSentinel")),
-    ("compaction", ("KeepLast", "AllFlag", "AllRowIds")),
-    ("tile scan (radix::scan_kernel, one block)", ("radix::scan_kernel",)),
+    ("partition", ("MaskFlag", "NotSentinel", "RowFlag")),
+    ("compaction", ("KeepLast", "AllFlag", "AllRowIds", "AllRows")),
+    ("tile scan (one block)", ("radix::scan_kernel", "compact::tile_scan_kernel")),
     ("key passes", ("onesweep::key_kernel", "onesweep::decide_kernel", "onesweep::zero_kernel",
                     "onesweep::compact_kernel", "radix::gather_kernel", "iota_kernel")),
-    ("digit sweeps", ("onesweep::sweep_kernel", "radix::hist_kernel", "radix::scatter_kernel")),
+    ("digit sweeps", ("onesweep::sweep_kernel",)),
+    ("digit passes (radix::hist_kernel, radix::scatter_kernel)",
+     ("radix::hist_kernel", "radix::scatter_kernel")),
     ("bucket scatter", ("starts_kernel", "fill_kernel", "scatter_kernel")),
     ("copies and the exchange's torch ops", ("Memcpy", "at::native")),
     ("memsets", ("Memset",)),
 )
 
 
-def merge_part(name: str, parts=MERGE_PARTS) -> str:
+def merge_part(name: str, parts=MERGE_PARTS, prev: str = "") -> str:
+    if "radix::scan_kernel" in name and "radix::hist_kernel" in prev:
+        return DIGIT_SCAN
     for part, patterns in parts:
         if any(p in name for p in patterns):
             return part
@@ -460,13 +534,17 @@ def merge_split(torch, cs, fn, iters: int = 50, parts=MERGE_PARTS) -> dict:
             fn()
         torch.cuda.synchronize()
     by_kernel, by_part = {}, {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms = e.time_range.elapsed_us() / 5e3
-            name = cs.kernel_name(e.name)
-            by_kernel[name] = by_kernel.get(name, 0.0) + ms
-            part = merge_part(name, parts)
-            by_part[part] = by_part.get(part, 0.0) + ms
+    prev = ""
+    for e in sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
+        ms = e.time_range.elapsed_us() / 5e3
+        name = cs.kernel_name(e.name)
+        by_kernel[name] = by_kernel.get(name, 0.0) + ms
+        part = merge_part(name, parts, prev)
+        by_part[part] = by_part.get(part, 0.0) + ms
+        if not name.startswith(("Memcpy", "Memset")):
+            prev = name
     out["device_ms"] = sum(by_kernel.values())
     out["device_ms_by_part"] = dict(sorted(by_part.items(), key=lambda kv: -kv[1]))
     out["device_ms_by_kernel"] = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1]))
@@ -509,12 +587,24 @@ def merge_times(torch, cs, rng, dev) -> dict:
         torch, cs, lambda: merge.index_merge_filter(keys, bounds, num_pk, prog, plane, n, True,
                                                     False, dev))
     packed, width, bits = _pack_sort_keys(seg.__getitem__, ("series_id", "ts", "__seq__"), n)
+    key = torch.from_numpy(order_key(packed)).to(dev)
+    got, want = merge.packed_merge(key, bits, width, True), merge.packed_merge_plain(key, width,
+                                                                                     True)
+    cs.require(cs.same_survivors(torch, got, want), "packed_merge differs from its plain version")
+    out["packed_merge_shape"] = (f"{n} rows, {bits}-bit key (series_id, ts, seq rank), "
+                                 f"{int(got[1].item())} survivors")
+    del got, want
+    out["packed_merge"] = merge_split(torch, cs, lambda: merge.packed_merge(key, bits, width,
+                                                                            True))
+    out["packed_merge"]["plain_ms"] = cs.cuda_ms(
+        torch, lambda: merge.packed_merge_plain(key, width, True), iters=5)
+    out["packed_merge"]["library_ms"] = cs.cuda_ms(
+        torch, lambda: cs.packed_merge_library(torch, key, width), iters=5)
     mesh = cs.card_mesh(torch, dev, cs.MERGE_SLOTS)
     plan = pmerge.SamplePlan(packed, width, True, mesh, bits)
     out["sample_sort_merge_shape"] = (f"{n} rows over {plan.d_slots} slots of one card, "
                                       f"{bits}-bit key")
     out["sample_sort_merge"] = merge_split(torch, cs, plan.run, iters=10)
-    key = torch.from_numpy(order_key(packed)).to(dev)
     out["one_key_sort_ms"] = cs.cuda_ms(torch, lambda: torch.sort(key, stable=True), iters=5)
     out["scans"] = asyncio.run(scan_times(torch, cs, rng, dev, data))
     return out
@@ -524,7 +614,7 @@ def merge_times(torch, cs, rng, dev) -> dict:
 SORT_PARTS = (
     ("predicate", ("predicate", "program")),
     ("partition", ("RowFlag", "MaskFlag")),
-    ("tile scan (radix::scan_kernel, one block)", ("radix::scan_kernel",)),
+    ("tile scan (one block)", ("radix::scan_kernel", "compact::tile_scan_kernel")),
     ("key passes", ("onesweep::key_kernel", "onesweep::decide_kernel", "onesweep::zero_kernel",
                     "onesweep::compact_kernel", "radix::gather_kernel", "iota_kernel")),
     ("digit sweeps", ("onesweep::sweep_kernel", "radix::hist_kernel", "radix::scatter_kernel")),

@@ -30,7 +30,7 @@ Phases, each of which exits non-zero on failure:
    and the decode kernels decode_unpack, decode_dod, decode_xor and
    decode_rle, bitwise on u64 views, on lanes at widths 0, 1, 17, 31 and
    32, a middle page of width 33 (the host fills it), pages of 1, 2, 3,
-   4,096 and 10,000 rows, i64 extremes and wraps mod 2^64, NaN payloads,
+   4,095, 4,096 and 10,000 rows, i64 extremes and wraps mod 2^64, NaN payloads,
    +-0.0 and +-inf in f64 and f32, values >= 2^63, i4/u4 lanes, runs of 1
    and a run across pages; and stacked_downsample, bitwise on every grid
    (sums as u64 views) against its plain version on CPU copies, with
@@ -555,12 +555,26 @@ def check_kernels(torch, rng, dev) -> list[dict]:
 
 SORT_KEYS = ("metric_id", "tsid", "field_id", "ts", "__seq__")
 U64_MAX = np.uint64(2**64 - 1)
+I64_MAX = 2**63 - 1  # the mapped packed sentinel
 
 
 def same_survivors(torch, got, want) -> bool:
     (out, k), (pout, pk) = got, want
     k, pk = int(k.item()), int(pk.item())
     return k == pk and torch.equal(out[:k], pout[:pk])
+
+
+def packed_merge_library(torch, key, seq_width: int):
+    """packed_merge's function in the fewest PyTorch calls: one stable sort
+    of the mapped keys, the keep-last flags (the next sorted key's group
+    differs, the sentinel drops) and one boolean-index compaction. The
+    mapped key's arithmetic shift groups as the raw key's does, and no valid
+    key's group meets the sentinel's."""
+    sk, perm = torch.sort(key, stable=True)
+    grp = sk >> seq_width
+    keep = sk != I64_MAX
+    keep[:-1] &= grp[1:] != grp[:-1]
+    return perm[keep]
 
 
 def merge_edge_cases(rng):
@@ -694,16 +708,23 @@ def check_merge_kernels(torch, rng, dev, data) -> list[dict]:
     want = merge.packed_merge_plain(key, width, True)
     require(same_survivors(torch, got, want), "packed_merge != plain at the main path shape")
     k = int(got[1].item())
+    require(torch.equal(packed_merge_library(torch, key, width), got[0][:k].long()),
+            "packed_merge's library yardstick differs from the kernel")
     nb, kind = bound(n * 8 + k * 4, 0)
     records.append({
         "name": "packed_merge", "route": "cuda",
-        "source": "horaedb_tpu_torch/ops/csrc/packed_merge.cu",
+        "source": "horaedb_tpu_torch/ops/csrc/packed_merge.cu + packedsort.cuh, onesweep.cuh",
         "replaces": "horaedb_tpu/storage/read.py:405",
         "shape": f"{n} rows, {bits}-bit packed key (series_id, ts, seq rank), {k} survivors",
+        "sort_path": f"valid-row partition, then onesweep.cuh's look-back sort of the raw "
+                     f"key: one key pass, {(bits + 7) // 8} sweeps",
         "max_abs_err": 0.0,
         "ms": cuda_ms(torch, lambda: merge.packed_merge(key, bits, width, True)),
         "plain_ms": cuda_ms(torch, lambda: merge.packed_merge_plain(key, width, True)),
-        "bound_ms": nb, "bound_by": kind, "library_ms": None,
+        "bound_ms": nb, "bound_by": kind,
+        "library_ms": cuda_ms(torch, lambda: packed_merge_library(torch, key, width)),
+        "library_call": "one stable torch.sort, the keep-last flags, one boolean-index "
+                        "compaction",
         "one_key_sort_ms": cuda_ms(torch, lambda: torch.sort(key, stable=True)),
     })
     # F with a host mask: metric_id eq keeps every row of this data
@@ -1245,14 +1266,14 @@ DECODE_REPLACES = {"dict": "horaedb_tpu/ops/decode.py:94", "dod": "horaedb_tpu/o
 def decode_cases(rng):
     """(name, codec, array, page_rows, extra encoder args) of phase 2's
     decode checks: widths 0, 1, 17, 31 and 32 on every bit-packed codec, a
-    middle page of width 33, pages of 1, 2, 3, 4,096 and 10,000 rows, wraps
+    middle page of width 33, pages of 1, 2, 3, 4,095, 4,096 and 10,000 rows, wraps
     mod 2^64, NaN payloads and +-0.0 and +-inf, values >= 2^63, i4/u4 lanes."""
     i64 = np.iinfo(np.int64)
 
-    def dod_at(width: int, n: int = 9000) -> np.ndarray:
+    def dod_at(width: int, n: int = 9000, g=rng) -> np.ndarray:
         """Timestamps whose zigzag second differences need `width` bits."""
         half = 1 << max(width - 1, 0)
-        dd = rng.integers(-half, half, n - 2) if width else np.zeros(n - 2, np.int64)
+        dd = g.integers(-half, half, n - 2) if width else np.zeros(n - 2, np.int64)
         if width:
             dd[n // 2] = -half  # zigzag(-2^(w-1)) = 2^w - 1
         d = 15_000 + np.concatenate([[0], np.cumsum(dd)])
@@ -1309,6 +1330,9 @@ def decode_cases(rng):
         ("rle u4", "rle", np.repeat(np.arange(300, dtype=np.uint32) + np.uint32(2**31), 30),
          4096, ()),
     ]
+    # its own draws, so the later phases' data stays as it was
+    cases.append(("dod pages of 4095 rows", "dod", dod_at(17, 8191, np.random.default_rng(12)),
+                  4095, ()))
     return cases
 
 
@@ -1375,11 +1399,54 @@ class CaptureDecode:
         decode.run_pages = self.orig
 
 
+def decode_library(torch, decode, s, got):
+    """The library yardstick of a decode kernel on staged pages `s`, whose
+    kernel output is `got`: (call, what it computes), or None where no
+    PyTorch call computes the function (xor). rle: repeat_interleave of the
+    run values by their lengths, checked equal to `got`; dict: the plain
+    unpack of the ids and one dictionary gather, checked equal; dod: the
+    plain unpack and two cumsums (no segments, no zigzag: fewer calls than
+    the function needs)."""
+    table = s.table.cpu().numpy()
+    itemsize = s.dtype.itemsize
+    dev = s.words.device
+    if s.codec == "rle":
+        words, cum = s.words.cpu().numpy(), s.cum.cpu().numpy()
+        vals, lens = [], []
+        for _out_off, _rows, wo, _w, runs, at in table:
+            w = words[wo:wo + runs * itemsize // 4]
+            vals.append(w.view(np.int64) if itemsize == 8 else w)
+            lens.append(np.diff(np.concatenate([[0], cum[at:at + runs]])))
+        vals_t = torch.from_numpy(np.concatenate(vals)).to(dev)
+        lens_t = torch.from_numpy(np.concatenate(lens)).to(dev)
+
+        def library():
+            return torch.repeat_interleave(vals_t, lens_t, output_size=s.rows)
+        require(torch.equal(library().cpu(), got.cpu()),
+                "repeat_interleave differs from decode_rle")
+        return library, "repeat_interleave of the run values by their lengths"
+    if s.codec == "xor":
+        return None
+    _page, i, t = decode._row_pages(s.table, s.rows)
+    wd, wo = t[:, 3], t[:, 2]
+    if s.codec == "dict":
+        def library():
+            return s.dict_bits[decode._unpack_plain(s.words, wo, i * wd, wd)]
+        require(torch.equal(library().cpu(), got.cpu()),
+                "unpack + gather differs from decode_unpack")
+        return library, "the plain unpack of the ids + one dictionary gather"
+    bit = (i - 2).clamp(min=0) * wd
+
+    def library():
+        z = decode._unpack_plain(s.words, wo, bit, wd)
+        return torch.cumsum(torch.cumsum(z, 0), 0)
+    return library, "the plain unpack + two cumsum (no segments, no zigzag)"
+
+
 def decode_records(torch, cap: CaptureDecode, dev) -> list[dict]:
     """Phase 4, continued: the four decode kernels against their plain
     versions on the largest lane each decoded on the 3g/3h paths, timed,
-    with their library yardsticks (rle: repeat_interleave; dod: the plain
-    unpack and two cumsums; none computes unpack or xor)."""
+    with their library yardsticks (decode_library)."""
     from horaedb_tpu_torch.ops import decode
 
     records = []
@@ -1395,22 +1462,8 @@ def decode_records(torch, cap: CaptureDecode, dev) -> list[dict]:
                 "rle": (s.words, s.table, s.cum, s.rows, itemsize)}.get(
                     codec, (s.words, s.table, s.rows, itemsize))
         kern, plain = getattr(decode, name), getattr(decode, f"{name}_plain")
-        library, call = None, None
+        library, call = decode_library(torch, decode, s, got) or (None, None)
         if codec == "rle":
-            words, cum = s.words.cpu().numpy(), s.cum.cpu().numpy()
-            vals, lens = [], []
-            for _out_off, _rows, wo, _w, runs, at in table:
-                w = words[wo:wo + runs * itemsize // 4]
-                vals.append(w.view(np.int64) if itemsize == 8 else w)
-                lens.append(np.diff(np.concatenate([[0], cum[at:at + runs]])))
-            vals_t = torch.from_numpy(np.concatenate(vals)).to(dev)
-            lens_t = torch.from_numpy(np.concatenate(lens)).to(dev)
-            rep = torch.repeat_interleave(vals_t, lens_t, output_size=s.rows)
-            require(torch.equal(rep.cpu(), got.cpu()), "repeat_interleave differs from decode_rle")
-
-            def library():
-                return torch.repeat_interleave(vals_t, lens_t, output_size=s.rows)
-            call = "repeat_interleave of the run values by their lengths"
             in_bytes = int(table[:, 4].sum()) * (itemsize + 4)
         else:
             stream = {"dict": rows, "dod": np.maximum(rows - 2, 0),
@@ -1418,14 +1471,6 @@ def decode_records(torch, cap: CaptureDecode, dev) -> list[dict]:
             in_bytes = float((stream * width).sum()) / 8
             if codec == "dict":
                 in_bytes += s.dict_bits.numel() * itemsize
-        if codec == "dod":
-            _page, i, t = decode._row_pages(s.table, s.rows)
-            bit, wd, wo = (i - 2).clamp(min=0) * t[:, 3], t[:, 3], t[:, 2]
-
-            def library():
-                z = decode._unpack_plain(s.words, wo, bit, wd)
-                return torch.cumsum(torch.cumsum(z, 0), 0)
-            call = "the plain unpack + two cumsum (no segments, no zigzag)"
         nb, kind = bound(in_bytes + s.rows * itemsize, 0)
         records.append({
             "name": name, "route": "cuda",

@@ -43,18 +43,20 @@ from horaedb_tpu_torch.common.error import HoraeError
 
 # catalog names are the JAX package's (`common/xprof.py` kernel names);
 # each maps to its sources: every `.cu` is compiled into one library, the
-# headers are hashed into its name (radix.cuh wherever compact.cuh, which
-# includes it, is). The four decode kernels share bitunpack.cuh;
-# keychain.cuh's chain of look-back sorts serves sort_perm, scan_kernel and
-# the index merges. predicate.cu is kernel E, which runs
-# inside index_merge_filter and scan_kernel and is not a catalog kernel of
-# its own. downsample computes its cell ids in grouped_stats' key pass: it
-# loads that library (SHARED), and a downsample call counts once under
-# each name. A stacked_downsample call launches two libraries,
-# stacked_downsample (the cell ids) and grouped_stats (the reduction), and
-# counts once in each. multisegment_downsample is sharded_downsample's key
-# kernel with a per-segment t0: it loads that library (SHARED) and counts
-# its launches under its own name.
+# headers are hashed into its name (onesweep.cuh and compact.cuh wherever
+# packedsort.cuh or keychain.cuh, which include them, is). The four decode
+# kernels share bitunpack.cuh; keychain.cuh's chain of look-back sorts
+# serves sort_perm, scan_kernel and the index merges; packedsort.cuh's
+# merge by one packed key serves packed_merge and sample_sort_merge.
+# predicate.cu is kernel E, which runs inside index_merge_filter and
+# scan_kernel and is not a catalog kernel of its own. downsample computes
+# its cell ids in grouped_stats' key pass: it loads that library (SHARED),
+# and a downsample call counts once under each name. A stacked_downsample
+# call launches two libraries, stacked_downsample (the cell ids) and
+# grouped_stats (the reduction), and counts once in each.
+# multisegment_downsample is sharded_downsample's key kernel with a
+# per-segment t0: it loads that library (SHARED) and counts its launches
+# under its own name.
 KERNELS = ("sort_perm", "block_sum_count", "block_min_max", "packed_merge",
            "index_merge_mask", "index_merge_filter", "scan_kernel", "downsample",
            "grouped_stats", "decode_unpack", "decode_dod", "decode_xor", "decode_rle",
@@ -64,13 +66,11 @@ SOURCES = {
     "sort_perm": ("sort_perm.cu", "keychain.cuh", "onesweep.cuh"),
     "block_sum_count": ("block_sum_count.cu", "segreduce.cuh"),
     "block_min_max": ("block_min_max.cu", "segreduce.cuh"),
-    "packed_merge": ("packed_merge.cu", "compact.cuh", "radix.cuh"),
-    "index_merge_mask": ("index_merge.cu", "keychain.cuh", "onesweep.cuh", "compact.cuh",
-                         "radix.cuh"),
+    "packed_merge": ("packed_merge.cu", "packedsort.cuh", "onesweep.cuh", "compact.cuh"),
+    "index_merge_mask": ("index_merge.cu", "keychain.cuh", "onesweep.cuh", "compact.cuh"),
     "index_merge_filter": ("index_merge.cu", "predicate.cu", "keychain.cuh", "onesweep.cuh",
-                           "compact.cuh", "radix.cuh"),
-    "scan_kernel": ("scan.cu", "predicate.cu", "keychain.cuh", "onesweep.cuh", "compact.cuh",
-                    "radix.cuh"),
+                           "compact.cuh"),
+    "scan_kernel": ("scan.cu", "predicate.cu", "keychain.cuh", "onesweep.cuh", "compact.cuh"),
     "grouped_stats": ("grouped_stats.cu", "onesweep.cuh", "segreduce.cuh"),
     "decode_unpack": ("decode_unpack.cu", "bitunpack.cuh"),
     "decode_dod": ("decode_dod.cu", "bitunpack.cuh"),
@@ -79,7 +79,8 @@ SOURCES = {
     "stacked_downsample": ("stacked_downsample.cu",),
     "lane_sum_count": ("lane_sum_count.cu",),
     "segment_last_value": ("segment_last_value.cu",),
-    "sample_sort_merge": ("sample_sort_merge.cu", "compact.cuh", "radix.cuh", "onesweep.cuh"),
+    "sample_sort_merge": ("sample_sort_merge.cu", "packedsort.cuh", "onesweep.cuh",
+                          "compact.cuh"),
     "grid_fold": ("grid_fold.cu",),
     "sharded_downsample": ("sharded_downsample.cu", "predicate.cu"),
 }

@@ -7,7 +7,9 @@
 //   page: (out_off, rows, word_off, width, p0, p1). Each kernel runs one
 //   block per page and writes the page's rows at out_off, so the output is
 //   the kept pages' rows in page order, with no padding.
-// - The two-word bit-window read of an LSB-first stream (width <= 32).
+// - The two-word bit-window read of an LSB-first stream (width <= 32),
+//   from global memory or (decode_dod so far) from a block's copy of a run
+//   of words in shared memory (`Staged`), and the zigzag decode.
 // - A block-wide inclusive scan over 64-bit words (add or xor), which wraps
 //   mod 2^64 as the JAX package's uint64 arithmetic does.
 #pragma once
@@ -40,6 +42,56 @@ __device__ __forceinline__ uint64_t unpack_at(const uint32_t* __restrict__ words
     const int64_t wi = bit >> 5;
     const uint64_t pair = (uint64_t)words[wi] | ((uint64_t)words[wi + 1] << 32);
     return (pair >> (bit & 31)) & ((1ull << width) - 1);
+}
+
+__device__ __forceinline__ uint64_t unzigzag(uint64_t z) { return (z >> 1) ^ (0ull - (z & 1)); }
+
+// A run of a page's words copied into shared memory, one pad word per
+// `1 << pad_shift` words so that the windows a warp reads at once fall on
+// distinct banks, or on two: threads that own 16 consecutive rows read
+// words W/2 apart (W the width), and one pad per 32 words spreads those
+// strides over the banks for every width but 31, whose two-thread stride
+// of 31 words pads to 32; it takes one pad per 16.
+struct Staged {
+    uint32_t* sw;
+    int pad_shift;
+    int64_t bit0;  // stream bit of staged word 0
+
+    __device__ __forceinline__ int at(int k) const { return k + (k >> pad_shift); }
+
+    // the `width`-bit value at stream bit `bit` (inside the staged run)
+    __device__ __forceinline__ uint64_t window(int64_t bit, int64_t width) const {
+        const int64_t b = bit - bit0;
+        const int k = (int)(b >> 5);
+        const uint64_t pair = (uint64_t)sw[at(k)] | ((uint64_t)sw[at(k + 1)] << 32);
+        return (pair >> (b & 31)) & ((1ull << width) - 1);
+    }
+};
+
+__device__ __forceinline__ int stage_pad_shift(int64_t width) { return width == 31 ? 4 : 5; }
+
+// Shared words a stage of `words` words takes with its pad words (at most
+// one per 16).
+constexpr int stage_capacity(int words) { return words + (words >> 4) + 1; }
+
+// Copy words [first, first + count) of `w` into `st` (count <= NMAX): every
+// load of a thread issued before its first store. Ends with a barrier.
+template <int NMAX>
+__device__ __forceinline__ void stage_words(const uint32_t* __restrict__ w, int64_t first,
+                                            int count, const Staged& st) {
+    constexpr int PER = (NMAX + kThreads - 1) / kThreads;
+    uint32_t v[PER];
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+        const int k = q * kThreads + threadIdx.x;
+        v[q] = k < count ? __ldg(w + first + k) : 0u;
+    }
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+        const int k = q * kThreads + threadIdx.x;
+        if (k < count) st.sw[st.at(k)] = v[q];
+    }
+    __syncthreads();
 }
 
 __device__ __forceinline__ void store(void* __restrict__ out, int64_t i, uint64_t v,

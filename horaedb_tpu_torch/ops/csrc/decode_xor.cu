@@ -8,9 +8,10 @@
 // +/-inf come back bit for bit.
 //
 // Bound on an H100: memory. Per row it reads width/8 bytes and writes 8
-// (or 4); the scan is one XOR per row and step. Design: decode_dod's
-// block-per-page walk over tiles with a running carry, with ^ in place of
-// +. No float arithmetic touches a value.
+// (or 4); the scan is one XOR per row and step. Design: one block per
+// page, walking the page in tiles of kThreads rows with a running carry
+// (page_rows is a knob and may exceed a block), each tile one block scan
+// in XOR. No float arithmetic touches a value.
 #include "bitunpack.cuh"
 
 namespace {
@@ -26,7 +27,9 @@ __global__ void xor_kernel(const uint32_t* __restrict__ words, const int64_t* __
     for (int64_t base = 0; base < pg.rows; base += blockDim.x) {
         const int64_t i = base + threadIdx.x;
         const bool in_page = i < pg.rows;
-        const uint64_t c = carry;  // read before the scan (see decode_dod.cu)
+        // read before the scan: its barriers order this read before the
+        // last thread's update below
+        const uint64_t c = carry;
         uint64_t x = 0;
         if (in_page) x = i == 0 ? (uint64_t)pg.p0 : dec::unpack_at(w, (i - 1) * pg.width, pg.width);
         const uint64_t bits = dec::block_inclusive_scan(x, warp_tot, dec::Xor()) ^ c;

@@ -19,19 +19,14 @@
 // per-(slot, bucket) counts, so `cap` never overflows.
 //
 //   ssm_local_launch (per slot, before the exchange):
-//     1. stable partition of the valid rows (key != sentinel) to the front
-//        (compact.cuh), the valid count on the device: a sentinel row
-//        never leaves its slot, since the merge drops it anyway, and never
-//        costs a digit pass (sorted, the all-ones key would force 8);
-//     2. onesweep.cuh's u64-key, int32-payload sort of the valid rows:
-//        its key pass gathers each valid row's raw key through the
-//        partition, the digits come from key_bits (a 42-bit key takes 6
-//        look-back sweeps), the row carried as the payload; every pass
-//        reads the valid count on the device and skips the tiles past it.
-//        The shard's rows are in global row order, so a stable sort by key
-//        alone leaves equal keys in row-id order: the two-key order
-//        (key, row id);
-//     3. start of each bucket by binary search over the sorted groups (a
+//     1. packedsort::sort_valid (packedsort.cuh, shared with kernel D):
+//        the valid rows (key != sentinel) partitioned to the front, their
+//        count on the device, then sorted by raw key on onesweep.cuh with
+//        the row as payload. A sentinel row never leaves its slot, since
+//        the merge drops it anyway. The shard's rows are in global row
+//        order, so a stable sort by key alone leaves equal keys in row-id
+//        order: the two-key order (key, row id);
+//     2. start of each bucket by binary search over the sorted groups (a
 //        bucket's rows are one contiguous range of them), then every row
 //        finds its bucket by binary search over the splitters (numpy's
 //        searchsorted side="right") and is written to
@@ -42,54 +37,17 @@
 //   ssm_merge_launch (per slot, after it): the received block holds D
 //   sorted runs, run d from slot d, whose row ids all lie below run
 //   d + 1's; so in received order equal keys are already in row-id order,
-//   and one stable sort by key gives (key, row id). Partition the valid
-//   rows, sort them as above, and compact the last row of each group
-//   (next of the last valid row = the sentinel group) writing its row id.
+//   and one stable sort by key gives (key, row id): packedsort::merge
+//   sorts the valid rows as above and compacts the last row of each group
+//   (next of the last valid row = the sentinel group), writing its row id.
 //
 // Bound on an H100: memory. Each step reads each key once (8 B/row) and
 // the merge writes 4 B per survivor; the sweeps move 12 B a valid row each
 // way per digit. No host synchronisation inside a step: the valid-row
 // count stays on the device.
-#include "compact.cuh"
-#include "onesweep.cuh"
+#include "packedsort.cuh"
 
 namespace {
-
-struct NotSentinel {
-    const int64_t* key;
-    __device__ bool flag(int64_t i) const { return key[i] != INT64_MAX; }
-    __device__ int32_t value(int64_t i) const { return (int32_t)i; }
-};
-
-// the raw key of valid row perm[i] (mapped ^ 2^63)
-struct RawKey {
-    const int64_t* mapped;
-    const int32_t* perm;
-    __device__ uint64_t key(int64_t i) const {
-        return (uint64_t)mapped[perm[i]] ^ 0x8000000000000000ULL;
-    }
-};
-
-// sorted position i ends its group: the last valid row, or the next row's
-// group differs; writes the row id carried beside the key
-struct KeepLastRowId {
-    const uint64_t* u;
-    const int32_t* perm;
-    const int32_t* row_id;
-    const int32_t* nv;
-    int seq_width;
-    __device__ bool flag(int64_t i) const {
-        return i == (int64_t)*nv - 1 || (u[i] >> seq_width) != (u[i + 1] >> seq_width);
-    }
-    __device__ int32_t value(int64_t i) const { return row_id[perm[i]]; }
-};
-
-struct AllRowIds {
-    const int32_t* perm;
-    const int32_t* row_id;
-    __device__ bool flag(int64_t) const { return true; }
-    __device__ int32_t value(int64_t i) const { return row_id[perm[i]]; }
-};
 
 // count of splitters <= g (numpy searchsorted side="right")
 __device__ inline int bucket_of(uint64_t g, const uint64_t* __restrict__ sp, int nsp) {
@@ -143,51 +101,14 @@ __global__ void scatter_kernel(const uint64_t* __restrict__ u, const int32_t* __
     send_i[at] = row_base + perm[i];
 }
 
-struct Scratch {
-    onesweep::Scratch<uint64_t, int32_t> sort;
-    int32_t* tiles;
-    int32_t* nv;
-    int32_t* start;
-};
-
-int digits_of(int32_t key_bits) { return (key_bits + 7) / 8; }
-
-// with p null, only the layout (and its bytes)
-Scratch carve(void* p, int64_t n, int32_t key_bits, int64_t d_slots, int64_t* bytes = nullptr) {
-    onesweep::Carver c{reinterpret_cast<uintptr_t>(p)};
-    Scratch s;
-    s.sort = onesweep::carve<uint64_t, int32_t>(p, n, digits_of(key_bits), 3, &c.used);
-    s.tiles = c.take<int32_t>(compact::scratch_bytes(n) / 4);
-    s.nv = c.take<int32_t>(1);
-    s.start = c.take<int32_t>(d_slots + 1);
-    if (bytes) *bytes = c.used;
-    return s;
-}
-
-int64_t scratch_size(int64_t n, int32_t key_bits, int64_t d_slots) {
-    int64_t bytes = 0;
-    carve(nullptr, n, key_bits < 1 ? 1 : key_bits > 63 ? 63 : key_bits, d_slots, &bytes);
-    return bytes;
-}
-
-// partition the valid rows of key[0, n) and sort them by raw key
-onesweep::Sorted<uint64_t, int32_t> sort_valid(const void* key, int64_t n, int32_t key_bits,
-                                               const Scratch& sc, cudaStream_t s) {
-    const int64_t* k = static_cast<const int64_t*>(key);
-    int32_t* part = sc.sort.v[2];
-    compact::run(NotSentinel{k}, n, nullptr, sc.tiles, part, sc.nv, s);
-    const onesweep::Rows<uint64_t> rows{n, sc.nv, false, 0};
-    return onesweep::sort(RawKey{k, part}, part, rows, digits_of(key_bits), sc.sort, s);
-}
-
 }  // namespace
 
 extern "C" int64_t ssm_local_scratch_bytes(int64_t n, int32_t key_bits, int64_t d_slots) {
-    return scratch_size(n, key_bits, d_slots);
+    return packedsort::scratch_size(n, key_bits, d_slots + 1);
 }
 
 extern "C" int64_t ssm_merge_scratch_bytes(int64_t m, int32_t key_bits) {
-    return scratch_size(m, key_bits, 1);
+    return packedsort::scratch_size(m, key_bits, 1);
 }
 
 // key: int64[n] mapped packed keys of this slot's shard (INT64_MAX =
@@ -200,20 +121,20 @@ extern "C" int ssm_local_launch(const void* key, int64_t n, int32_t key_bits, in
                                 int32_t row_base, void* send_k, void* send_i, void* scratch,
                                 void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (key_bits < 1 || key_bits > 63 || seq_width < 0 || seq_width > 63 || d_slots < 1 ||
-        d_slots > 1023 || cap < 0) {
+    if (!packedsort::valid_widths(key_bits, seq_width) || d_slots < 1 || d_slots > 1023 ||
+        cap < 0) {
         return (int)cudaErrorInvalidValue;
     }
-    const Scratch sc = carve(scratch, n, key_bits, d_slots);
+    const packedsort::Scratch sc = packedsort::carve(scratch, n, key_bits, d_slots + 1);
     int64_t* sk = static_cast<int64_t*>(send_k);
     int32_t* si = static_cast<int32_t*>(send_i);
     const int64_t m = (int64_t)d_slots * cap;
-    if (m > 0) fill_kernel<<<radix::blocks_for(m, 256), 256, 0, s>>>(sk, si, m);
+    if (m > 0) fill_kernel<<<compact::blocks_for(m, 256), 256, 0, s>>>(sk, si, m);
     if (n == 0) return (int)cudaGetLastError();
-    const auto r = sort_valid(key, n, key_bits, sc, s);
+    const auto r = packedsort::sort_valid(key, n, key_bits, sc, s);
     const uint64_t* sp = static_cast<const uint64_t*>(splitters);
     starts_kernel<<<1, d_slots + 1, 0, s>>>(r.keys, sc.nv, seq_width, sp, d_slots, sc.start);
-    scatter_kernel<<<radix::blocks_for(n, 256), 256, 0, s>>>(
+    scatter_kernel<<<compact::blocks_for(n, 256), 256, 0, s>>>(
         r.keys, r.vals, sc.nv, seq_width, sp, d_slots, sc.start, cap, row_base, n, sk, si);
     return (int)cudaGetLastError();
 }
@@ -224,20 +145,10 @@ extern "C" int ssm_local_launch(const void* key, int64_t n, int32_t key_bits, in
 extern "C" int ssm_merge_launch(const void* recv_k, const void* recv_i, int64_t m,
                                 int32_t key_bits, int32_t seq_width, int32_t do_dedup, void* out,
                                 void* count, void* scratch, void* stream) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (key_bits < 1 || key_bits > 63 || seq_width < 0 || seq_width > 63) {
-        return (int)cudaErrorInvalidValue;
-    }
-    const Scratch sc = carve(scratch, m, key_bits, 1);
-    int32_t* o = static_cast<int32_t*>(out);
-    int32_t* cnt = static_cast<int32_t*>(count);
-    const int32_t* ids = static_cast<const int32_t*>(recv_i);
-    const auto r = sort_valid(recv_k, m, key_bits, sc, s);
-    if (do_dedup) {
-        compact::run(KeepLastRowId{r.keys, r.vals, ids, sc.nv, seq_width}, m, sc.nv, sc.tiles, o,
-                     cnt, s);
-    } else {
-        compact::run(AllRowIds{r.vals, ids}, m, sc.nv, sc.tiles, o, cnt, s);
-    }
+    if (!packedsort::valid_widths(key_bits, seq_width)) return (int)cudaErrorInvalidValue;
+    const packedsort::Scratch sc = packedsort::carve(scratch, m, key_bits, 1);
+    packedsort::merge(recv_k, static_cast<const int32_t*>(recv_i), m, key_bits, seq_width,
+                      do_dedup != 0, static_cast<int32_t*>(out), static_cast<int32_t*>(count),
+                      sc, static_cast<cudaStream_t>(stream));
     return (int)cudaGetLastError();
 }

@@ -66,7 +66,7 @@ __global__ void gather_kernel(Lanes l, const int32_t* __restrict__ perm,
                               int32_t* __restrict__ perm_out, int64_t n,
                               const int32_t* __restrict__ kept) {
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= radix::rows(n, kept)) return;
+    if (i >= compact::rows(n, kept)) return;
     const int32_t p = perm[i];
     if (perm_out != nullptr) perm_out[i] = p;
     for (int k = 0; k < l.count; ++k) {
@@ -172,7 +172,7 @@ extern "C" int scan_launch(const void* const* keys, const int64_t* lo, int32_t n
                               s);
     }
     if (n == 0) return (int)cudaGetLastError();
-    const unsigned blocks = radix::blocks_for(n, 256);
+    const unsigned blocks = compact::blocks_for(n, 256);
     int32_t* p_out = static_cast<int32_t*>(perm_out);
     int32_t done = 0;
     do {  // lanes in groups of MAX_LANES; the first launch also writes perm_out

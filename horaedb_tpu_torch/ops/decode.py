@@ -130,10 +130,10 @@ def _out(n: int, itemsize: int, device) -> torch.Tensor:
 
 
 def _launch(name: str, argtypes: list, dev: torch.device, *args) -> None:
+    """Launch decoder `name` on `dev`'s current stream (`_build.launch`:
+    no device switch when `dev` is current, the raw stream handle)."""
     fn = _build.kernel(name, f"{name}_launch", argtypes + [ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(name, rc)
+    _build.launch(name, fn, dev, *args)
 
 
 def _row_pages(table: torch.Tensor, n: int):

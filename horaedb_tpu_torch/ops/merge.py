@@ -73,7 +73,7 @@ def packed_merge_plain(key: torch.Tensor, seq_width: int, do_dedup: bool):
 def packed_merge(key: torch.Tensor, key_bits: int, seq_width: int, do_dedup: bool):
     """Merge rows by one packed key (mapped int64; the sentinel marks a
     rejected row), keep-last per `key >> seq_width` when `do_dedup`.
-    `key_bits` bounds the valid keys' width (it sets the radix passes).
+    `key_bits` bounds the valid keys' width (it sets the digit sweeps).
     Kernel D on a CUDA tensor, `packed_merge_plain` on a CPU one."""
     n = key.shape[0]
     _check_lane("packed_merge", key, n, (torch.int64,))
@@ -84,20 +84,26 @@ def packed_merge(key: torch.Tensor, key_bits: int, seq_width: int, do_dedup: boo
     if key.device.type != "cuda":
         raise HoraeError(f"packed_merge: unsupported device {key.device}")
     ensure(n < 2**31, f"packed_merge: {n} rows exceed int32 indices")
+    return _launch_packed(key, max(1, key_bits), seq_width, do_dedup)
+
+
+_PACKED_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+]
+
+
+def _launch_packed(key: torch.Tensor, key_bits: int, seq_width: int, do_dedup: bool):
+    n = key.shape[0]
     dev = key.device
     out_idx = torch.empty(n, dtype=torch.int32, device=dev)
     count = torch.empty(1, dtype=torch.int32, device=dev)
-    scratch = torch.empty(_build.scratch_bytes("packed_merge", "packed_merge_scratch_bytes", n),
-                          dtype=torch.uint8, device=dev)
-    fn = _build.kernel("packed_merge", "packed_merge_launch", [
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(key.data_ptr(), n, max(1, key_bits), seq_width, int(do_dedup),
-                out_idx.data_ptr(), count.data_ptr(), scratch.data_ptr(), stream)
-    _build.check("packed_merge", rc)
+    nbytes = _build.kernel("packed_merge", "packed_merge_scratch_bytes",
+                           [ctypes.c_int64, ctypes.c_int32], ctypes.c_int64)(n, key_bits)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    fn = _build.kernel("packed_merge", "packed_merge_launch", _PACKED_ARGTYPES)
+    _build.launch("packed_merge", fn, dev, key.data_ptr(), n, key_bits, seq_width,
+                  int(do_dedup), out_idx.data_ptr(), count.data_ptr(), scratch.data_ptr())
     return out_idx, count
 
 

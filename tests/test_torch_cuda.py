@@ -199,6 +199,47 @@ def test_packed_merge_matches_plain(dev, n, rejected, dedup):
                     merge.packed_merge_plain(key, seq_width, dedup))
 
 
+def _packed_keys(kind: str, n: int, key_bits: int, seed: int):
+    """Mapped packed keys of `key_bits` bits (rejected rows: the sentinel)
+    and a seq width below them. kind: "random" (groups of several rows,
+    30 % rejected), "rejected" (every row), "presorted" (ascending raw
+    keys, rejected rows among them), "straddle" (distinct keys but one run
+    of equal keys across rows 4,000-4,199: the look-back sort's 4,096-row
+    tile and the compaction's 2,048-row tiles split it)."""
+    rng = np.random.default_rng(seed)
+    hi = 2**key_bits
+    pool = rng.integers(0, hi, max(1, n // 3), dtype=np.uint64, endpoint=False)
+    raw = rng.choice(pool, n) if n else np.zeros(0, np.uint64)
+    keep = rng.random(n) < 0.7
+    if kind == "rejected":
+        keep[:] = False
+    elif kind == "presorted":
+        raw = np.sort(raw)
+    elif kind == "straddle":
+        raw = rng.permutation(np.arange(n, dtype=np.uint64) * np.uint64(hi // max(n, 1) or 1)
+                              % np.uint64(hi))
+        raw[4000:4200] = raw[4000]
+        keep[4000:4200] = True
+    packed = np.where(keep, raw, np.uint64(2**64 - 1))
+    return order_key(packed), min(3, key_bits - 1)
+
+
+@pytest.mark.parametrize("dedup", [True, False])
+@pytest.mark.parametrize("kind,n,key_bits", [
+    *[("random", 100_003, b) for b in (1, 8, 9, 42, 63)],
+    *[("random", n, 42) for n in (0, 1, 4095, 4096, 4097, 100_003)],
+    ("rejected", 4097, 42), ("presorted", 100_003, 42), ("presorted", 100_003, 9),
+    ("straddle", 10_000, 42), ("straddle", 10_000, 63)])
+def test_packed_merge_on_the_look_back_sort_matches_plain(dev, kind, n, key_bits, dedup):
+    """Kernel D (a partition, onesweep.cuh's sort of the valid rows, the
+    keep-last compaction) equals its plain version, survivors and count,
+    at every key width, around the tiles, presorted and with ties."""
+    mapped, seq_width = _packed_keys(kind, n, key_bits, seed=n + key_bits)
+    key = torch.from_numpy(mapped).to(dev)
+    _same_survivors(merge.packed_merge(key, key_bits, seq_width, dedup),
+                    merge.packed_merge_plain(key, seq_width, dedup))
+
+
 @pytest.mark.parametrize("dedup", [True, False])
 @pytest.mark.parametrize("n,presorted", [(1, False), (2048, True), (4097, False),
                                          (300_001, False), (300_001, True)])
@@ -746,6 +787,52 @@ def test_decode_kernels_match_plain(dev, case):
     assert torch.equal(got.cpu(), want.cpu())
     out = enc.decode_lane(lane, impl="device", device=dev)
     assert out.dtype == arr.dtype and np.array_equal(out.view(np.uint8), arr.view(np.uint8))
+
+
+def _dod_lane(rows: int, width: int, dtype) -> np.ndarray:
+    """Two pages of `rows` rows and one of a single row whose zigzag second
+    differences need `width` bits (each page of 3 rows or more holds
+    -2^(width-1)), from a first value and delta that wrap mod 2^64; an
+    int32 lane stays within int32 (its widths are the encoder's)."""
+    rng = np.random.default_rng(rows * 33 + (width or 0))
+    n = 2 * rows + 1
+    if np.dtype(dtype) == np.int32:
+        return rng.integers(-(2**28), 2**28, n).astype(np.int32)
+    half = 1 << max(width - 1, 0)
+    dd = rng.integers(-half, half, n).astype(np.int64) if width else np.zeros(n, np.int64)
+    if width and rows >= 3:
+        dd[rows - 1::rows] = -half  # the last row of each page: row 2 or later
+    with np.errstate(over="ignore"):
+        d = np.cumsum(dd.view(np.uint64), dtype=np.uint64) + np.uint64(2**62 + 12_345)
+        return (np.cumsum(d, dtype=np.uint64) + np.uint64(2**63 - 7)).view(np.int64)
+
+
+@pytest.mark.parametrize("width,dtype", [(0, np.int64), (1, np.int64), (17, np.int64),
+                                         (31, np.int64), (32, np.int64), (None, np.int32)])
+@pytest.mark.parametrize("rows", [1, 2, 3, 4095, 4096, 4097, 10_000])
+def test_decode_dod_pair_scan_matches_plain(dev, rows, width, dtype):
+    """decode_dod's one pair scan a page equals its plain version bitwise
+    (u64 views): pages of 1-3 rows, a tile +-1 and 10,000 rows (a carried
+    pair), widths 0-32, values that wrap mod 2^64, int32 lanes (whose
+    widths are the encoder's)."""
+    from horaedb_tpu_torch.ops import decode
+    from horaedb_tpu_torch.storage import encoding as enc
+
+    arr = _dod_lane(rows, width, dtype)
+    lane = enc._encode_dod(arr, rows)
+    lane.name = "ts"
+    dt = np.dtype(lane.dtype)
+    pages = [p for p in lane.pages if decode.in_envelope("dod", dt, p, None)]
+    assert len(pages) == len(lane.pages)
+    if dtype == np.int64:
+        assert {p.width for p in pages if p.rows >= 3} <= {width}
+    s = decode.stage_pages("dod", dt, lane.payload, pages, None, dev)
+    got = decode.decode_dod(s.words, s.table, s.rows, dt.itemsize)
+    want = decode.decode_dod_plain(s.words, s.table, s.rows, dt.itemsize)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+    out = enc.decode_lane(lane, impl="device", device=dev)
+    assert np.array_equal(out.view(np.uint8), arr.view(np.uint8))
 
 
 def _u64(t) -> np.ndarray:

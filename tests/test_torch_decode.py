@@ -158,6 +158,61 @@ def test_plain_kernels_match_jax_kernels(case):
                      jenc.decode_lane(jlane, keep))
 
 
+_U64 = np.uint64
+
+
+def pair_scan_dod(payload: bytes, rows: int, width: int, first: int,
+                  first_delta: int) -> np.ndarray:
+    """decode_dod.cu's arithmetic in numpy u64: per 4,096-row chunk, each of
+    256 threads sums its 16 rows' dd and k * dd, one exclusive scan of
+    those pairs over the threads, the pair carried into the next chunk,
+    and v[i] = first + i * first_delta + (i + 1) * S0[i] - S1[i]."""
+    words = np.frombuffer(payload + bytes(8), "<u4").astype(_U64)
+    dd = np.zeros(rows, _U64)
+    if width and rows > 2:
+        bit = np.arange(rows - 2, dtype=np.int64) * width
+        pair = words[bit >> 5] | (words[(bit >> 5) + 1] << _U64(32))
+        z = (pair >> (bit & 31).astype(_U64)) & _U64((1 << width) - 1)
+        dd[2:] = (z >> _U64(1)) ^ (_U64(0) - (z & _U64(1)))
+    out = np.empty(rows, _U64)
+    c0, c1 = np.zeros(1, _U64), np.zeros(1, _U64)
+    first, first_delta = _U64(first % 2**64), _U64(first_delta % 2**64)
+    with np.errstate(over="ignore"):
+        for base in range(0, rows, 4096):
+            m = min(4096, rows - base)
+            k = np.arange(base, base + 4096, dtype=_U64)
+            d = np.zeros(4096, _U64)
+            d[:m] = dd[base:base + m]
+            kd = (k * d).reshape(256, 16)
+            d = d.reshape(256, 16)
+            a0, a1 = d.sum(1, dtype=_U64), kd.sum(1, dtype=_U64)
+            e0 = np.cumsum(a0, dtype=_U64) - a0
+            e1 = np.cumsum(a1, dtype=_U64) - a1
+            s0 = (c0 + e0[:, None] + np.cumsum(d, 1, dtype=_U64)).ravel()
+            s1 = (c1 + e1[:, None] + np.cumsum(kd, 1, dtype=_U64)).ravel()
+            out[base:base + m] = (first + k * first_delta + (k + _U64(1)) * s0 - s1)[:m]
+            c0 += a0.sum(dtype=_U64)
+            c1 += a1.sum(dtype=_U64)
+    return out.view(np.int64)
+
+
+@pytest.mark.parametrize("case", ["dod wraps mod 2^64", "dod i64 extremes",
+                                  "dod test_encoding wrap", "dod width 32",
+                                  "dod page_rows 10000", "dod jittered, 3 pages"])
+def test_pair_scan_closed_form_matches_the_jax_dod_kernel(case):
+    """The one pair scan a page that decode_dod.cu runs, modelled in numpy
+    u64 (its 16-row threads, 4,096-row chunks and carried pair), equals the
+    JAX package's two scans bit for bit, wraps mod 2^64 included."""
+    codec, arr, page_rows, extra = CASES[case]
+    lane = encode(tenc, codec, arr, page_rows, extra)
+    for p in (p for p in lane.pages if p.width <= tdecode.DEVICE_MAX_WIDTH):
+        payload = lane.payload[p.off:p.off + p.length]
+        want = jdecode.decode_page_device(codec, lane.dtype, payload, p.rows, p.width, p.p0,
+                                          p.p1, lane.dict_values)
+        got = pair_scan_dod(payload, p.rows, p.width, p.p0, p.p1)
+        assert same_bits(got.astype(want.dtype), want), f"{case}: page of {p.rows} rows"
+
+
 def test_plain_cumsum_and_shifts_wrap_mod_2_64():
     """The plain versions lean on int64 adds that wrap mod 2^64 and on a
     sign-extended high word: the pair (2^32 - 1, 2^32 - 1) reads back at

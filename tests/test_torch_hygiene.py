@@ -225,23 +225,25 @@ def test_downsample_computes_its_cells_in_the_grouped_stats_library():
 
 
 @pytest.mark.parametrize("name", ["index_merge_mask", "index_merge_filter", "sample_sort_merge",
-                                  "scan_kernel", "sort_perm"])
+                                  "scan_kernel", "sort_perm", "packed_merge"])
 def test_merges_sort_through_the_look_back_header(name):
-    """Rows 19, 20, 14, 21 and 4 sort through onesweep.cuh, the chains of
-    packed keys through keychain.cuh: each header is among the sources of
-    the libraries that use it, and no source calls radix.cuh's digit
-    passes (compact.cuh, which some include, keeps its tile helpers)."""
+    """Rows 19, 20, 14, 21, 4 and 18 sort through onesweep.cuh, the chains
+    of packed keys through keychain.cuh and the merges of one packed key
+    through packedsort.cuh: each header is among the sources of the
+    libraries that use it, and radix.cuh, the single-block digit-count sort
+    they replaced, is in no source list and not in the tree."""
     sources = _build.SOURCES[_build.library_of(name)]
     assert "onesweep.cuh" in sources
-    chain = (_build.CSRC / "keychain.cuh").read_text()
-    assert "onesweep::sort(" in chain
+    for header in ("keychain.cuh", "packedsort.cuh"):
+        assert "onesweep::sort(" in (_build.CSRC / header).read_text()
     for src in (s for s in sources if s.endswith(".cu")):
         text = (_build.CSRC / src).read_text()
         assert ("onesweep::sort(" in text or src == "predicate.cu"
-                or "keychain::sort(" in text and "keychain.cuh" in sources)
-        assert ("radix.cuh" in sources) == ("compact.cuh" in sources)
-        assert not re.search(r"radix::(sort|passes|gather_kernel|hist_kernel|scatter_kernel)",
-                             text)
+                or "keychain::sort(" in text and "keychain.cuh" in sources
+                or "packedsort::" in text and "packedsort.cuh" in sources)
+        assert "radix" not in re.sub(r"//.*", "", text)
+    assert not (_build.CSRC / "radix.cuh").exists()
+    assert all("radix.cuh" not in srcs for srcs in _build.SOURCES.values())
 
 
 @pytest.mark.parametrize("name", KERNELS)

@@ -1,6 +1,6 @@
 """The launch path of kernels `grid_fold`, `lane_sum_count`, the other
-mesh steps, `sort_perm` and `scan_kernel`, and the device the entry points
-resolve, on the CPU.
+mesh steps, `sort_perm`, `scan_kernel`, `packed_merge` and the four
+decoders, and the device the entry points resolve, on the CPU.
 
 Each wrapper checks its inputs before it picks a route: malformed input
 raises `HoraeError` with the texts below, whatever device the lanes are on.
@@ -16,7 +16,7 @@ import torch
 
 from horaedb_tpu_torch.backend import resolve_device
 from horaedb_tpu_torch.common.error import HoraeError
-from horaedb_tpu_torch.ops import _build, keychain
+from horaedb_tpu_torch.ops import _build, decode, keychain, merge
 from horaedb_tpu_torch.ops import scan as scan_ops
 from horaedb_tpu_torch.ops import sort as sort_ops
 from horaedb_tpu_torch.ops.aggregate import lane_segment_sum_count
@@ -285,6 +285,62 @@ def test_scan_kernel_hands_the_packed_layout_to_the_kernel(monkeypatch):
     assert [list(a) for a in args[4:8]] == MAIN_LAYOUT
     assert args[8:13] == (2, n, 0, 0, 1)  # keys, rows, no mask, presorted, dedup
     assert list(args[15]) == [8, 1] and args[16] == 2  # the gathered lanes' widths
+
+
+def test_packed_merge_hands_its_key_width_to_the_kernel(monkeypatch):
+    """On a card, kernel D gets the key, its row count, key_bits and
+    seq_width, and a scratch sized by key_bits (the look-back sort's
+    digits)."""
+    seen = _fake_build(monkeypatch, "packed_merge_scratch_bytes")
+    key = torch.zeros(5, dtype=torch.int64)
+    out_idx, count = merge._launch_packed(key, 42, 8, True)
+    name, fn, args = seen["launch"]
+    assert (name, fn, seen["scratch"]) == ("packed_merge", "packed_merge.packed_merge_launch",
+                                           ("packed_merge", 5, 42))
+    assert args[:7] == (key.data_ptr(), 5, 42, 8, 1, out_idx.data_ptr(), count.data_ptr())
+    assert len(args) == len(merge._PACKED_ARGTYPES) - 1  # the stream comes from launch
+
+
+def _meta_table(pages=2):
+    return torch.zeros(pages, decode.PAGE_FIELDS, dtype=torch.int64, device="meta")
+
+
+# name: (a call on meta lanes, its rows' dtype, the arguments after the
+# two lane pointers: pointers read 0 on meta lanes, the page count is 2)
+DECODERS = {
+    "decode_unpack": (lambda: decode.decode_unpack(_meta(3, torch.int32), _meta_table(),
+                                                   _meta(4, torch.int64), 5)[0],
+                      torch.int64, (2, 0, 4, 8, 0, 0)),
+    "decode_dod": (lambda: decode.decode_dod(_meta(3, torch.int32), _meta_table(), 5, 8),
+                   torch.int64, (2, 8, 0)),
+    "decode_xor": (lambda: decode.decode_xor(_meta(3, torch.int32), _meta_table(), 5, 4),
+                   torch.int32, (2, 4, 0)),
+    "decode_rle": (lambda: decode.decode_rle(_meta(3, torch.int32), _meta_table(),
+                                             _meta(2, torch.int64), 5, 8),
+                   torch.int64, (2, 0, 8, 0)),
+}
+
+
+@pytest.mark.parametrize("name", list(DECODERS))
+def test_decoders_hand_their_launch_to_build_launch(monkeypatch, name):
+    """Each decoder wrapper launches through `_build.launch` (the stream
+    handle and the device switch are its), with its entry point's
+    arguments but the stream. Meta lanes take the wrappers' device branch;
+    a fake entry point records the call."""
+    seen = []
+
+    def kernel(lib, fn_name, argtypes, restype=ctypes.c_int):
+        return (lib, fn_name, len(argtypes))
+
+    monkeypatch.setattr(_build, "kernel", kernel)
+    monkeypatch.setattr(_build, "launch", lambda *a: seen.append(a))
+    call, dtype, tail = DECODERS[name]
+    rows = call()
+    [(launched, fn, dev, *args)] = seen
+    assert (launched, fn, dev) == (name, (name, f"{name}_launch", len(args) + 1),
+                                   torch.device("meta"))
+    assert tuple(args[2:]) == tail
+    assert rows.shape == (5,) and rows.dtype == dtype
 
 
 @pytest.mark.parametrize("bounds,digits", [([(5, 5), (-3, -3)], 1), ([(0, 0)], 1),
