@@ -23,9 +23,24 @@ that share `horaedb_tpu_torch/ops/csrc/segreduce.cuh`:
   FUSED_WINDOW_MS / FUSED_BUCKET_MS buckets, the rows of the window and
   its re-send in (series, ts) order, then shuffled by a torch.Generator
   seeded from --seed).
+It also times kernels B and C at phase 4's shape as
+`ops/aggregate.py::downsample_sorted` calls them (no weights, no valid
+mask: `main_call`), B and C on a sparse grid (SPARSE_ROWS sorted rows
+spread over phase 4's cells), and stacked_downsample (row 7) at burst A's
+launch shape ([16, 32,768] padded lanes, 16 x 128 series x 30 buckets,
+STACKED_REAL rows a lane sorted by (series, ts)).
 `reduce-split` gives the device time of each kernel (torch.profiler)
 inside one grouped_stats and one downsample call at that fused shape,
-sorted and shuffled.
+sorted and shuffled, inside one call of kernels B, C and grouped_stats at
+the long-run shape and of stacked_downsample at burst A's launch shape,
+and inside one call of kernels B and C at phase 4's shape in two forms:
+with the smoke's explicit lanes (weights of ones, an all-true valid mask)
+and as downsample_sorted calls them (`main_call`): by part (the lane of
+ones the wrapper fills, seg::fill_kernel, seg::run_kernel, others by
+name), the kernels a call launches, and the device bytes a call allocates
+(the peak over the call less what was allocated before it). Where the
+tree exports them, it also reports run_kernel's registers, shared bytes
+and blocks an SM for each lane set (`run_occupancy`).
 `--root DIR` imports `horaedb_tpu_torch` from DIR (another checkout, such
 as a `git archive` of a parent commit unpacked where .gitignore lists it)
 and builds its kernels there; the shapes and the timer always come from
@@ -167,24 +182,68 @@ def load_smoke():
     return mod
 
 
+# the sparse grid: this many sorted rows spread over phase 4's cells
+SPARSE_ROWS = 1_000
+# burst A's stacked launch: lanes, padded rows a lane, series and buckets a
+# lane's grid, real rows a lane (100 hosts x 180 scrapes of 10 s)
+STACKED_SHAPE = (16, 32_768, 128, 30)
+STACKED_REAL = 18_000
+
+
+def sparse_inputs(cs, rng):
+    """SPARSE_ROWS sorted ids drawn over phase 4's grid, uniform values."""
+    cells = cs.NUM_SERIES * (cs.WINDOW_MS // cs.BUCKET_MS)
+    k = np.sort(rng.integers(0, cells, SPARSE_ROWS)).astype(np.int32)
+    return k, rng.uniform(0, 100, SPARSE_ROWS), cells
+
+
+def stacked_inputs(torch, rng, dev):
+    """Burst A's stacked launch (STACKED_SHAPE): each lane's first
+    STACKED_REAL rows valid, sorted by (series, ts), 1-minute buckets."""
+    b, r, series, buckets = STACKED_SHAPE
+    per = STACKED_REAL // 100
+    sid = np.zeros((b, r), np.int32)
+    ts = np.zeros((b, r), np.int64)
+    valid = np.zeros((b, r), bool)
+    sid[:, :STACKED_REAL] = np.repeat(np.sort(rng.choice(series, 100, replace=False)), per)
+    ts[:, :STACKED_REAL] = np.tile(np.arange(per) * 10_000, 100)
+    valid[:, :STACKED_REAL] = True
+    vals = rng.uniform(0, 100, (b, r))
+    lanes = [torch.from_numpy(a).to(dev) for a in (ts, sid, vals, valid, np.zeros(b, np.int64))]
+    return lanes, 60_000, series, buckets
+
+
 def reduce_times(torch, cs, rng, dev) -> dict:
     from horaedb_tpu_torch.ops import _build, aggregate, blockagg
 
-    _build.build_all(("block_sum_count", "block_min_max", "grouped_stats", "downsample"))
+    _build.build_all(("block_sum_count", "block_min_max", "grouped_stats", "downsample",
+                      "stacked_downsample"))
     out = {}
     for name, (k, v, cells) in (("main", cs.main_path_segment_inputs(rng)),
-                                ("long_runs", cs.long_run_inputs(rng))):
+                                ("long_runs", cs.long_run_inputs(rng)),
+                                ("sparse", sparse_inputs(cs, rng))):
         kt, vt = torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev)
         ok = torch.ones_like(vt, dtype=torch.bool)
+        w = torch.ones_like(vt)
         out[f"{name}_shape"] = f"{len(k)} rows, {cells} cells"
         out[f"{name}_block_sum_count_ms"] = cs.cuda_ms(
-            torch, lambda: blockagg.sorted_segment_sum_count(kt, vt, cells))
+            torch, lambda: blockagg.block_sum_count(kt, vt, cells, weights=w))
         out[f"{name}_block_min_max_ms"] = cs.cuda_ms(
-            torch, lambda: blockagg.sorted_segment_min_max(kt, vt, cells, valid=ok))
+            torch, lambda: blockagg.block_min_max(kt, vt, cells, valid=ok))
+        out[f"{name}_main_call_block_sum_count_ms"] = cs.cuda_ms(
+            torch, lambda: blockagg.sorted_segment_sum_count(kt, vt, cells, impl="block"))
+        out[f"{name}_main_call_block_min_max_ms"] = cs.cuda_ms(
+            torch, lambda: blockagg.sorted_segment_min_max(kt, vt, cells, impl="block"))
         if name == "long_runs":
             out[f"{name}_grouped_stats_ms"] = cs.cuda_ms(
                 torch, lambda: aggregate.grouped_stats(vt, kt, None, cells))
-        del kt, vt, ok
+        del kt, vt, ok, w
+
+    lanes, bucket_ms, series, buckets = stacked_inputs(torch, rng, dev)
+    out["stacked_shape"] = f"{list(lanes[0].shape)} padded rows, {series} x {buckets} a lane"
+    out["stacked_downsample_ms"] = cs.cuda_ms(
+        torch, lambda: aggregate.stacked_downsample(*lanes, bucket_ms, series, buckets))
+    del lanes
 
     series, buckets = cs.FUSED_SERIES, cs.FUSED_WINDOW_MS // cs.FUSED_BUCKET_MS
     for order, (ts, sid, vals, flat) in fused_lanes(torch, cs, rng, dev):
@@ -219,14 +278,84 @@ def fused_lanes(torch, cs, rng, dev):
     yield "shuffled", (ts[perm], sid[perm], vals[perm], flat[perm])
 
 
+def segment_part(name: str) -> str:
+    """The part of a kernel B or C call a profiled kernel is."""
+    if "FillFunctor" in name:
+        return "ones fill"
+    for part in ("fill_kernel", "run_kernel"):
+        if f"seg::{part}" in name:
+            return part
+    return name[:80]
+
+
+def profile_call(torch, fn, calls: int = 5) -> tuple[dict, int, int]:
+    """Device ms a call by segment_part (torch.profiler, the mean of
+    `calls` calls), the kernels a call launches, and the device bytes one
+    call allocates (the peak over it less what was allocated before)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    parts, kernels = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            part = segment_part(e.name)
+            parts[part] = parts.get(part, 0.0) + e.time_range.elapsed_us() / calls / 1e3
+            kernels += 1
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return parts, round(kernels / calls), torch.cuda.max_memory_allocated() - before
+
+
 def reduce_split(torch, cs, rng, dev) -> dict:
     """Device ms by kernel (torch.profiler, the mean of 5 calls) of one
     grouped_stats and one downsample call at the fused shape, sorted and
-    shuffled."""
-    from horaedb_tpu_torch.ops import aggregate
+    shuffled; and of kernels B and C at phase 4's shape, with explicit
+    lanes and as downsample_sorted calls them."""
+    from horaedb_tpu_torch.ops import aggregate, blockagg
+
+    out = {}
+    k, v, cells = cs.main_path_segment_inputs(rng)
+    kt, vt = torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev)
+    w = torch.ones_like(vt)
+    ok = torch.ones_like(vt, dtype=torch.bool)
+    out["main_shape"] = f"{len(k)} rows, {cells} cells"
+    for form, b_call, c_call in (
+            ("explicit", lambda: blockagg.block_sum_count(kt, vt, cells, weights=w),
+             lambda: blockagg.block_min_max(kt, vt, cells, valid=ok)),
+            ("main_call", lambda: blockagg.sorted_segment_sum_count(kt, vt, cells, impl="block"),
+             lambda: blockagg.sorted_segment_min_max(kt, vt, cells, impl="block"))):
+        for name, fn in (("block_sum_count", b_call), ("block_min_max", c_call)):
+            parts, kernels, alloc = profile_call(torch, fn)
+            out[f"{name}_{form}_ms_by_part"] = parts
+            out[f"{name}_{form}_kernels_a_call"] = kernels
+            out[f"{name}_{form}_alloc_bytes"] = alloc
+    del kt, vt, w, ok
+    k, v, cells = cs.long_run_inputs(rng)
+    kt, vt = torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev)
+    w = torch.ones_like(vt)
+    ok = torch.ones_like(vt, dtype=torch.bool)
+    for name, fn in (
+            ("block_sum_count", lambda: blockagg.block_sum_count(kt, vt, cells, weights=w)),
+            ("block_min_max", lambda: blockagg.block_min_max(kt, vt, cells, valid=ok)),
+            ("grouped_stats", lambda: aggregate.grouped_stats(vt, kt, None, cells))):
+        out[f"long_runs_{name}_ms_by_part"] = profile_call(torch, fn)[0]
+    del kt, vt, w, ok
+    lanes, bucket_ms, series, buckets = stacked_inputs(torch, rng, dev)
+    out["stacked_downsample_ms_by_part"] = profile_call(
+        torch, lambda: aggregate.stacked_downsample(*lanes, bucket_ms, series, buckets))[0]
+    del lanes
+    try:
+        out["run_occupancy"] = cs.segreduce_occupancy()
+    except AttributeError:  # a tree whose libraries do not export it
+        out["run_occupancy"] = {}
 
     series, buckets = cs.FUSED_SERIES, cs.FUSED_WINDOW_MS // cs.FUSED_BUCKET_MS
-    out = {}
     for order, (ts, sid, vals, flat) in fused_lanes(torch, cs, rng, dev):
         for name, fn in (
                 ("grouped_stats",

@@ -8,13 +8,16 @@ Phases, each of which exits non-zero on failure:
    horaedb_tpu_torch/ops/csrc (one nvcc per library, in parallel), and
    print the occupancy of onesweep.cuh's sweep kernel for both of its
    instantiations (blocks an SM with its dynamic shared memory, and the
-   registers a thread of the compiled kernel);
+   registers a thread of the compiled kernel), and of segreduce.cuh's
+   run_kernel for each set of lanes it stages (kernels B and C with and
+   without their side lane, grouped_stats' reduction);
 2. hold each kernel against its plain PyTorch version on the card, on edge
    cases and at the main path's shapes, and time kernel, plain version and
    a PyTorch library call where one computes the same function:
    sort_perm (A: row counts around the look-back sort's 4,096-row tile,
    keys over all 64 bits, three packed keys), block_sum_count (B),
-   block_min_max (C), and the merges
+   block_min_max (C) (at the main path's shape also as downsample_sorted
+   calls them, with no weights and no valid mask), and the merges
    of a segment scan: packed_merge (D), the predicate kernel (E) and
    index_merge_mask / index_merge_filter (F) - edge cases n = 0 and 1,
    all rejected, one group, keys >= 2^63, NaN and -0.0 lanes, InSet of 0,
@@ -312,6 +315,31 @@ def sweep_occupancy() -> dict:
     return out
 
 
+def segreduce_occupancy() -> dict:
+    """Phase 1: segreduce.cuh's run_kernel (kernels B, C and grouped_stats'
+    reduction) for each set of lanes it stages, as sweep_occupancy reports
+    the sweep."""
+    import ctypes
+
+    from horaedb_tpu_torch.ops import _build
+
+    out = {}
+    for library, entry, sets in (
+            ("block_sum_count", "block_sum_count_occupancy", ("v", "v, w")),
+            ("block_min_max", "block_min_max_occupancy", ("v", "v, valid")),
+            ("grouped_stats", "grouped_stats_run_occupancy", ("v",))):
+        for i, lanes in enumerate(sets):
+            buf = (ctypes.c_int32 * 4)()
+            two = len(sets) > 1
+            fn = _build.kernel(library, entry, [ctypes.c_void_p] + [ctypes.c_int32] * two)
+            rc = fn(buf, i) if two else fn(buf)
+            require(rc == 0, f"{library}: run_kernel's occupancy query failed with cudaError {rc}")
+            out[f"{library} ({lanes})"] = {
+                "blocks_per_sm": buf[0], "registers_per_thread": buf[1],
+                "static_smem_bytes": buf[2], "dynamic_smem_bytes": buf[3]}
+    return out
+
+
 # -- phase 2: kernels against their plain versions ---------------------------
 
 def sort_cases(rng):
@@ -515,7 +543,22 @@ def check_kernels(torch, rng, dev) -> list[dict]:
     pmn, pmx = blockagg.min_max_plain(kt, vt, okt, cells)
     require(same_values(torch, mn, pmn) and same_values(torch, mx, pmx),
             "block_min_max != plain at the main path shape")
+    # the calls as downsample_sorted makes them: no weights, no valid mask
+    def main_sum():
+        return blockagg.sorted_segment_sum_count(kt, vt, cells, impl="block")
+
+    def main_min_max():
+        return blockagg.sorted_segment_min_max(kt, vt, cells, impl="block")
+
+    s1, c1 = main_sum()
+    require(torch.equal(c1, pc) and close_sums(torch, s1, ps),
+            "block_sum_count != plain at the main path's call (no weights)")
+    mn1, mx1 = main_min_max()
+    require(same_values(torch, mn1, pmn) and same_values(torch, mx1, pmx),
+            "block_min_max != plain at the main path's call (no valid mask)")
     n = len(k)
+    # the main path's call reads the id and the value (12 B/row)
+    main_bound, _ = bound(n * (4 + 8) + cells * 16, 2 * n)
     shape = f"{n} rows, {cells} cells"
     idx = kt.long()
     vw = torch.stack([vt, wt], dim=1)
@@ -533,6 +576,7 @@ def check_kernels(torch, rng, dev) -> list[dict]:
         "library_ms": cuda_ms(torch, lambda: torch.zeros(
             cells, 2, dtype=torch.float64, device=dev).index_add_(0, idx, vw)),
         "library_call": "index_add_ of stacked (value, weight)",
+        "main_call_ms": cuda_ms(torch, main_sum), "main_call_bound_ms": main_bound,
     })
     nb, kind = bound(n * (4 + 8 + 1) + cells * 16, 2 * n)
     records.append({
@@ -547,6 +591,7 @@ def check_kernels(torch, rng, dev) -> list[dict]:
             (cells, 2), torch.inf, dtype=torch.float64, device=dev).scatter_reduce_(
                 0, idx2, vneg, "amin", include_self=True)),
         "library_call": "scatter_reduce amin of stacked (value, -value)",
+        "main_call_ms": cuda_ms(torch, main_min_max), "main_call_bound_ms": main_bound,
     })
     return records
 
@@ -3760,6 +3805,8 @@ def run_smoke(torch, seed: int) -> int:
           + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()), flush=True)
     occupancy = sweep_occupancy()
     print(f"onesweep sweep_kernel occupancy [{card}]: {json.dumps(occupancy)}", flush=True)
+    seg_occupancy = segreduce_occupancy()
+    print(f"segreduce run_kernel occupancy [{card}]: {json.dumps(seg_occupancy)}", flush=True)
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(seed)
@@ -3778,6 +3825,7 @@ def run_smoke(torch, seed: int) -> int:
     result["long_runs"] = long_runs
     result["sort_paths"] = sort_paths
     result["sweep_occupancy"] = occupancy
+    result["segreduce_occupancy"] = seg_occupancy
     print(f"phase 3: {time.perf_counter() - t_all:.1f} s", flush=True)
     records += fused_records(torch, result.pop("fused_capture"), dev, seed)
     records += decode_records(torch, result.pop("decode_capture"), dev)
@@ -3791,6 +3839,9 @@ def run_smoke(torch, seed: int) -> int:
         print(f"{r['name']}: {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms,"
               f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib}, "
               f"{r['launches']} launches [{card}]", flush=True)
+        if "main_call_ms" in r:
+            print(f"{r['name']}: as downsample_sorted calls it: {r['main_call_ms']:.4f} ms, "
+                  f"bound {r['main_call_bound_ms']:.4f} ms [{card}]", flush=True)
     profiled = result.pop("profile")
     result["smoke_s"] = time.perf_counter() - t_all
     print(json.dumps({"main_paths": result, "card": card}), flush=True)

@@ -13,7 +13,10 @@ each. Values and sums stay f64 on the card.
 Contract of both: `k` is int32 and sorted (nondecreasing); ids outside
 [0, num_cells) are dropped. Excluded rows keep their in-range sorted id
 and contribute nothing: weight 0 with a pre-masked value 0 for the sum,
-`valid=False` for min/max.
+`valid=False` for min/max. A caller that gives no weights (or no mask)
+gives the kernel no lane: it weighs every row 1 (counts every row)
+itself, bitwise as a lane of ones would, and the wrapper builds no lane of
+ones on the card.
 
 Dispatch (`impl`): the JAX package's registry names
 (`ops/agg_registry.py`), so pins and metric labels read the same. None
@@ -60,11 +63,15 @@ F32_EXACT = 1 << 24
 
 
 def _check(name: str, k, v, aux, aux_dtypes, num_cells: int) -> None:
+    """`aux` is the side lane (weights or valid), or None."""
     n = k.shape[0]
     ensure(k.dtype == torch.int32, f"{name}: cell ids must be int32, got {k.dtype}")
     ensure(v.dtype == torch.float64, f"{name}: values must be float64, got {v.dtype}")
-    ensure(aux.dtype in aux_dtypes, f"{name}: bad side-lane dtype {aux.dtype}")
-    for t in (k, v, aux):
+    lanes = (k, v)
+    if aux is not None:
+        ensure(aux.dtype in aux_dtypes, f"{name}: bad side-lane dtype {aux.dtype}")
+        lanes += (aux,)
+    for t in lanes:
         ensure(t.dim() == 1 and t.shape[0] == n, f"{name}: lanes must be 1-D of length {n}")
         ensure(t.is_contiguous(), f"{name}: lanes must be contiguous")
         ensure(t.device == k.device, f"{name}: lanes must share one device")
@@ -72,18 +79,23 @@ def _check(name: str, k, v, aux, aux_dtypes, num_cells: int) -> None:
     ensure(n < 2**31, f"{name}: {n} rows exceed int32 indices")
 
 
+def _require_card(name: str, dev: torch.device) -> None:
+    if dev.type != "cuda":
+        raise HoraeError(f"{name}: unsupported device {dev}")
+
+
 def _launch(name: str, fn_name: str, argtypes, k, v, aux, num_cells: int, *flags):
-    if k.device.type != "cuda":
-        raise HoraeError(f"{name}: unsupported device {k.device}")
+    """Launch kernel `name` through `_build.launch` (no device switch when
+    the device is current, the raw stream handle); an absent side lane
+    (`aux` None) goes to the kernel as a null pointer."""
+    _require_card(name, k.device)
     dev = k.device
     out_a = torch.empty(num_cells, dtype=torch.float64, device=dev)
     out_b = torch.empty(num_cells, dtype=torch.float64, device=dev)
     fn = _build.kernel(name, fn_name, argtypes)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(k.data_ptr(), v.data_ptr(), aux.data_ptr(), k.shape[0], num_cells,
-                out_a.data_ptr(), out_b.data_ptr(), *flags, stream)
-    _build.check(name, rc)
+    _build.launch(name, fn, dev, k.data_ptr(), v.data_ptr(),
+                  None if aux is None else aux.data_ptr(), k.shape[0], num_cells,
+                  out_a.data_ptr(), out_b.data_ptr(), *flags)
     return out_a, out_b
 
 
@@ -156,25 +168,27 @@ def min_max_plain(k, v, valid, num_cells: int):
 def block_sum_count(k, v, num_cells: int, weights=None, bf16: bool = False):
     """(sum, count) per cell over sorted int32 ids `k` and f64 values:
     kernel B on a CUDA tensor, `sum_count_plain` on a CPU one. `weights`
-    (f64, default 1) is each row's count contribution; rows weighted 0
-    must carry value 0. `bf16` rounds each value to bf16 on load."""
-    w = torch.ones_like(v) if weights is None else weights
-    _check("block_sum_count", k, v, w, (torch.float64,), num_cells)
+    (f64, None: every row weighs 1, with no lane built on the card) is each
+    row's count contribution; rows weighted 0 must carry value 0. `bf16`
+    rounds each value to bf16 on load."""
+    _check("block_sum_count", k, v, weights, (torch.float64,), num_cells)
     if k.device.type == "cpu":
+        w = torch.ones_like(v) if weights is None else weights
         return sum_count_plain(k, v, w, num_cells, bf16)
-    return _launch("block_sum_count", "block_sum_count_launch", _SUM_ARGTYPES, k, v, w,
+    return _launch("block_sum_count", "block_sum_count_launch", _SUM_ARGTYPES, k, v, weights,
                    num_cells, int(bf16))
 
 
 def block_min_max(k, v, num_cells: int, valid=None):
     """(min, max) per cell over sorted int32 ids `k` and f64 values,
     +inf/-inf for empty cells: kernel C on a CUDA tensor, `min_max_plain`
-    on a CPU one. `valid` (bool or uint8, default all) excludes rows."""
-    ok = torch.ones(v.shape, dtype=torch.bool, device=v.device) if valid is None else valid
-    _check("block_min_max", k, v, ok, (torch.bool, torch.uint8), num_cells)
+    on a CPU one. `valid` (bool or uint8; None: every row counts, with no
+    lane built on the card) excludes rows."""
+    _check("block_min_max", k, v, valid, (torch.bool, torch.uint8), num_cells)
     if k.device.type == "cpu":
+        ok = torch.ones(v.shape, dtype=torch.bool, device=v.device) if valid is None else valid
         return min_max_plain(k, v, ok, num_cells)
-    return _launch("block_min_max", "block_min_max_launch", _MINMAX_ARGTYPES, k, v, ok,
+    return _launch("block_min_max", "block_min_max_launch", _MINMAX_ARGTYPES, k, v, valid,
                    num_cells)
 
 

@@ -30,7 +30,8 @@
 //      (the fused scan's output is) take one stable partition instead of
 //      the digit passes, with the same result;
 //   2. the segmented reduction of segreduce.cuh over the sorted keys and
-//      values, each segment's sum the left fold of its rows in input order
+//      values (each tile staged in shared memory by bulk copies), each
+//      segment's sum the left fold of its rows in input order
 //      (the sort is stable); the dropped rows sort last and never reach a
 //      segment;
 //   3. one elementwise pass over the segments writes the mean.
@@ -77,16 +78,18 @@ __device__ inline T add(T x, T y) {
 template <int KIND, class T>
 struct GroupedOp {
     using Acc = Stats<T>;
-    const T* v;  // values in sorted order
+    static constexpr int LANES = 1;
+    seg::Lanes<LANES> lanes;  // the values in sorted order
     T* out_sum;
     T* out_count;
     double* out_min;
     double* out_max;
+    __host__ __device__ static constexpr int bytes(int) { return 8; }
     __host__ __device__ static Acc identity() {
         return {(T)0, (T)0, (double)INFINITY, -(double)INFINITY};
     }
-    __device__ Acc load(int64_t pos) const {
-        const T x = v[pos];
+    __device__ Acc load(const seg::Lanes<LANES>& at, int64_t pos) const {
+        const T x = static_cast<const T*>(at.p[0])[pos];
         const double f = to_f64<KIND>(x);
         return {x, (T)1, f, f};
     }
@@ -163,7 +166,7 @@ int run(const Src& src, const void* values, int64_t n, int64_t num_segments, voi
         keys = o.keys;
         sorted = reinterpret_cast<const T*>(o.vals);
     }
-    const GroupedOp<KIND, T> op{sorted, static_cast<T*>(out_sum), static_cast<T*>(out_count),
+    const GroupedOp<KIND, T> op{{{sorted}}, static_cast<T*>(out_sum), static_cast<T*>(out_count),
                                 static_cast<double*>(out_min), static_cast<double*>(out_max)};
     const int rc = seg::launch(keys, n, num_segments, op, s);
     if (rc != 0) return rc;
@@ -258,4 +261,11 @@ extern "C" int grouped_stats_downsample_launch(const void* values, int32_t kind,
 // SM, registers a thread, static and dynamic shared bytes.
 extern "C" int grouped_stats_sweep_occupancy(int32_t* out) {
     return onesweep::sweep_occupancy<uint32_t, uint64_t>(out);
+}
+
+// The f64 reduction's run_kernel (seg::occupancy), as the sweep's.
+extern "C" int grouped_stats_run_occupancy(int32_t* out) {
+    static const double lane = 0.0;
+    const GroupedOp<KIND_F64, double> op{{{&lane}}, nullptr, nullptr, nullptr, nullptr};
+    return seg::occupancy<GroupedOp<KIND_F64, double>, uint32_t>(op, out);
 }

@@ -840,8 +840,11 @@ def _u64(t) -> np.ndarray:
 
 
 # runs straddling 8-row thread spans and 2048-row tiles of the reduction
-# as it stood before the left fold (segreduce.cuh)
-_RUN_LENS = [1, 7, 9, 300, 2047, 2500, 4099]
+# as it stood before the left fold, and 13-row thread spans and 3,328-row
+# tiles of the staged one (segreduce.cuh): 300 runs of 30 rows, the main
+# path's 5-minute buckets of 10 s scrapes, cross tiles at every offset
+_RUN_LENS = [1, 7, 9, 300, 2047, 2500, 4099] + [30] * 300 + [13, 26, 255, 256]
+SEG_TILE = 3328  # rows of a segreduce.cuh tile
 
 
 def _fold(x: np.ndarray) -> float:
@@ -857,7 +860,8 @@ def _fold(x: np.ndarray) -> float:
     return np.add.accumulate(groups)[-1]
 
 
-@pytest.mark.parametrize("offset", [0, 3, 8, 2045, 2048, 2049, 6141])
+@pytest.mark.parametrize("offset", [0, 3, 8, 2045, 2048, 2049, 6141, SEG_TILE - 29, SEG_TILE - 1,
+                                    SEG_TILE, SEG_TILE + 12])
 def test_segreduce_sums_are_left_folds_whatever_the_offset(dev, offset):
     """The same cells, non-dyadic values, placed after `offset` rows of
     another cell: kernel B and grouped_stats give every cell the left fold
@@ -885,10 +889,11 @@ def test_segreduce_sums_are_left_folds_whatever_the_offset(dev, offset):
 
 # a few cells of 1e5 rows and more (1-day buckets over 1 s scrapes hold
 # 86,400 rows a cell), beside runs at the short/long threshold of 256 rows
-_LONG_RUN_LENS = [100_000, 86_400, 256, 257, 131_073, 3, 4096]
+# and 30-row runs that straddle the staged tiles
+_LONG_RUN_LENS = [100_000, 86_400, 256, 257, 131_073, 3, 4096] + [30] * 250 + [257, 1]
 
 
-@pytest.mark.parametrize("offset", [0, 5, 4095, 4397])
+@pytest.mark.parametrize("offset", [0, 5, 4095, 4397, SEG_TILE - 200, SEG_TILE + 3])
 def test_segreduce_long_runs_match_plain_whatever_the_offset(dev, offset):
     """Few cells of many rows each, non-dyadic values with NaN and +-inf
     in one cell and masked rows, after `offset` rows of another cell:
@@ -932,6 +937,42 @@ def test_segreduce_long_runs_match_plain_whatever_the_offset(dev, offset):
                          for a, b in zip(starts[:-1], starts[1:])])
     for key in ("count", "min", "max"):
         exact(g[key], want[key])
+
+
+def _lane_cases():
+    """(name, sorted int32 ids, num_cells): the main path's 30-row runs over
+    a few tiles with empty cells between them, long runs, ids out of range."""
+    rng = np.random.default_rng(5)
+    thirty = np.repeat(np.arange(0, 2 * 800, 2), 30).astype(np.int32)
+    mixed = np.repeat(np.arange(400), rng.integers(1, 600, 400)).astype(np.int32)
+    edges = np.concatenate([np.full(9, -2), np.arange(7000) // 7, np.full(30, 5000)])
+    return [("runs of 30, empty cells between", thirty, 1600),
+            ("runs of 1 to 600 rows", mixed, 400),
+            ("ids out of range", edges.astype(np.int32), 1000)]
+
+
+@pytest.mark.parametrize("case", range(3))
+def test_absent_lanes_equal_lanes_of_ones_bitwise(dev, case):
+    """Kernel B with no weights equals B with weights of ones, and kernel C
+    with no valid mask equals C with an all-true one, bitwise (sums and
+    counts as u64 views), on the card; and both equal their plain
+    versions."""
+    _, k, cells = _lane_cases()[case]
+    v = np.random.default_rng(case).uniform(-1e3, 1e3, len(k))
+    v[::97] = np.nan
+    kt, vt = torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev)
+    ones, ok = torch.ones_like(vt), torch.ones(len(k), dtype=torch.bool, device=dev)
+    pairs = [(blockagg.block_sum_count(kt, vt, cells),
+              blockagg.block_sum_count(kt, vt, cells, weights=ones)),
+             (blockagg.block_min_max(kt, vt, cells),
+              blockagg.block_min_max(kt, vt, cells, valid=ok))]
+    plain = [blockagg.sum_count_plain(kt.cpu(), vt.cpu(), ones.cpu(), cells),
+             blockagg.min_max_plain(kt.cpu(), vt.cpu(), ok.cpu(), cells)]
+    torch.cuda.synchronize()
+    for (absent, given), want in zip(pairs, plain):
+        for a, b, w in zip(absent, given, want):
+            assert np.array_equal(_u64(a), _u64(b))
+            torch.testing.assert_close(a.cpu(), w, rtol=1e-12, atol=0, equal_nan=True)
 
 
 def _one_query(rng, num_series, num_buckets, bucket_ms, t0):

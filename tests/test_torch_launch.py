@@ -1,6 +1,6 @@
 """The launch path of kernels `grid_fold`, `lane_sum_count`, the other
-mesh steps, `sort_perm`, `scan_kernel`, `packed_merge` and the four
-decoders, and the device the entry points resolve, on the CPU.
+mesh steps, `sort_perm`, `scan_kernel`, `packed_merge`, the four decoders
+and kernels B and C, and the device the entry points resolve, on the CPU.
 
 Each wrapper checks its inputs before it picks a route: malformed input
 raises `HoraeError` with the texts below, whatever device the lanes are on.
@@ -16,7 +16,7 @@ import torch
 
 from horaedb_tpu_torch.backend import resolve_device
 from horaedb_tpu_torch.common.error import HoraeError
-from horaedb_tpu_torch.ops import _build, decode, keychain, merge
+from horaedb_tpu_torch.ops import _build, blockagg, decode, keychain, merge
 from horaedb_tpu_torch.ops import scan as scan_ops
 from horaedb_tpu_torch.ops import sort as sort_ops
 from horaedb_tpu_torch.ops.aggregate import lane_segment_sum_count
@@ -341,6 +341,52 @@ def test_decoders_hand_their_launch_to_build_launch(monkeypatch, name):
                                    torch.device("meta"))
     assert tuple(args[2:]) == tail
     assert rows.shape == (5,) and rows.dtype == dtype
+
+
+def _segment_call(name: str, side: bool):
+    """Kernel B or C on meta lanes of 6 rows into 9 cells, with its side
+    lane (weights, valid) or without."""
+    k, v = _meta(6, torch.int32), _meta(6, torch.float64)
+    if name == "block_sum_count":
+        return blockagg.block_sum_count(k, v, 9, weights=_meta(6, torch.float64) if side else None)
+    return blockagg.block_min_max(k, v, 9, valid=_meta(6, torch.bool) if side else None)
+
+
+@pytest.mark.parametrize("side", [False, True])
+@pytest.mark.parametrize("name", ["block_sum_count", "block_min_max"])
+def test_segment_reductions_hand_their_launch_to_build_launch(monkeypatch, name, side):
+    """Kernels B and C launch through `_build.launch` with their entry
+    point's arguments but the stream; an absent weight or valid lane goes
+    to the kernel as a null pointer (None), never as a lane of ones built
+    for it. Meta lanes stand in for the card: the device check is lifted
+    and a fake entry point records the call."""
+    seen = []
+
+    def kernel(lib, fn_name, argtypes, restype=ctypes.c_int):
+        return (lib, fn_name, len(argtypes))
+
+    monkeypatch.setattr(blockagg, "_require_card", lambda name, dev: None)
+    monkeypatch.setattr(_build, "kernel", kernel)
+    monkeypatch.setattr(_build, "launch", lambda *a: seen.append(a))
+    out_a, out_b = _segment_call(name, side)
+    [(launched, fn, dev, *args)] = seen
+    assert (launched, fn, dev) == (name, (name, f"{name}_launch", len(args) + 1),
+                                   torch.device("meta"))
+    assert (args[2] is None) == (not side)
+    assert tuple(args[3:5]) == (6, 9)  # rows, cells
+    assert args[7:] == ([0] if name == "block_sum_count" else [])  # the bf16 flag
+    assert out_a.shape == out_b.shape == (9,) and out_a.dtype == torch.float64
+
+
+@pytest.mark.parametrize("name", ["block_sum_count", "block_min_max"])
+def test_segment_reductions_refuse_an_unsupported_device_before_the_build(monkeypatch, name):
+    def no_build(*a, **kw):
+        raise AssertionError("looked up a kernel for a meta tensor")
+
+    monkeypatch.setattr(_build, "kernel", no_build)
+    with pytest.raises(HoraeError) as err:
+        _segment_call(name, False)
+    assert str(err.value) == f"{name}: unsupported device meta"
 
 
 @pytest.mark.parametrize("bounds,digits", [([(5, 5), (-3, -3)], 1), ([(0, 0)], 1),
