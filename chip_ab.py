@@ -12,6 +12,7 @@
     python3 chip_ab.py burst [--root DIR] [--seed N] [--rounds N]
     python3 chip_ab.py burst-pair --root DIR [--seed N] [--rounds N]
     python3 chip_ab.py scan-pair --root DIR [--seed N] [--rounds N] [--no-warm-turn]
+    python3 chip_ab.py mesh-step --root DIR [--seed N]
 
 `reduce` builds and times, with chip_smoke's CUDA-event timer, the kernels
 that share `horaedb_tpu_torch/ops/csrc/segreduce.cuh`:
@@ -81,8 +82,11 @@ dict; 3h's `up` values, 30,000 rows, xor), each with its library
 yardstick where one exists, and `decode_dod_host_parts_us` (the decode
 wrapper's checks, its output's allocation, the kernel lookup, the device
 context and Stream object the decoders entered before `_build.launch`,
-the raw stream handle); and the mesh key kernel on 3.6M rows. `--root` as
-for `reduce`, for a tree that has `_build.launch`.
+the raw stream handle); the mesh key kernel (a tree that has it) or the
+slot pass (a tree that has that) on 3.6M sorted rows; and the three launch
+paths of `ops/aggregate.py` (grouped_stats, stacked_downsample,
+segment_last_value) at small shapes, where the host path is the call.
+`--root` as for `reduce`, for a tree that has `_build.launch`.
 
 `merge` splits the four merges that sort through a digit sort at the
 smoke's main shapes: `packed_merge` (row 18: one 2 h segment of
@@ -152,6 +156,28 @@ after a synchronise, the device allocations each scan made and, for the
 first two, the index merge's device ms inside the scan (CUDA events). An
 untimed `auto_metric_eq` scan opens each tree's turn (`--no-warm-turn`
 drops it), so that no timed scan follows the other tree's.
+
+`mesh-step` times the two mesh steps whole, from the raw lanes to the
+folded grids, on two packages in one process: that of `--root` ("parent")
+and that of this checkout ("change"), each imported apart, in the order
+parent, change, change, parent. Row 16 (`sharded_downsample`): one 2 h
+segment of 3l's packed downsample, NUM_SERIES series x 720 scrapes in
+(series, ts) order over the window's 48 buckets, on 4 slots of the card
+(rows 2 x series 2); row 17 (`multisegment_downsample`): 3l's 3-axis step
+over two such segments on 8 slots (seg 2 x rows 2 x series 2). For each
+step and turn: `events_ms` (chip_smoke's timer, 5 steps), `device_ms` by
+part (MESH_PARTS) and by kernel (torch.profiler, the mean of 5 steps),
+the device ops a step, the package's launch counts of one step, and host
+us a step until the last launch is enqueued (`host_us`) and until the
+synchronise (`wall_us`), over 20 steps, and the functions with the most
+host time a step (`host_top_us`, cProfile). Each turn also times, with
+chip_smoke's timer, the rows that share the steps' headers and wrappers
+(`other_rows_ms`: B and C at phase 4's shape and the long-run shape,
+grouped_stats and downsample at the fused shape sorted and shuffled,
+stacked_downsample at burst A's launch, grid_fold on a slot of 3l's fold),
+and every grid of every turn must equal the first turn's bit for bit (a
+digest on the card). The steps' library yardsticks (2 index_add_ + 2
+scatter_reduce over the same rows) are timed once.
 
 Each mode prints the card's name and power limit, then one JSON line.
 """
@@ -617,11 +643,46 @@ def small_rows(torch, cs, rng, dev) -> dict:
         (cs.WINDOW_MS // per)
     vals = torch.from_numpy(rng.uniform(0, 100, n)).to(dev)
     valid = torch.ones(n, dtype=torch.bool, device=dev)
-    out["sharded_downsample_keys_shape"] = f"{n} rows, {series} series x {buckets} buckets"
-    out["sharded_downsample_keys"] = launch_split(
-        torch, cs, lambda: mesh_ops.sharded_keys(ts, sid, vals, valid, None, cs.T0,
-                                                 cs.BUCKET_MS, 0, series, buckets))
+    if hasattr(mesh_ops, "sharded_keys"):  # a tree with the key kernel
+        out["sharded_downsample_keys_shape"] = f"{n} rows, {series} series x {buckets} buckets"
+        out["sharded_downsample_keys"] = launch_split(
+            torch, cs, lambda: mesh_ops.sharded_keys(ts, sid, vals, valid, None, cs.T0,
+                                                     cs.BUCKET_MS, 0, series, buckets))
+    if hasattr(mesh_ops, "slot_grids"):  # a tree with the slot pass
+        out["sharded_downsample_slot_shape"] = f"{n} rows, {series} series x {buckets} buckets"
+        out["sharded_downsample_slot"] = launch_split(
+            torch, cs, lambda: mesh_ops.slot_grids(ts, sid, vals, valid, None, cs.T0,
+                                                   cs.BUCKET_MS, 0, series, buckets, True))
+    out.update(aggregate_launches(torch, cs, rng, dev))
     return out
+
+
+def aggregate_launches(torch, cs, rng, dev) -> dict:
+    """launch_split of the three launch paths of ops/aggregate.py at small
+    shapes, where the host path is the call's time: grouped_stats (rows 5
+    and 8 launch through it) over 4,096 shuffled rows into 1,024 segments,
+    stacked_downsample (row 7) over [2, 2,048] lanes of 16 series x 8
+    buckets, segment_last_value (row 9) over 4,096 rows into 1,024
+    segments."""
+    from horaedb_tpu_torch.ops import aggregate
+
+    n, segs = 4_096, 1_024
+    idx = torch.from_numpy(rng.integers(0, segs, n).astype(np.int32)).to(dev)
+    vals = torch.from_numpy(rng.normal(size=n)).to(dev)
+    seq = torch.from_numpy(rng.integers(0, 2**40, n)).to(dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    b, r = 2, 2_048
+    lanes = [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, 8 * 1_000, (b, r)).astype(np.int64),
+        rng.integers(0, 16, (b, r)).astype(np.int32), rng.normal(size=(b, r)),
+        np.ones((b, r), bool), np.zeros(b, np.int64))]
+    return {
+        "grouped_stats_small": launch_split(
+            torch, cs, lambda: aggregate.grouped_stats(vals, idx, None, segs)),
+        "stacked_downsample_small": launch_split(
+            torch, cs, lambda: aggregate.stacked_downsample(*lanes, 1_000, 16, 8)),
+        "segment_last_value_small": launch_split(
+            torch, cs, lambda: aggregate.segment_last_value(vals, seq, idx, valid, segs))}
 
 
 # (part, pattern of the profiler's kernel name), the first match wins;
@@ -982,17 +1043,23 @@ def use_tree(mods: dict) -> None:
     sys.modules.update(mods)
 
 
-def load_tree(root: str) -> dict:
+# the modules a mesh step and the rows beside it import, lazily ones included
+MESH_MODULES = tuple(f".ops.{m}" for m in (
+    "_build", "agg_registry", "aggregate", "blockagg", "blocks", "decode", "dedup", "filter",
+    "keychain", "merge", "mesh", "scan", "sort")) + (".parallel.merge", ".parallel.scan")
+
+
+def load_tree(root: str, extra: tuple = ()) -> dict:
     """Import the package of checkout `root`, and the modules burst A and
-    the scans drive, apart from any copy already imported; its sys.modules entries,
-    for use_tree."""
+    the scans drive (and `extra`), apart from any copy already imported;
+    its sys.modules entries, for use_tree."""
     use_tree({})
     path = os.path.abspath(root)
     sys.path.insert(0, path)
     try:
         for name in ("", ".common.time_ext", ".engine", ".objstore", ".ops.filter",
                      ".parallel.mesh", ".server.batching", ".serving", ".storage",
-                     ".storage.scanstats"):
+                     ".storage.scanstats") + extra:
             importlib.import_module(PKG + name)
     finally:
         sys.path.remove(path)
@@ -1002,8 +1069,8 @@ def load_tree(root: str) -> dict:
 class Tree:
     """One checkout's package, loaded beside another in one process."""
 
-    def __init__(self, root: str):
-        self.mods = load_tree(root)
+    def __init__(self, root: str, extra: tuple = ()):
+        self.mods = load_tree(root, extra)
         self.package = os.path.dirname(self.mods[PKG].__file__)
 
     def mod(self, name: str):
@@ -1243,6 +1310,233 @@ async def scan_pair_times(torch, cs, rng, dev, rounds: int, roots: list[tuple[st
     return {"rows": rows, "trees": out}
 
 
+# the mesh steps' device work by part (the first match wins)
+MESH_PARTS = (
+    ("key kernel (keys_kernel)", ("keys_kernel",)),
+    ("slot pass (sorted rows)", ("slot_run_kernel", "SlotKeys")),
+    ("sort: key pass, decide, partition", ("onesweep::key_kernel", "onesweep::decide_kernel",
+                                           "onesweep::zero_kernel",
+                                           "onesweep::compact_kernel")),
+    ("sort: digit sweeps", ("onesweep::sweep_kernel",)),
+    ("fold: seg::fill_kernel", ("seg::fill_kernel",)),
+    ("fold: seg::run_kernel", ("seg::run_kernel",)),
+    ("grouped_stats' mean_kernel", ("mean_kernel",)),
+    ("grid_fold", ("grid_fold",)),
+    ("copies (stack, cat)", ("Memcpy", "CatArrayBatchedCopy", "copy")),
+    ("memsets", ("Memset",)),
+    ("torch elementwise (clamp, the mean)", ("at::native",)),
+)
+
+
+def mesh_step_inputs(cs, rng) -> dict:
+    """Host lanes of 3l's two mesh steps. Row 16: one 2 h segment of the
+    packed downsample, NUM_SERIES series x 720 scrapes in (series, ts)
+    order, over the 48 buckets of the window (the first call of 3l's mesh
+    downsample). Row 17: the 3-axis step over two such segments, [2, 7.2M]
+    lanes in the same order, each segment's own t0 and 24 buckets."""
+    per = cs.SEGMENT_MS // cs.INTERVAL_MS
+    sid = np.repeat(np.arange(cs.NUM_SERIES, dtype=np.int32), per)
+    ts = [cs.T0 + g * cs.SEGMENT_MS + np.tile(np.arange(per, dtype=np.int64) * cs.INTERVAL_MS,
+                                               cs.NUM_SERIES) for g in (0, 1)]
+    vals = rng.uniform(0, 100, (2, len(sid)))
+    return {"sorted": (ts[0], sid, vals[0], np.ones(len(sid), bool)),
+            "seg": (np.stack(ts), np.stack([sid, sid]), vals, np.ones((2, len(sid)), bool)),
+            "t0_seg": np.array([cs.T0, cs.T0 + cs.SEGMENT_MS], np.int64)}
+
+
+def digest(torch, grids) -> str:
+    """A digest of the grids' bits, computed on the device: per f64 grid (a
+    dict's sum, count, min, max, those it holds, in that order, or a
+    tuple's in theirs) the wrapping int64 sum of its words times 1, 3, 5,
+    ..., by position."""
+    if isinstance(grids, dict):
+        grids = [grids[k] for k in ("sum", "count", "min", "max") if k in grids]
+    out = []
+    for t in grids:
+        v = t.contiguous().reshape(-1).view(torch.int64)
+        w = torch.arange(v.numel(), dtype=torch.int64, device=v.device) * 2 + 1
+        out.append(f"{int((v * w).sum()) & (2**64 - 1):016x}")
+    return "-".join(out)
+
+
+def step_split(torch, cs, port, fn, steps: int = 5, host_steps: int = 20) -> dict:
+    """One mesh step, fn(): events ms (chip_smoke's timer), device ms by
+    part and by kernel (torch.profiler, the mean of `steps` steps), the
+    kernels and memsets a step runs, the package's launch counts of one
+    step, and host us a step until the last launch is enqueued (`host_us`)
+    and until the synchronise after it (`wall_us`), over `host_steps`."""
+    out = {"events_ms": cs.cuda_ms(torch, fn, iters=steps, warmup=1)}
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    by_kernel, by_part, events = {}, {}, 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / steps / 1e3
+        name = cs.kernel_name(e.name)
+        by_kernel[name] = by_kernel.get(name, 0.0) + ms
+        part = merge_part(name, MESH_PARTS)
+        by_part[part] = by_part.get(part, 0.0) + ms
+        events += 1
+    out["device_ms"] = sum(by_kernel.values())
+    out["device_ms_by_part"] = dict(sorted(by_part.items(), key=lambda kv: -kv[1]))
+    out["device_ms_by_kernel"] = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1]))
+    out["device_ops_a_step"] = events / steps
+    port.reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    out["launches_a_step"] = {k: v for k, v in port.launch_counts().items() if v}
+    t = time.perf_counter()
+    for _ in range(host_steps):
+        fn()
+    t_host = time.perf_counter()
+    torch.cuda.synchronize()
+    out["host_us"] = (t_host - t) / host_steps * 1e6
+    out["wall_us"] = (time.perf_counter() - t) / host_steps * 1e6
+    out["host_top_us"] = host_profile(torch, fn, host_steps)
+    return out
+
+
+def host_profile(torch, fn, steps: int, top: int = 12) -> dict:
+    """cProfile over `steps` calls of fn(): the functions with the most
+    own time, in µs a call of fn() (the profiler's own cost included)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(steps):
+        fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((f"{f[0].rsplit('/', 1)[-1]}:{f[2]}", st[2] / steps * 1e6)
+                   for f, st in stats.items()), key=lambda kv: -kv[1])
+    return dict(rows[:top])
+
+
+def mesh_steps(torch, cs, tree, dev, inputs: dict) -> tuple[dict, dict]:
+    """Rows 16 and 17 as whole steps on `tree`'s package (step_split each)
+    and the digests of their grids."""
+    use_tree(tree.mods)
+    pscan = tree.mod("parallel.scan")
+    port = tree.mod("")
+    mesh4 = cs.card_mesh(torch, dev, cs.MESH_SLOTS)
+    series = cs.NUM_SERIES + (-cs.NUM_SERIES % 2)
+    lanes, _ = pscan.shard_rows(mesh4, inputs["sorted"], pad_value=(0, series, 0, False))
+    buckets = cs.WINDOW_MS // cs.BUCKET_MS
+
+    def step16():
+        return pscan.sharded_downsample(mesh4, *lanes, cs.T0, cs.BUCKET_MS, series, buckets,
+                                        sorted_input=True)
+
+    fn3 = pscan.build_multisegment_downsample(cs.card_mesh(torch, dev, 8, ("seg", "rows", "series")),
+                                              cs.NUM_SERIES, cs.SEG_BUCKETS)
+    seg = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in inputs["seg"]]
+
+    def step17():
+        return fn3(*seg, inputs["t0_seg"], cs.BUCKET_MS)
+
+    out, digests = {}, {}
+    for name, fn in (("sharded_downsample", step16), ("multisegment_downsample", step17)):
+        got = fn()
+        digests[name] = digest(torch, got)
+        out[name] = step_split(torch, cs, port, fn)
+    return out, digests
+
+
+def other_rows(torch, cs, tree, dev, seed: int) -> tuple[dict, dict]:
+    """Events ms and grid digests of the rows that share the mesh steps'
+    headers or wrappers, at chip_smoke's shapes: B and C (rows 1, 2) at
+    phase 4's shape, explicit and as downsample_sorted calls them, and at
+    the long-run shape; grouped_stats and downsample (rows 5, 8) at the
+    fused shape, sorted and shuffled; stacked_downsample (row 7) at burst
+    A's launch; grid_fold (row 15) on one slot of 3l's fold."""
+    use_tree(tree.mods)
+    aggregate, blockagg = tree.mod("ops.aggregate"), tree.mod("ops.blockagg")
+    mesh_ops = tree.mod("ops.mesh")
+    rng = np.random.default_rng(seed)
+    times, digests = {}, {}
+
+    def row(name, fn, iters=20):
+        digests[name] = digest(torch, fn())
+        times[name] = cs.cuda_ms(torch, fn, iters=iters, warmup=2)
+
+    for shape, (k, v, cells) in (("main", cs.main_path_segment_inputs(rng)),
+                                 ("long_runs", cs.long_run_inputs(rng))):
+        kt, vt = torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev)
+        w, ok = torch.ones_like(vt), torch.ones_like(vt, dtype=torch.bool)
+        row(f"{shape}_block_sum_count", lambda: blockagg.block_sum_count(kt, vt, cells, weights=w))
+        row(f"{shape}_block_min_max", lambda: blockagg.block_min_max(kt, vt, cells, valid=ok))
+        row(f"{shape}_main_call_block_sum_count",
+            lambda: blockagg.sorted_segment_sum_count(kt, vt, cells, impl="block"))
+        row(f"{shape}_main_call_block_min_max",
+            lambda: blockagg.sorted_segment_min_max(kt, vt, cells, impl="block"))
+        if shape == "long_runs":
+            row("long_runs_grouped_stats", lambda: aggregate.grouped_stats(vt, kt, None, cells))
+        del kt, vt, w, ok
+    lanes, bucket_ms, series, buckets = stacked_inputs(torch, rng, dev)
+    row("stacked_downsample",
+        lambda: aggregate.stacked_downsample(*lanes, bucket_ms, series, buckets))
+    del lanes
+    part = fold_partials(torch, cs, rng, dev)
+    row("grid_fold", lambda: mesh_ops.grid_fold(part))
+    series, buckets = cs.FUSED_SERIES, cs.FUSED_WINDOW_MS // cs.FUSED_BUCKET_MS
+    for order, (ts, sid, vals, flat) in fused_lanes(torch, cs, rng, dev):
+        row(f"grouped_stats_{order}",
+            lambda: aggregate.grouped_stats(vals, flat, None, series * buckets), iters=5)
+        row(f"downsample_{order}",
+            lambda: aggregate.downsample(ts, sid, vals, None, 0, cs.FUSED_BUCKET_MS, series,
+                                         buckets), iters=5)
+    return times, digests
+
+
+def mesh_step_times(torch, cs, rng, dev, roots: list[tuple[str, str]], seed: int) -> dict:
+    """The `mesh-step` mode (module docstring): the trees of `roots` (tag,
+    checkout) in the order parent, change, change, parent."""
+    inputs = mesh_step_inputs(cs, rng)
+    trees = {tag: Tree(root, MESH_MODULES) for tag, root in roots}
+    for tree in trees.values():
+        use_tree(tree.mods)
+        tree.mod("ops._build").build_all()
+    tags = [t for t, _ in roots]
+    order = tags + tags[::-1]
+    out = {tag: {"package": trees[tag].package, "turns": []} for tag in tags}
+    ref = None
+    for tag in order:
+        steps, step_digests = mesh_steps(torch, cs, trees[tag], dev, inputs)
+        times, row_digests = other_rows(torch, cs, trees[tag], dev, seed)
+        out[tag]["turns"].append({"steps": steps, "other_rows_ms": times})
+        got = {**step_digests, **row_digests}
+        if ref is None:
+            ref = got
+        diff = sorted(k for k in ref if ref[k] != got[k])
+        cs.require(not diff, f"{tag}: grids differ from {order[0]}'s: {diff}")
+    seg = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in inputs["seg"]]
+    srt = [torch.from_numpy(a).to(dev) for a in inputs["sorted"]]
+    buckets = cs.WINDOW_MS // cs.BUCKET_MS
+    lib16 = cs.mesh_step_library(torch, dev, *[[x] for x in srt], [cs.T0], cs.NUM_SERIES, buckets)
+    seg[1] = seg[1].clone()
+    seg[1][1] += cs.NUM_SERIES  # segment 1's series past segment 0's: one flat grid of both
+    lib17 = cs.mesh_step_library(torch, dev, *[[x[g] for g in (0, 1)] for x in seg],
+                                 [int(t) for t in inputs["t0_seg"]], 2 * cs.NUM_SERIES,
+                                 cs.SEG_BUCKETS)
+    out["library_ms"] = {"sharded_downsample": cs.cuda_ms(torch, lib16, iters=5),
+                         "multisegment_downsample": cs.cuda_ms(torch, lib17, iters=5)}
+    out["library_call"] = "index_add_ x2 + scatter_reduce amin/amax over the flat cell ids"
+    out["shapes"] = {"sharded_downsample": f"{len(inputs['sorted'][0])} sorted rows, "
+                                           f"{cs.NUM_SERIES} x {buckets}, rows 2 x series 2",
+                     "multisegment_downsample": f"[2, {inputs['seg'][0].shape[1]}] rows, "
+                                                f"{cs.NUM_SERIES} x {cs.SEG_BUCKETS} a "
+                                                f"segment, seg 2 x rows 2 x series 2"}
+    out["order"] = order
+    out["bitwise_equal"] = True
+    return out
+
+
 class NeverHit(dict):
     """An id cache that never hits and keeps nothing."""
 
@@ -1299,7 +1593,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     ap.add_argument("mode", choices=("reduce", "reduce-split", "id-cache", "solo-fold", "launch",
                                      "merge", "sort-split", "default-device", "burst",
-                                     "burst-pair", "scan-pair"))
+                                     "burst-pair", "scan-pair", "mesh-step"))
     ap.add_argument("--root", default=None, help="import horaedb_tpu_torch from this checkout")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-warm-turn", action="store_true",
@@ -1350,6 +1644,10 @@ def main() -> int:
         cs.require(args.root is not None, "burst-pair: --root names the other checkout")
         out = asyncio.run(burst_times(torch, cs, rng, dev, args.rounds,
                                       [("change", HERE), ("parent", args.root)]))
+    elif args.mode == "mesh-step":
+        cs.require(args.root is not None, "mesh-step: --root names the parent checkout")
+        out = mesh_step_times(torch, cs, rng, dev, [("parent", args.root), ("change", HERE)],
+                              args.seed)
     else:
         out = asyncio.run(id_cache_times(torch, cs, rng, dev))
     out.setdefault("package", os.path.dirname(horaedb_tpu_torch.__file__))

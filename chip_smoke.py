@@ -150,14 +150,15 @@ Phases, each of which exits non-zero on failure:
       scan, its sample_sort_merge indices equal to packed_merge's, the
       path_device_merge_sharded note and no fallback note); 3b's packed
       downsample with a 4-slot (rows 2 x series 2) mesh installed
-      (sharded_downsample, B, C, grid_fold), equal to 3b's grids and the
+      (sharded_downsample, grid_fold), equal to 3b's grids and the
       oracle; a 4-region RegionedEngine (TSBS cpu-only's 10,000 hosts,
       cpu_usage_user, 1.8M samples in 6 payloads) whose query_partial_grids,
       split over two nodes and wire round-tripped, fold with merge_partials
       on the mesh (grid_fold; device_fold_safe must be True) bitwise equal
       to query(); entry.dryrun_multichip(4), then 3a's two segments in one
-      3-axis (seg 2 x rows 2 x series 2) multisegment_downsample step,
-      equal to 3b's grids segment by segment;
+      3-axis (seg 2 x rows 2 x series 2) multisegment_downsample step
+      (one slot pass a slot: 8 launches, no grouped_stats sort), equal to
+      3b's grids segment by segment;
    m. storage opened with the default device (a bare "cuda", which
       resolves to the current card with its index): 3d's InSet scan under
       HORAEDB_SCAN_PATH=device (index_merge_filter) and 3e's fused
@@ -175,9 +176,11 @@ Phases, each of which exits non-zero on failure:
    (2^18 rows into 16,384 and 524,288 cells; sorted ids, and shuffled
    under `unsorted`) and segment_last_value on
    3k's inputs, and the four mesh kernels at 3l's shapes (one slot of the
-   regioned fold; the key kernel on one slot of the mesh downsample and
-   of the 3-axis step, each against sharded_keys_plain on the card, with
-   the whole step timed beside it; the sharded scan's merge), timed.
+   regioned fold; the mesh downsample's step and the 3-axis step whole,
+   each held bitwise against the same step through the plain route and
+   through the parent's route (the keys, then kernels B and C or
+   grouped_stats) on the same card tensors, with its library yardstick;
+   the sharded scan's merge), timed.
    Phase 2 also holds the mesh kernels against their plain versions (the
    steps on CPU slots), bitwise: grid_fold on NaN
    payloads, +-0.0, subnormals and infinities, k = 1, 5 and 9, odd and
@@ -316,9 +319,9 @@ def sweep_occupancy() -> dict:
 
 
 def segreduce_occupancy() -> dict:
-    """Phase 1: segreduce.cuh's run_kernel (kernels B, C and grouped_stats'
-    reduction) for each set of lanes it stages, as sweep_occupancy reports
-    the sweep."""
+    """Phase 1: segreduce.cuh's run_kernel (kernels B, C, grouped_stats'
+    reduction and the mesh slot pass, unsorted and sorted) for each set of
+    lanes it stages, as sweep_occupancy reports the sweep."""
     import ctypes
 
     from horaedb_tpu_torch.ops import _build
@@ -327,7 +330,9 @@ def segreduce_occupancy() -> dict:
     for library, entry, sets in (
             ("block_sum_count", "block_sum_count_occupancy", ("v", "v, w")),
             ("block_min_max", "block_min_max_occupancy", ("v", "v, valid")),
-            ("grouped_stats", "grouped_stats_run_occupancy", ("v",))):
+            ("grouped_stats", "grouped_stats_run_occupancy", ("v",)),
+            ("sharded_downsample", "sharded_slot_occupancy",
+             ("the sort's ids, v", "ids from ts, sid, valid, mask; v"))):
         for i, lanes in enumerate(sets):
             buf = (ctypes.c_int32 * 4)()
             two = len(sets) > 1
@@ -3484,7 +3489,7 @@ async def mesh_scan_paths(torch, dev, data, storage, dense, query_pred, grids0, 
         set_active_mesh(None)
     counts = port.launch_counts()
     counted("downsample_mesh", counts)
-    for k in ("sharded_downsample", "grid_fold", "block_sum_count", "block_min_max"):
+    for k in ("sharded_downsample", "grid_fold"):
         require(counts[k] > 0, f"the mesh downsample did not launch {k}")
     check_grids(got, want, "mesh downsample against the oracle")
     grids_close(got, grids0, "mesh downsample against the single-device route")
@@ -3518,7 +3523,10 @@ async def mesh_scan_paths(torch, dev, data, storage, dense, query_pred, grids0, 
     secs = time.perf_counter() - t
     counts = port.launch_counts()
     counted("multisegment", counts)
-    require(counts["multisegment_downsample"] > 0, "multisegment did not launch its kernel")
+    # one slot pass (one sort) a slot of the 8, and no other sort
+    require(counts["multisegment_downsample"] == 8 and counts["grouped_stats"] == 0,
+            f"multisegment launched {counts['multisegment_downsample']} slot passes and "
+            f"{counts['grouped_stats']} grouped_stats sorts, not 8 and 0")
     require(tuple(out3["sum"].shape) == (2, NUM_SERIES, SEG_BUCKETS), "multisegment shape")
     for g in (0, 1):
         sl = slice(g * SEG_BUCKETS, (g + 1) * SEG_BUCKETS)
@@ -3526,7 +3534,8 @@ async def mesh_scan_paths(torch, dev, data, storage, dense, query_pred, grids0, 
                     {k: grids0[k][:, sl] for k in ("sum", "count", "min", "max")},
                     f"multisegment segment {g}")
     out["multisegment"] = {"s": secs, "rows": int(lanes[0].numel()), "slots": 8,
-                           "shape": list(out3["sum"].shape)}
+                           "shape": list(out3["sum"].shape),
+                           "launches": {k: v for k, v in counts.items() if v}}
     print(f"3l multisegment: [2, {NUM_SERIES}, {SEG_BUCKETS}] from {lanes[0].numel()} rows in "
           f"{secs:.3f} s, equal to each segment's single-device grids", flush=True)
     return out, {"merge": mcap.merge, "down": dcap.down, "multiseg": (fn3, lanes, t0_seg)}
@@ -3615,6 +3624,32 @@ async def region_paths(torch, rng, dev, counted) -> tuple[dict, tuple]:
     return out, fcap.fold
 
 
+def mesh_step_library(torch, dev, ts_l, sid_l, val_l, ok_l, t0s, num_series: int,
+                      num_buckets: int):
+    """The yardstick of the downsample rows and of the two mesh steps: a
+    function making 2 index_add_ + 2 scatter_reduce calls over the flat cell
+    ids of the same rows (lists of row lanes, one t0 each)."""
+    flats, vals = [], []
+    for ts, sid, v, ok, t0 in zip(ts_l, sid_l, val_l, ok_l, t0s):
+        b = torch.div(ts - t0, BUCKET_MS, rounding_mode="floor")
+        good = ok & (b >= 0) & (b < num_buckets) & (sid >= 0) & (sid < num_series)
+        flats.append(torch.where(good, sid.long() * num_buckets + b, num_series * num_buckets))
+        vals.append(v)
+    flat, v = torch.cat(flats), torch.cat(vals)
+    cells = num_series * num_buckets
+
+    def library():
+        s = torch.zeros(cells + 1, dtype=torch.float64, device=dev).index_add_(0, flat, v)
+        c = torch.zeros(cells + 1, dtype=torch.float64, device=dev).index_add_(
+            0, flat, torch.ones_like(v))
+        mn = torch.full((cells + 1,), torch.inf, dtype=torch.float64,
+                        device=dev).scatter_reduce_(0, flat, v, "amin")
+        mx = torch.full((cells + 1,), -torch.inf, dtype=torch.float64,
+                        device=dev).scatter_reduce_(0, flat, v, "amax")
+        return s, c, mn, mx
+    return library
+
+
 def mesh_records(torch, dev, caps: dict, fold_cap) -> list[dict]:
     """Phase 4: the four mesh kernels at phase 3l's shapes against their
     plain versions on the card, timed (kernel, plain, library yardstick)."""
@@ -3682,87 +3717,150 @@ def mesh_records(torch, dev, caps: dict, fold_cap) -> list[dict]:
         "library_call": "sum x2, amin, amax over dim 0"})
     del part
 
-    def downsample_library(ts_l, sid_l, val_l, ok_l, t0s, num_series, num_buckets):
-        """2 index_add_ + 2 scatter_reduce over the flat cell ids of the
-        same rows (the yardstick of the downsample rows)."""
-        flats, vals = [], []
-        for ts, sid, v, ok, t0 in zip(ts_l, sid_l, val_l, ok_l, t0s):
-            b = torch.div(ts - t0, BUCKET_MS, rounding_mode="floor")
-            good = ok & (b >= 0) & (b < num_buckets) & (sid >= 0) & (sid < num_series)
-            flats.append(torch.where(good, sid.long() * num_buckets + b, num_series * num_buckets))
-            vals.append(v)
-        flat, v = torch.cat(flats), torch.cat(vals)
-        cells = num_series * num_buckets
-
-        def library():
-            s = torch.zeros(cells + 1, dtype=torch.float64, device=dev).index_add_(0, flat, v)
-            c = torch.zeros(cells + 1, dtype=torch.float64, device=dev).index_add_(
-                0, flat, torch.ones_like(v))
-            mn = torch.full((cells + 1,), torch.inf, dtype=torch.float64,
-                            device=dev).scatter_reduce_(0, flat, v, "amin")
-            mx = torch.full((cells + 1,), -torch.inf, dtype=torch.float64,
-                            device=dev).scatter_reduce_(0, flat, v, "amax")
-            return s, c, mn, mx
-        return library
-
-    def key_record(name: str, lanes, t0: int, bucket_ms: int, num_series: int,
-                   num_buckets: int, what: str, step, step_library) -> dict:
-        """The key kernel on one slot's lanes (series slice 0) against
-        `sharded_keys_plain` on the same card tensors; the whole mesh step
-        and its library yardstick are kept beside it as context."""
-        local = num_series // 2
-        args = (*lanes, None, t0, bucket_ms, 0, local, num_buckets)
-        got = mesh_ops.sharded_keys(*args, library=name)
-        want = mesh_ops.sharded_keys_plain(*args)
-        for g, w in zip(got, want):
-            require(torch.equal(g, w), f"{name} key kernel != plain at 3l's shape")
-        rows = int(lanes[0].numel())
-        # read ts 8 + sid 4 + value 8 + valid 1, write safe 4 + flat 4 + value 8
-        # + weight 8 + ok 1: 46 B a row
-        nb, kind = bound(rows * 46, 0)
+    def step_record(name: str, replaces: str, shape: str, step, rows: int, cells: int,
+                    library) -> dict:
+        """A mesh step whole, from the raw lanes to the folded grids: held
+        bitwise against the same step through the plain route (each slot's
+        plain version on CPU copies of its lanes, where index_add_ folds in
+        row order) and through the parent's route on the same card tensors
+        (SlotRoute), and timed with the plain route on the card, the
+        parent's route and its library yardstick."""
+        got = step()
+        for route, on in (("plain", "cpu"), ("parent", None)):
+            with SlotRoute(route, on):
+                want = step()
+            for key in mesh_ops.FOLD_KEYS:
+                require(torch.equal(got[key].view(torch.int64), want[key].view(torch.int64)),
+                        f"{name} step != the {route} route at 3l's shape ({key})")
+        with SlotRoute("plain"):
+            plain_ms = cuda_ms(torch, step, iters=3, warmup=1)
+        with SlotRoute("parent"):
+            parent_ms = cuda_ms(torch, step, iters=5, warmup=1)
+        # read ts 8 + sid 4 + value 8 + valid 1 a row once, write the five
+        # grids (sum, count, min, max, mean) once: 21 B a row, 40 B a cell
+        nb, kind = bound(rows * 21 + cells * 40, 0)
         return {
             "name": name, "route": "cuda",
-            "source": "horaedb_tpu_torch/ops/csrc/sharded_downsample.cu",
-            "shape": f"{rows} rows of one slot, series slice [0, {local}) x {num_buckets} "
-                     f"buckets, t0 {t0} ({what})",
-            "max_abs_err": abs_err(torch, got[2], want[2]),
-            "ms": cuda_ms(torch, lambda: mesh_ops.sharded_keys(*args, library=name)),
-            "plain_ms": cuda_ms(torch, lambda: mesh_ops.sharded_keys_plain(*args)),
-            "bound_ms": nb, "bound_by": kind, "library_ms": None,
-            "library_call": "none: no one PyTorch call builds the cell keys",
-            "step_ms": cuda_ms(torch, step, iters=5, warmup=1),
-            "step_library_ms": cuda_ms(torch, step_library, iters=5),
-            "step_library_call": "index_add_ x2 + scatter_reduce amin/amax over the flat cell "
-                                 "ids of the step's rows"}
+            "source": "horaedb_tpu_torch/ops/csrc/sharded_downsample.cu", "replaces": replaces,
+            "shape": shape, "max_abs_err": 0.0,
+            "ms": cuda_ms(torch, step, iters=5, warmup=1), "device_ms": device_ms(torch, step),
+            "plain_ms": plain_ms, "parent_route_ms": parent_ms,
+            "bound_ms": nb, "bound_by": kind, "library_ms": cuda_ms(torch, library, iters=5),
+            "library_call": "index_add_ x2 + scatter_reduce amin/amax over the flat cell ids "
+                            "of the step's rows"}
 
-    # sharded_downsample: 3l's mesh downsample, segment 0's run
+    # sharded_downsample: 3l's mesh downsample, segment 0's run, the whole step
     a, kw = caps["down"]
     mesh4, ts_l, sid_l, val_l, ok_l = a[:5]
     t0, num_series, num_buckets = kw["t0"], kw["num_series"], kw["num_buckets"]
-    rec = key_record(
-        "sharded_downsample", (ts_l[0], sid_l[0], val_l[0], ok_l[0]), t0, kw["bucket_ms"],
-        num_series, num_buckets, f"slot (0, 0) of 3l's {sum(int(t.numel()) for t in ts_l)} sorted rows on "
-                     f"{mesh4.size} slots, rows 2 x series 2",
+    rows = sum(int(t.numel()) for t in ts_l)
+    records.append(step_record(
+        "sharded_downsample", "horaedb_tpu/parallel/scan.py:197",
+        f"3l's mesh downsample step: {rows} sorted rows on {mesh4.size} slots (rows 2 x series "
+        f"2), {num_series} series x {num_buckets} buckets",
         lambda: pscan.sharded_downsample(mesh4, ts_l, sid_l, val_l, ok_l, t0, kw["bucket_ms"],
                                          num_series, num_buckets,
                                          sorted_input=kw["sorted_input"]),
-        downsample_library(ts_l, sid_l, val_l, ok_l, [t0] * 2, num_series, num_buckets))
-    records.append({**rec, "replaces": "horaedb_tpu/parallel/scan.py:197"})
+        rows, num_series * num_buckets,
+        mesh_step_library(torch, dev, ts_l, sid_l, val_l, ok_l, [t0] * len(ts_l), num_series,
+                          num_buckets)))
 
-    # multisegment_downsample: 3l's 3-axis step, segment 1's first row shard
+    # multisegment_downsample: 3l's 3-axis step over 3a's two segments
     fn3, lanes, t0_seg = caps["multiseg"]
-    per = lanes[0].shape[1] // 2
     # segment 1's series offset past segment 0's: one flat grid of both
     seg_lanes = [[x[g] for g in (0, 1)] for x in lanes]
     seg_lanes[1][1] = seg_lanes[1][1] + NUM_SERIES
-    rec = key_record(
-        "multisegment_downsample", [x[1, :per] for x in lanes], int(t0_seg[1]), BUCKET_MS,
-        NUM_SERIES, SEG_BUCKETS, f"slot (1, 0, 0) of 3l's [2, {2 * per}] rows on 8 slots, seg 2 x rows 2 "
-                     f"x series 2",
-        lambda: fn3(*lanes, t0_seg, BUCKET_MS),
-        downsample_library(*seg_lanes, [int(t) for t in t0_seg], 2 * NUM_SERIES, SEG_BUCKETS))
-    records.append({**rec, "replaces": "horaedb_tpu/parallel/scan.py:286"})
+    records.append(step_record(
+        "multisegment_downsample", "horaedb_tpu/parallel/scan.py:286",
+        f"3l's 3-axis step: [2, {lanes[0].shape[1]}] rows on 8 slots (seg 2 x rows 2 x series "
+        f"2), {NUM_SERIES} series x {SEG_BUCKETS} buckets a segment",
+        lambda: fn3(*lanes, t0_seg, BUCKET_MS), int(lanes[0].numel()),
+        2 * NUM_SERIES * SEG_BUCKETS,
+        mesh_step_library(torch, dev, *seg_lanes, [int(t) for t in t0_seg], 2 * NUM_SERIES,
+                          SEG_BUCKETS)))
     return records
+
+
+class SlotRoute:
+    """Inside the block, the mesh steps take another route through each
+    slot: `plain`, the slot pass's plain version (on device `on`, default
+    the lanes' own) and grid_fold's; or `parent`, the route the slot pass
+    replaced: the cell keys (`sharded_keys_plain`, bitwise the key kernel it
+    had), then kernels B and C over them (sorted rows) or grouped_stats
+    three times (the values and the weights over the clipped keys, min and
+    max over the dropping keys), and kernel grid_fold."""
+
+    def __init__(self, route: str, on=None):
+        self.route, self.on = route, on
+
+    def __enter__(self):
+        import torch
+
+        from horaedb_tpu_torch.ops import mesh as mesh_ops
+
+        self.orig = (mesh_ops.slot_grids, mesh_ops.grid_fold)
+        grids_of = mesh_ops.slot_grids_plain if self.route == "plain" else parent_slot_grids
+
+        def slot(*args, out=None, library=None):
+            dev = args[0].device
+            if self.on is not None:
+                args = [a.to(self.on) if torch.is_tensor(a) else a for a in args]
+            grids = {k: v.to(dev) for k, v in grids_of(*args).items()}
+            if out is None:
+                return grids
+            for k, t in out.items():
+                t.copy_(grids[k])
+            return out
+
+        mesh_ops.slot_grids = slot
+        if self.route == "plain":
+            mesh_ops.grid_fold = mesh_ops.grid_fold_plain
+        return self
+
+    def __exit__(self, *exc):
+        from horaedb_tpu_torch.ops import mesh as mesh_ops
+
+        mesh_ops.slot_grids, mesh_ops.grid_fold = self.orig
+
+
+def parent_slot_grids(ts, sid, vals, valid, mask, t0, bucket_ms, lo, local_series, num_buckets,
+                      sorted_input, with_minmax=True) -> dict:
+    """One slot's flat grids through the parent's route (SlotRoute)."""
+    import torch
+
+    from horaedb_tpu_torch.ops import blockagg
+    from horaedb_tpu_torch.ops import mesh as mesh_ops
+    from horaedb_tpu_torch.ops.aggregate import grouped_stats
+
+    cells = local_series * num_buckets
+    safe, flat, vm, w, ok = mesh_ops.sharded_keys_plain(ts, sid, vals, valid, mask, t0,
+                                                        bucket_ms, lo, local_series, num_buckets)
+    if mesh_ops.sorted_route(sorted_input, cells):
+        s, c = blockagg.block_sum_count(safe, vm, cells, weights=w)
+        mn, mx = blockagg.block_min_max(safe, vm, cells, valid=ok)
+    else:
+        kc = torch.clamp(safe, 0, cells)
+        s = grouped_stats(vm, kc, None, cells)["sum"]
+        c = grouped_stats(w, kc, None, cells)["sum"]
+        g = grouped_stats(vm, flat, None, cells)
+        mn, mx = g["min"], g["max"]
+    out = {"sum": s, "count": c}
+    if with_minmax:
+        out["min"], out["max"] = mn, mx
+    return out
+
+
+def device_ms(torch, fn, calls: int = 5) -> float:
+    """Device ms a call of fn(): every kernel, copy and memset it runs
+    (torch.profiler, the mean of `calls` calls)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / calls / 1e3
 
 
 def main() -> int:

@@ -54,9 +54,10 @@ from horaedb_tpu_torch.common.error import HoraeError
 # and a downsample call counts once under each name. A stacked_downsample
 # call launches two libraries, stacked_downsample (the cell ids) and
 # grouped_stats (the reduction), and counts once in each.
-# multisegment_downsample is sharded_downsample's key kernel with a
+# multisegment_downsample is sharded_downsample's slot pass with a
 # per-segment t0: it loads that library (SHARED) and counts its launches
-# under its own name.
+# under its own name. The slot pass folds through segreduce.cuh and sorts
+# unsorted rows through onesweep.cuh.
 KERNELS = ("sort_perm", "block_sum_count", "block_min_max", "packed_merge",
            "index_merge_mask", "index_merge_filter", "scan_kernel", "downsample",
            "grouped_stats", "decode_unpack", "decode_dod", "decode_xor", "decode_rle",
@@ -82,7 +83,8 @@ SOURCES = {
     "sample_sort_merge": ("sample_sort_merge.cu", "packedsort.cuh", "onesweep.cuh",
                           "compact.cuh"),
     "grid_fold": ("grid_fold.cu",),
-    "sharded_downsample": ("sharded_downsample.cu", "predicate.cu"),
+    "sharded_downsample": ("sharded_downsample.cu", "predicate.cu", "onesweep.cuh",
+                           "segreduce.cuh"),
 }
 SHARED = {"downsample": "grouped_stats", "multisegment_downsample": "sharded_downsample"}
 NVCC_FLAGS = (

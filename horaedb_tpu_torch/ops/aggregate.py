@@ -256,11 +256,8 @@ def _stats_call(name: str, fn_name: str, argtypes: list, values: torch.Tensor, u
     scratch = torch.empty(_build.scratch_bytes("grouped_stats", "grouped_stats_scratch_bytes", n),
                           dtype=torch.uint8, device=dev)
     fn = _build.kernel(name, fn_name, argtypes)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(vals.data_ptr(), kind, *lanes, *(out[k].data_ptr() for k in _STATS),
-                scratch.data_ptr(), stream)
-    _build.check(name, rc)
+    _build.launch(name, fn, dev, vals.data_ptr(), kind, *lanes,
+                  *(out[k].data_ptr() for k in _STATS), scratch.data_ptr())
     return out, scratch
 
 
@@ -411,11 +408,9 @@ def stacked_downsample(ts: torch.Tensor, series_idx: torch.Tensor, values: torch
     cell = torch.empty(b * r, dtype=torch.int32, device=dev)
     fn = _build.kernel("stacked_downsample", "stacked_downsample_cells_launch",
                        _STACKED_ARGTYPES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(ts.data_ptr(), series_idx.data_ptr(), valid.data_ptr(), t0.data_ptr(), bucket_ms,
-                num_series, num_buckets, b, r, cell.data_ptr(), stream)
-    _build.check("stacked_downsample", rc)
+    _build.launch("stacked_downsample", fn, dev, ts.data_ptr(), series_idx.data_ptr(),
+                  valid.data_ptr(), t0.data_ptr(), bucket_ms, num_series, num_buckets, b, r,
+                  cell.data_ptr())
     flat = grouped_stats(values.reshape(-1), cell, None, b * cells)
     shape = (b, num_series, num_buckets)
     return {k: v.reshape(shape) for k, v in flat.items()}
@@ -560,9 +555,7 @@ def segment_last_value(values: torch.Tensor, seq: torch.Tensor, index: torch.Ten
         _build.scratch_bytes("segment_last_value", "segment_last_value_scratch_bytes",
                              num_segments), dtype=torch.uint8, device=dev)
     fn = _build.kernel("segment_last_value", "segment_last_value_launch", _SLV_ARGTYPES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(values.data_ptr(), seq.data_ptr(), index.data_ptr(), valid.data_ptr(), n,
-                num_segments, scratch.data_ptr(), out.data_ptr(), stream)
-    _build.check("segment_last_value", rc)
+    _build.launch("segment_last_value", fn, dev, values.data_ptr(), seq.data_ptr(),
+                  index.data_ptr(), valid.data_ptr(), n, num_segments, scratch.data_ptr(),
+                  out.data_ptr())
     return out

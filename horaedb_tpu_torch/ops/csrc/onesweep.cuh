@@ -17,7 +17,10 @@
 // nothing reads its payload after the sort. The caller gives the digit
 // count (1-8 8-bit digits of the key, from the key's span; a sentinel must
 // lie within them). The output is the stable sort of the rows in play by
-// their keys, with their payloads.
+// their keys' ordering bits, with their keys whole and their payloads: a
+// key source may declare `static constexpr K ORDER`, the bits that order a
+// key (the others ride along: the mesh slot pass flags a masked row in its
+// keys' top bit); by default every bit orders.
 //
 //   1. key_kernel, one block per TILE rows: each row's key from a source
 //      functor (`Src::key(i)`, which may gather through a permutation),
@@ -159,6 +162,17 @@ __device__ inline uint32_t digit_of(K k, int shift) {
     return (uint32_t)(k >> shift) & (RADIX - 1);
 }
 
+// the bits of a key that order it: Src::ORDER where the source declares it
+template <class Src, class K, class = void>
+struct order_of {
+    static constexpr K value = ~K(0);
+};
+
+template <class Src, class K>
+struct order_of<Src, K, decltype(void(Src::ORDER))> {
+    static constexpr K value = (K)Src::ORDER;
+};
+
 template <class K, class Src>
 __global__ void __launch_bounds__(THREADS)
 key_kernel(Src src, Rows<K> rows, int digits, K* __restrict__ keys,
@@ -200,8 +214,8 @@ key_kernel(Src src, Rows<K> rows, int digits, K* __restrict__ keys,
     for (int j = 0; j < ITEMS; ++j) {
         const int r = t * ITEMS + j;
         if (r >= len) break;
-        const K k = sk[pad(r)];
-        if (rows.kept(k)) {
+        const K k = sk[pad(r)] & order_of<Src, K>::value;
+        if (rows.kept(sk[pad(r)])) {
             sorted = sorted && k >= mx;  // unsigned: the first kept key passes
             mx = k > mx ? k : mx;
             if (cnt == 0) first = k;
@@ -375,8 +389,9 @@ __device__ inline void store_status(uint64_t* p, uint64_t x) {
     *reinterpret_cast<volatile uint64_t*>(p) = x;
 }
 
-// One stable digit pass (bits [shift, shift + 8)) unless presorted.
-template <class K, class V>
+// One stable digit pass (bits [shift, shift + 8) of k & ORDER) unless
+// presorted.
+template <class K, class V, K ORDER = ~K(0)>
 __global__ void __launch_bounds__(THREADS)
 sweep_kernel(const K* __restrict__ k_in, const V* __restrict__ v_in, K* __restrict__ k_out,
              V* __restrict__ v_out, Rows<K> rows, int shift, const int32_t* __restrict__ base,
@@ -417,7 +432,7 @@ sweep_kernel(const K* __restrict__ k_in, const V* __restrict__ v_in, K* __restri
         const int64_t row = wrow + j * 32;
         const bool valid = row < m;
         const K k = valid ? k_in[row] : (K)0;
-        const uint32_t d = valid ? digit_of(k, shift) : RADIX;
+        const uint32_t d = valid ? digit_of(k & ORDER, shift) : RADIX;
         const unsigned peers = __match_any_sync(0xffffffffu, d);
         const int32_t b = valid ? own[d & (RADIX - 1)] : 0;  // d = RADIX: no row
         __syncwarp();
@@ -452,7 +467,7 @@ sweep_kernel(const K* __restrict__ k_in, const V* __restrict__ v_in, K* __restri
     for (int j = 0; j < ITEMS; ++j) {
         const int64_t row = wrow + j * 32;
         if (row < m) {
-            const uint32_t dj = digit_of(kk[j], shift);
+            const uint32_t dj = digit_of(kk[j] & ORDER, shift);
             const int s = start[dj] + wh[w * RADIX + dj] + rk[j];
             sk[s] = kk[j];
             sv[s] = v_in[row];
@@ -491,7 +506,7 @@ sweep_kernel(const K* __restrict__ k_in, const V* __restrict__ v_in, K* __restri
     const int len = m - ts < TILE ? (int)(m - ts) : TILE;
     for (int i = t; i < len; i += THREADS) {
         const K k = sk[i];
-        const int64_t pos = (int64_t)gbase[digit_of(k, shift)] + i;
+        const int64_t pos = (int64_t)gbase[digit_of(k & ORDER, shift)] + i;
         k_out[pos] = k;
         v_out[pos] = sv[i];
     }
@@ -615,11 +630,13 @@ inline Sorted<K, V> sort(const Src& src, const V* vals, Rows<K> rows, int digits
     const int64_t stride = b.tiles * RADIX;
     zero_kernel<K><<<132 * 8, 256, 0, s>>>(b.status, digits, stride, rows, b.flag);
     constexpr int SMEM = sweep_smem<K, V>();
-    cudaFuncSetAttribute(sweep_kernel<K, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    constexpr K ORDER = order_of<Src, K>::value;
+    cudaFuncSetAttribute(sweep_kernel<K, V, ORDER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         SMEM);
     for (int p = 0; p < digits; ++p) {
         const K* k_in = p == 0 ? b.kc : b.k[(p - 1) % 2];
         const V* v_in = p == 0 ? vals : out[(p - 1) % 2];
-        sweep_kernel<K, V><<<(unsigned)tiles, THREADS, SMEM, s>>>(
+        sweep_kernel<K, V, ORDER><<<(unsigned)tiles, THREADS, SMEM, s>>>(
             k_in, v_in, b.k[p % 2], out[p % 2], rows, 8 * p, b.base + p * RADIX,
             b.status + (int64_t)p * stride, b.counters + p, b.flag);
     }

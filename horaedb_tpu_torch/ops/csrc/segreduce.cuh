@@ -1,5 +1,6 @@
 // Segmented reduction over SORTED cell ids: the shared body of
-// block_sum_count.cu, block_min_max.cu and grouped_stats.cu.
+// block_sum_count.cu, block_min_max.cu, grouped_stats.cu and
+// sharded_downsample.cu.
 //
 // Rows arrive sorted by cell id, so every cell is one contiguous run. Each
 // block takes one tile of TILE rows and first stages it in shared memory:
@@ -70,8 +71,19 @@
 //                                   absent lane's pointer is null there too)
 //   static Acc combine(Acc x, Acc y);   x holds the earlier rows
 //   void store(int64_t cell, Acc a) const;
-// and the ids are any 4-byte integer type K (int32 for kernels B and C,
-// the u32 sort keys for grouped_stats).
+// and the ids come from a key source `Keys`:
+//   using Key;                      a 4-byte id: an integer type, or a struct
+//                                   with ==, != and an explicit int64 cast
+//   Key operator[](int64_t i) const;    row i's id, from device memory
+//   static constexpr bool COMPUTED; false: the ids are a lane, `p`, staged
+//                                   by bulk copy as every other lane; true:
+//                                   the block computes each staged id
+//                                   through operator[] while the copies run
+// `IdLane` is the source of an id lane in device memory (int32 for kernels
+// B and C, the u32 sort keys for grouped_stats); the mesh slot pass
+// computes its ids from the raw ts and sid lanes. An Op that declares
+// `static constexpr bool KEYED = true` loads a row with its id,
+// load(at, i, id): its ids carry a flag besides the cell.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -118,6 +130,46 @@ __device__ inline double nan_max(double x, double y) {
 }
 
 template <class K>
+struct IdLane {
+    using Key = K;
+    static constexpr bool COMPUTED = false;
+    const K* __restrict__ p;
+    __device__ K operator[](int64_t i) const { return p[i]; }
+};
+
+template <class Op, class = void>
+struct keyed {
+    static constexpr bool value = false;
+};
+
+template <class Op>
+struct keyed<Op, decltype(void(Op::KEYED))> {
+    static constexpr bool value = Op::KEYED;
+};
+
+// row i's partial from lanes `at` (staged rows, or op.lanes in device
+// memory); a keyed Op also takes the row's id
+template <class Op, class K>
+__device__ inline typename Op::Acc load(const Op& op, const Lanes<Op::LANES>& at, int64_t i,
+                                        K key) {
+    if constexpr (keyed<Op>::value) {
+        return op.load(at, i, key);
+    } else {
+        return op.load(at, i);
+    }
+}
+
+// row i's partial from device memory, its id read only by a keyed Op
+template <class Op, class Keys>
+__device__ inline typename Op::Acc load_row(const Op& op, const Keys& keys, int64_t i) {
+    if constexpr (keyed<Op>::value) {
+        return op.load(op.lanes, i, keys[i]);
+    } else {
+        return op.load(op.lanes, i);
+    }
+}
+
+template <class K>
 __device__ inline bool in_range(K key, int64_t num_cells) {
     return (int64_t)key >= 0 && (int64_t)key < num_cells;
 }
@@ -153,16 +205,21 @@ __device__ inline void copy_rows(unsigned char* dst, const unsigned char* src, i
 
 // Stage rows [ts, ts + cnt) of the ids and of every present lane into
 // `smem` (layout of smem_bytes); `at` gets the staged lanes (null where
-// absent). Every thread of the block calls it; all rows are visible to all
-// threads on return.
-template <class Op, class K>
-__device__ void stage(const K* __restrict__ k, const Op& op, int64_t ts, int cnt,
-                      unsigned char* smem, uint64_t* bar, Lanes<Op::LANES>& at) {
+// absent). Ids without a lane are computed into their place. Every thread
+// of the block calls it; all rows are visible to all threads on return.
+template <class Op, class Keys>
+__device__ void stage(const Keys& keys, const Op& op, int64_t ts, int cnt, unsigned char* smem,
+                      uint64_t* bar, Lanes<Op::LANES>& at) {
+    using K = typename Keys::Key;
     constexpr int N = Op::LANES + 1;
     const unsigned char* src[N];
     unsigned char* dst[N];
     int b[N];
-    src[0] = reinterpret_cast<const unsigned char*>(k + ts);
+    if constexpr (Keys::COMPUTED) {
+        src[0] = nullptr;
+    } else {
+        src[0] = reinterpret_cast<const unsigned char*>(keys.p + ts);
+    }
     dst[0] = smem;
     b[0] = 4;
     size_t off = (size_t)ROWS * 4;
@@ -207,6 +264,22 @@ __device__ void stage(const K* __restrict__ k, const Op& op, int64_t ts, int cnt
     for (int i = 0; i < N; ++i) {
         if (src[i] != nullptr) copy_rows(dst[i], src[i], b[i], (int)(bulk[i] / b[i]), cnt);
     }
+    if constexpr (Keys::COMPUTED) {
+        // computed ids: every row's inputs loaded before the first store
+        constexpr int PER = (ROWS + THREADS - 1) / THREADS;
+        K* ks = reinterpret_cast<K*>(smem);
+        K id[PER];
+#pragma unroll
+        for (int j = 0; j < PER; ++j) {
+            const int r = (int)threadIdx.x + j * THREADS;
+            if (r < cnt) id[j] = keys[ts + r];
+        }
+#pragma unroll
+        for (int j = 0; j < PER; ++j) {
+            const int r = (int)threadIdx.x + j * THREADS;
+            if (r < cnt) ks[r] = id[j];
+        }
+    }
     __syncthreads();  // the plain copies, and the mbarrier's init before any wait
     asm volatile(
         "{\n"
@@ -221,11 +294,12 @@ __device__ void stage(const K* __restrict__ k, const Op& op, int64_t ts, int cnt
 // The block folds the long run whose head is `head` from device memory
 // (see the header); thread 0 stores the cell. Every thread of the block
 // calls it.
-template <class Op, class K>
-__device__ void fold_long(const K* __restrict__ k, int64_t n, int64_t head, const Op& op,
+template <class Op, class Keys>
+__device__ void fold_long(const Keys& k, int64_t n, int64_t head, const Op& op,
                           typename Op::Acc* part, typename Op::Acc* group, int8_t* has,
                           int8_t* more) {
     using Acc = typename Op::Acc;
+    using K = typename Keys::Key;
     const int t = threadIdx.x;
     const int lane = t & 31;
     const int w = t >> 5;
@@ -249,7 +323,7 @@ __device__ void fold_long(const K* __restrict__ k, int64_t n, int64_t head, cons
             for (int j = 0; j < CHUNK; j += LOADS) {
                 Acc x[LOADS];
 #pragma unroll
-                for (int i = 0; i < LOADS; ++i) x[i] = op.load(op.lanes, c0 + j + i);
+                for (int i = 0; i < LOADS; ++i) x[i] = load_row(op, k, c0 + j + i);
 #pragma unroll
                 for (int i = 0; i < LOADS; ++i) p = j + i == 0 ? x[0] : Op::combine(p, x[i]);
             }
@@ -258,8 +332,9 @@ __device__ void fold_long(const K* __restrict__ k, int64_t n, int64_t head, cons
             for (int j = 0; j < CHUNK; ++j) {
                 const int64_t q = c0 + j;
                 const int64_t qc = q < n ? q : n - 1;
-                const bool in = q < n && k[qc] == key;
-                const Acc x = op.load(op.lanes, qc);
+                const K kq = k[qc];
+                const bool in = q < n && kq == key;
+                const Acc x = load(op, op.lanes, qc, kq);
                 if (in) p = hp ? Op::combine(p, x) : x;
                 hp = hp || in;
             }
@@ -296,9 +371,10 @@ __device__ void fold_long(const K* __restrict__ k, int64_t n, int64_t head, cons
     if (t == 0) op.store((int64_t)key, acc);
 }
 
-template <class Op, class K>
+template <class Op, class Keys>
 __global__ void __launch_bounds__(THREADS)
-run_kernel(const K* __restrict__ k, int64_t n, int64_t num_cells, Op op) {
+run_kernel(const Keys k, int64_t n, int64_t num_cells, Op op) {
+    using K = typename Keys::Key;
     static_assert(sizeof(K) == 4, "ids are staged as 4-byte words");
     using Acc = typename Op::Acc;
     extern __shared__ __align__(16) unsigned char smem[];
@@ -369,9 +445,9 @@ run_kernel(const K* __restrict__ k, int64_t n, int64_t num_cells, Op op) {
             longs[h / LONG] = h;
             continue;
         }
-        Acc acc = op.load(at, h);
+        Acc acc = load(op, at, h, ks[h]);
 #pragma unroll 4
-        for (int p = h + 1; p < end; ++p) acc = Op::combine(acc, op.load(at, p));
+        for (int p = h + 1; p < end; ++p) acc = Op::combine(acc, load(op, at, p, ks[p]));
         op.store((int64_t)key, acc);
     }
 
@@ -397,8 +473,8 @@ __global__ void fill_kernel(Op op, int64_t m) {
 // Fill, then reduce: both on `stream`, nothing synchronised. The fill
 // writes every cell before the runs overwrite theirs (same stream, in
 // order), so empty cells read the identity.
-template <class Op, class K>
-int launch(const K* k, int64_t n, int64_t num_cells, const Op& op, cudaStream_t stream) {
+template <class Op, class Keys>
+int launch_keys(const Keys& k, int64_t n, int64_t num_cells, const Op& op, cudaStream_t stream) {
     if (num_cells > 0) {
         const int64_t blocks = (num_cells + 255) / 256;
         fill_kernel<Op><<<(unsigned)blocks, 256, 0, stream>>>(op, num_cells);
@@ -406,26 +482,33 @@ int launch(const K* k, int64_t n, int64_t num_cells, const Op& op, cudaStream_t 
     if (n > 0 && num_cells > 0) {
         const size_t smem = smem_bytes(op);
         const cudaError_t e = cudaFuncSetAttribute(
-            run_kernel<Op, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            run_kernel<Op, Keys>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
         const int64_t blocks = (n + TILE - 1) / TILE;
-        run_kernel<Op, K><<<(unsigned)blocks, THREADS, smem, stream>>>(k, n, num_cells, op);
+        run_kernel<Op, Keys><<<(unsigned)blocks, THREADS, smem, stream>>>(k, n, num_cells, op);
     }
     return (int)cudaGetLastError();
 }
 
-// run_kernel's occupancy for `op`'s lanes (only which are null matters):
-// blocks an SM, registers a thread, static and dynamic shared bytes.
+// launch_keys over an id lane in device memory
 template <class Op, class K>
-int occupancy(const Op& op, int32_t* out) {
+int launch(const K* k, int64_t n, int64_t num_cells, const Op& op, cudaStream_t stream) {
+    return launch_keys(IdLane<K>{k}, n, num_cells, op, stream);
+}
+
+// run_kernel's occupancy for `op`'s lanes (only which are null matters)
+// and key source: blocks an SM, registers a thread, static and dynamic
+// shared bytes.
+template <class Op, class Keys>
+int occupancy_keys(const Op& op, int32_t* out) {
     const size_t smem = smem_bytes(op);
     cudaFuncAttributes a{};
     int blocks = 0;
-    cudaError_t e = cudaFuncSetAttribute(run_kernel<Op, K>,
+    cudaError_t e = cudaFuncSetAttribute(run_kernel<Op, Keys>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, run_kernel<Op, K>);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, run_kernel<Op, Keys>);
     if (e == cudaSuccess) {
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, run_kernel<Op, K>, THREADS,
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, run_kernel<Op, Keys>, THREADS,
                                                           smem);
     }
     out[0] = blocks;
@@ -433,6 +516,12 @@ int occupancy(const Op& op, int32_t* out) {
     out[2] = (int32_t)a.sharedSizeBytes;
     out[3] = (int32_t)smem;
     return (int)e;
+}
+
+// occupancy_keys over an id lane of K
+template <class Op, class K>
+int occupancy(const Op& op, int32_t* out) {
+    return occupancy_keys<Op, IdLane<K>>(op, out);
 }
 
 }  // namespace seg

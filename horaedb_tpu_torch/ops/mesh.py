@@ -1,4 +1,4 @@
-"""The mesh steps' kernels: `grid_fold`, the cell keys of `sharded_downsample`
+"""The mesh steps' kernels: `grid_fold`, the slot pass of `sharded_downsample`
 / `multisegment_downsample`, and the two per-slot steps of
 `sample_sort_merge`.
 
@@ -21,7 +21,8 @@ import torch
 
 from horaedb_tpu_torch.common.error import HoraeError, ensure
 from horaedb_tpu_torch.ops import _build
-from horaedb_tpu_torch.ops.aggregate import masked_cell_keys
+from horaedb_tpu_torch.ops.aggregate import grouped_stats_plain, masked_cell_keys
+from horaedb_tpu_torch.ops.blockagg import F32_EXACT, min_max_plain, sum_count_plain
 from horaedb_tpu_torch.ops.merge import I64_MAX, packed_merge_plain
 
 FOLD_KEYS = ("sum", "count", "min", "max")
@@ -121,13 +122,15 @@ def grid_fold(stacked: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     return dict(zip(keys, out.unbind(0)))
 
 
-# -- the cell keys of a mesh slot --------------------------------------------------
+# -- the partial grids of a mesh slot ---------------------------------------------
 
 def sharded_keys_plain(ts, sid, vals, valid, mask, t0: int, bucket_ms: int, lo: int,
                        local_series: int, num_buckets: int):
-    """Plain version of the key kernel (`csrc/sharded_downsample.cu`):
-    (safe, flat, masked value, weight, ok) as the JAX step's `_local_grids`
-    builds them."""
+    """The cell keys of a slot's rows for its series slice [lo, lo +
+    local_series), as the JAX step's `_local_grids` builds them: (safe,
+    flat, masked value, weight, ok). `safe` keeps a masked row at its
+    in-range key and sends a row of another slice to the sentinel; `flat`
+    sends every row that is not ok there."""
     local = (sid.to(torch.int64) - lo).to(torch.int32)  # int32 wrap
     bucket = torch.div(ts - t0, bucket_ms, rounding_mode="floor").to(torch.int32)
     in_slice = (local >= 0) & (local < local_series)
@@ -140,49 +143,110 @@ def sharded_keys_plain(ts, sid, vals, valid, mask, t0: int, bucket_ms: int, lo: 
     return safe, flat, vm, ok.to(torch.float64), ok
 
 
-_KEYS_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
-                                          ctypes.c_int32, ctypes.c_int32, ctypes.c_int64] + \
-    [ctypes.c_void_p] * 6
+def sorted_route(sorted_input: bool, cells: int) -> bool:
+    """Whether a slot's rows take the sorted route: rows in (sid, ts) order
+    over fewer than 2^24 cells, the JAX package's rule (its one-hot id
+    recovery is exact in f32 below that; kept so both packages route the
+    same grids the same way)."""
+    return sorted_input and cells < F32_EXACT
 
 
-def sharded_keys(ts, sid, vals, valid, mask, t0: int, bucket_ms: int, lo: int,
-                 local_series: int, num_buckets: int, library: str = "sharded_downsample"):
-    """The cell keys of one slot's rows for its series slice
-    [lo, lo + local_series): (safe int32, flat int32, masked value f64,
-    weight f64, ok bool). Lanes: ts int64, sid int32, vals f64, valid bool
-    or uint8, `mask` (kernel E's output, or None). The key kernel on CUDA
-    tensors, counted under `library` (`sharded_downsample` or
-    `multisegment_downsample`); `sharded_keys_plain` on CPU tensors."""
+def slot_grids_plain(ts, sid, vals, valid, mask, t0: int, bucket_ms: int, lo: int,
+                     local_series: int, num_buckets: int, sorted_input: bool,
+                     with_minmax: bool = True) -> dict[str, torch.Tensor]:
+    """Plain version of the slot pass (`csrc/sharded_downsample.cu`), on the
+    tensors' own device: the keys of `sharded_keys_plain`, then, for sorted
+    rows, kernel B's and C's plain versions over `safe` (the weight and the
+    ok mask riding along), else grouped_stats' over the clipped `safe`
+    (values, then weights) and over `flat` (min and max). Flat [cells]
+    grids of sum and count (and min, max)."""
+    cells = local_series * num_buckets
+    safe, flat, vm, w, ok = sharded_keys_plain(ts, sid, vals, valid, mask, t0, bucket_ms, lo,
+                                               local_series, num_buckets)
+    if sorted_route(sorted_input, cells):
+        s, c = sum_count_plain(safe, vm, w, cells)
+        out = {"sum": s, "count": c}
+        if with_minmax:
+            out["min"], out["max"] = min_max_plain(safe, vm, ok, cells)
+        return out
+    every = torch.ones(safe.shape, dtype=torch.bool, device=safe.device)
+    kc = torch.clamp(safe, 0, cells)
+    out = {"sum": grouped_stats_plain(vm, kc, every, cells)["sum"],
+           "count": grouped_stats_plain(w, kc, every, cells)["sum"]}
+    if with_minmax:
+        g = grouped_stats_plain(vm, flat, every, cells)
+        out["min"], out["max"] = g["min"], g["max"]
+    return out
+
+
+_SLOT_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+                                          ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,
+                                          ctypes.c_int32] + [ctypes.c_void_p] * 6
+
+
+def slot_grids(ts, sid, vals, valid, mask, t0: int, bucket_ms: int, lo: int, local_series: int,
+               num_buckets: int, sorted_input: bool, with_minmax: bool = True, out=None,
+               library: str = "sharded_downsample") -> dict[str, torch.Tensor]:
+    """One mesh slot's partial grids for its series slice [lo, lo +
+    local_series): flat [local_series * num_buckets] f64 grids of sum and
+    count (and min, max). Lanes: ts int64, sid int32, vals f64, valid bool
+    or uint8, `mask` (kernel E's output, or None). `sorted_input` declares
+    rows in (sid, ts) order. On CUDA tensors one launch of the slot pass,
+    counted under `library` (`sharded_downsample` or
+    `multisegment_downsample`), writing into `out` (contiguous f64 grids on
+    the lanes' device, the same keys) when given; `slot_grids_plain` on
+    CPU tensors."""
     n = ts.shape[0]
     dev = ts.device
+    # each message is built only on failure: this runs once a slot a step
     for name, t, dts in (("ts", ts, (torch.int64,)), ("sid", sid, (torch.int32,)),
                          ("vals", vals, (torch.float64,)),
                          ("valid", valid, (torch.bool, torch.uint8)),
                          ("mask", mask, (torch.bool, torch.uint8))):
-        if t is None:
-            continue
-        ensure(t.dtype in dts and t.dim() == 1 and t.shape[0] == n and t.is_contiguous()
-               and t.device == dev,
-               f"{library}: {name} must be a contiguous 1-D {dts} of {n} rows on {dev}, "
-               f"got {t.dtype}{tuple(t.shape)} on {t.device}")
-    ensure(bucket_ms > 0, f"{library}: bucket_ms must be positive, got {bucket_ms}")
-    ensure(local_series > 0 and num_buckets > 0 and local_series * num_buckets < 2**31,
-           f"{library}: a slice of {local_series} x {num_buckets} cells exceeds int32 ids")
+        if t is not None and not (t.dtype in dts and t.dim() == 1 and t.shape[0] == n
+                                  and t.is_contiguous() and t.device == dev):
+            raise HoraeError(f"{library}: {name} must be a contiguous 1-D {dts} of {n} rows on "
+                             f"{dev}, got {t.dtype}{tuple(t.shape)} on {t.device}")
+    if bucket_ms <= 0:
+        raise HoraeError(f"{library}: bucket_ms must be positive, got {bucket_ms}")
+    cells = local_series * num_buckets
+    if not (local_series > 0 and num_buckets > 0 and cells < 2**31):
+        raise HoraeError(f"{library}: a slice of {local_series} x {num_buckets} cells exceeds "
+                         "int32 ids")
+    if n >= 2**31:
+        raise HoraeError(f"{library}: {n} rows exceed int32 row indices")
+    keys = FOLD_KEYS if with_minmax else FOLD_KEYS[:2]
     if dev.type == "cpu":
-        return sharded_keys_plain(ts, sid, vals, valid, mask, t0, bucket_ms, lo, local_series,
-                                  num_buckets)
+        grids = slot_grids_plain(ts, sid, vals, valid, mask, t0, bucket_ms, lo, local_series,
+                                 num_buckets, sorted_input, with_minmax)
+        if out is None:
+            return grids
+        for k in keys:
+            out[k].copy_(grids[k])
+        return out
     _on_card(dev, library)
-    safe = torch.empty(n, dtype=torch.int32, device=dev)
-    flat = torch.empty(n, dtype=torch.int32, device=dev)
-    vm = torch.empty(n, dtype=torch.float64, device=dev)
-    w = torch.empty(n, dtype=torch.float64, device=dev)
-    ok = torch.empty(n, dtype=torch.uint8, device=dev)
-    fn = _build.kernel(library, "sharded_keys_launch", _KEYS_ARGTYPES)
+    if out is None:
+        out = dict(zip(keys, torch.empty((len(keys), cells), dtype=torch.float64,
+                                         device=dev).unbind(0)))
+    for k in keys:
+        t = out[k]
+        if not (t.dtype == torch.float64 and t.numel() == cells and t.is_contiguous()
+                and t.device == dev):
+            raise HoraeError(f"{library}: out[{k!r}] must be a contiguous f64 grid of {cells} "
+                             f"cells on {dev}")
+    sorted_pass = sorted_route(sorted_input, cells)
+    scratch = None
+    if not sorted_pass:
+        scratch = torch.empty(_build.scratch_bytes(library, "sharded_slot_scratch_bytes", n),
+                              dtype=torch.uint8, device=dev)
+    fn = _build.kernel(library, "sharded_slot_launch", _SLOT_ARGTYPES)
     _build.launch(library, fn, dev, ts.data_ptr(), sid.data_ptr(), vals.data_ptr(),
-                  valid.data_ptr(), None if mask is None else mask.data_ptr(), t0, bucket_ms,
-                  lo, local_series, num_buckets, n, safe.data_ptr(), flat.data_ptr(),
-                  vm.data_ptr(), w.data_ptr(), ok.data_ptr())
-    return safe, flat, vm, w, ok.view(torch.bool)
+                  valid.data_ptr(), None if mask is None else mask.data_ptr(), t0, bucket_ms, lo,
+                  local_series, num_buckets, n, int(sorted_pass), out["sum"].data_ptr(),
+                  out["count"].data_ptr(), out["min"].data_ptr() if with_minmax else None,
+                  out["max"].data_ptr() if with_minmax else None,
+                  None if scratch is None else scratch.data_ptr())
+    return out
 
 
 # -- sample_sort_merge: the per-slot steps --------------------------------------------

@@ -8,13 +8,13 @@ step per slot and folds the row shards' grids left to right, in slot
 order, on the series slot's device, through kernel `grid_fold`, so the
 combine is deterministic.
 
-Each slot's step (`_local_grids`): the key kernel
-(`csrc/sharded_downsample.cu`, with kernel E for a predicate) builds the
-cell keys of the slot's series slice; sorted rows reduce with kernels B and
-C (`ops/blockagg.py`, behind the calibrated dispatcher), unsorted rows with
-the scatter strategy (`segment_sum_count`, `grouped_stats`), the one the
-dispatcher's dtype rule gives f64 values. On CPU slots every kernel runs
-its plain version, so a mesh of CPU slots is the step's reference.
+Each slot's step (`_local_grids`) is one slot pass
+(`csrc/sharded_downsample.cu`, with kernel E for a predicate): from the raw
+lanes to the slot's partial grids of its series slice, folding sorted rows
+as they lie and sorting other rows once by cell first. The passes of a
+series slot write into one stacked buffer on its first row slot's device,
+which `grid_fold` folds. On CPU slots every kernel runs its plain version,
+so a mesh of CPU slots is the step's reference.
 """
 
 from __future__ import annotations
@@ -26,11 +26,10 @@ import torch
 
 from horaedb_tpu_torch.backend import to_device
 from horaedb_tpu_torch.common import deadline as deadline_ctx
-from horaedb_tpu_torch.common.error import ensure
-from horaedb_tpu_torch.ops import blockagg
+from horaedb_tpu_torch.common.error import HoraeError, ensure
+from horaedb_tpu_torch.ops import agg_registry, blockagg
 from horaedb_tpu_torch.ops import filter as filter_ops
 from horaedb_tpu_torch.ops import mesh as mesh_ops
-from horaedb_tpu_torch.ops.aggregate import grouped_stats
 from horaedb_tpu_torch.ops.filter import Predicate
 from horaedb_tpu_torch.parallel.mesh import Mesh
 from horaedb_tpu_torch.server.metrics import GLOBAL_METRICS
@@ -57,20 +56,24 @@ _LANE_DTYPES = {"__ts__": np.dtype(np.int64), "__sid__": np.dtype(np.int32),
                 "__val__": np.dtype(np.float64)}
 
 
-def _local_grids(ts, sid, vals, valid, t0, bucket_ms, series_lo, local_series,
-                 num_buckets, with_minmax, sorted_input=False, program=None,
-                 library="sharded_downsample"):
+def _local_grids(ts, sid, vals, valid, t0, bucket_ms, series_lo, local_series, num_buckets,
+                 with_minmax, sorted_input=False, program=None, library="sharded_downsample",
+                 out=None):
     """Partial grids for one slot's rows, restricted to the series slice
-    [series_lo, series_lo + local_series): [local_series, num_buckets]
-    tensors of sum and count (min and max too when `with_minmax`).
+    [series_lo, series_lo + local_series): flat [local_series *
+    num_buckets] tensors of sum and count (min and max too when
+    `with_minmax`), written into `out` when given and the pass can (a slot
+    on the card of `out`).
 
     Rows outside the slice go to the sentinel key (one prefix or suffix run
     in (sid, ts) order, never fragmented); predicate and bucket misses keep
-    clipped in-range keys and ride the weight column. `sorted_input`
-    declares rows ordered by (sid, ts): kernels B and C reduce the runs
-    (the calibrated dispatcher picks the lane; every device name is kernel
-    B for f64). Otherwise the scatter strategy (`grouped_stats`), the one
-    the dispatcher's dtype rule gives the mesh step's f64 values."""
+    clipped in-range keys and ride the weight column. One slot pass
+    (`ops/mesh.py::slot_grids`): `sorted_input` declares rows ordered by
+    (sid, ts), folded as they lie; other rows are sorted once by cell
+    first. The sorted route asks the calibrated dispatcher, as kernels B
+    and C did: every device name is kernel B's function for f64 values,
+    so the pass computes it; a host lane (`reduceat`, CPU tensors only,
+    refused on the card) reduces the keys of `sharded_keys_plain`."""
     num_cells = local_series * num_buckets
     mask = None
     if program is not None:
@@ -80,39 +83,50 @@ def _local_grids(ts, sid, vals, valid, t0, bucket_ms, series_lo, local_series,
         else:
             mask = torch.empty(ts.shape[0], dtype=torch.uint8, device=ts.device)
             filter_ops.launch_program(program, lanes, ts.shape[0], mask, library=library)
-    safe, flat, vm, w, ok = mesh_ops.sharded_keys(
-        ts, sid, vals, valid, mask, t0, bucket_ms, series_lo, local_series, num_buckets,
-        library=library)
-    mn = mx = None
-    if sorted_input and num_cells < blockagg.F32_EXACT:
-        s, c = blockagg.sorted_segment_sum_count(safe, vm, num_cells, weights=w)
-        if with_minmax:
-            mn, mx = blockagg.sorted_segment_min_max(safe, vm, num_cells, valid=ok)
-    else:
-        s, c = blockagg.segment_sum_count(safe, vm, num_cells, impl="scatter", weights=w)
-        if with_minmax:
-            g = grouped_stats(vm, flat, None, num_cells)
-            mn, mx = g["min"], g["max"]
-    shape = (local_series, num_buckets)
-    out = {"sum": s.reshape(shape), "count": c.reshape(shape)}
-    if with_minmax:
-        out["min"] = mn.reshape(shape)
-        out["max"] = mx.reshape(shape)
-    return out
+    args = (ts, sid, vals, valid, mask, t0, bucket_ms, series_lo, local_series, num_buckets)
+    if mesh_ops.sorted_route(sorted_input, num_cells):
+        impl = blockagg.resolve_sorted_impl(None, ts.shape[0], num_cells, ts.device)
+        if agg_registry.is_host_impl(impl):
+            safe, _flat, vm, w, ok = mesh_ops.sharded_keys_plain(*args)
+            s, c = blockagg.sorted_segment_sum_count(safe, vm, num_cells, impl=impl, weights=w)
+            grids = {"sum": s, "count": c}
+            if with_minmax:
+                grids["min"], grids["max"] = blockagg.sorted_segment_min_max(
+                    safe, vm, num_cells, impl=impl, valid=ok)
+            return grids
+    if out is not None and out["sum"].device != ts.device:  # the grids share one device
+        out = None
+    return mesh_ops.slot_grids(*args, sorted_input, with_minmax, out=out, library=library)
 
 
-def _fold_rows(partials: list[dict], home: torch.device) -> dict:
-    """Left fold of the row shards' partial grids, in slot order, on `home`:
-    the port's psum / pmin / pmax over "rows"."""
-    stacked = {k: torch.stack([p[k].to(home) for p in partials]) for k in partials[0]}
-    return mesh_ops.grid_fold(stacked)
+def _fold_rows(slots_of_series, lanes, t0, bucket_ms, series_lo, local_series, num_buckets,
+               with_minmax, sorted_input, program, library) -> dict:
+    """The slot passes of one series slot's row shards, then their left
+    fold in slot order on the first one's device: the port's psum / pmin /
+    pmax over "rows". Each pass writes its partial straight into one
+    [rows, local_series, num_buckets] buffer a grid on that device; a slot
+    on another card (or a host lane) copies its partial in."""
+    home = slots_of_series[0]
+    keys = mesh_ops.FOLD_KEYS if with_minmax else mesh_ops.FOLD_KEYS[:2]
+    buf = torch.empty((len(keys), len(slots_of_series), local_series, num_buckets),
+                      dtype=torch.float64, device=home)
+    per_slot = buf.view(len(keys), len(slots_of_series), -1).unbind(1)
+    for r, dev in enumerate(slots_of_series):
+        dst = dict(zip(keys, per_slot[r].unbind(0)))
+        part = _local_grids(*[x[r].to(dev) for x in lanes], t0, bucket_ms, series_lo,
+                            local_series, num_buckets, with_minmax, sorted_input=sorted_input,
+                            program=program, library=library, out=dst)
+        for k in keys:
+            if part[k].data_ptr() != dst[k].data_ptr():
+                dst[k].copy_(part[k])
+    return mesh_ops.grid_fold(dict(zip(keys, buf.unbind(0))))
 
 
 def _check_shards(lanes, n_shards: int, what: str) -> None:
     for lane in lanes:
-        ensure(isinstance(lane, (list, tuple)) and len(lane) == n_shards,
-               f"{what}: each lane must be a list of {n_shards} row shards "
-               f"(shard_rows output), got {type(lane).__name__}")
+        if not (isinstance(lane, (list, tuple)) and len(lane) == n_shards):
+            raise HoraeError(f"{what}: each lane must be a list of {n_shards} row shards "
+                             f"(shard_rows output), got {type(lane).__name__}")
 
 
 def _step(mesh: Mesh, ts, sid, vals, valid, t0, bucket_ms, num_series, num_buckets,
@@ -123,20 +137,16 @@ def _step(mesh: Mesh, ts, sid, vals, valid, t0, bucket_ms, num_series, num_bucke
     slot's device. Lanes are lists of row shards."""
     slots = mesh.devices if slots is None else slots
     rows_par, series_par = slots.shape
-    ensure(num_series % series_par == 0,
-           f"num_series={num_series} must divide over series axis={series_par}")
+    if num_series % series_par:
+        raise HoraeError(f"num_series={num_series} must divide over series axis={series_par}")
     _check_shards((ts, sid, vals, valid), rows_par, library)
     local_series = num_series // series_par
     parts: dict[str, list] = {}
     for s in range(series_par):
-        partials = []
-        for r in range(rows_par):
-            dev = slots[r, s]
-            lanes = [x[r].to(dev) for x in (ts, sid, vals, valid)]
-            partials.append(_local_grids(
-                *lanes, t0, bucket_ms, s * local_series, local_series, num_buckets,
-                with_minmax, sorted_input=sorted_input, program=program, library=library))
-        for k, v in _fold_rows(partials, slots[0, s]).items():
+        folded = _fold_rows(list(slots[:, s]), (ts, sid, vals, valid), t0, bucket_ms,
+                            s * local_series, local_series, num_buckets, with_minmax,
+                            sorted_input, program, library)
+        for k, v in folded.items():
             parts.setdefault(k, []).append(v)
     home = slots[0, 0]
     out = {k: torch.cat([v.to(home) for v in vs]) for k, vs in parts.items()}
@@ -212,11 +222,12 @@ def build_multisegment_downsample(mesh: Mesh, num_series: int, num_buckets: int)
     segs, rows_par = mesh.shape["seg"], mesh.shape["rows"]
 
     def fn(ts, sid, vals, valid, t0_seg, bucket_ms):
-        ensure(ts.shape[0] == segs,
-               f"n_segments must equal the seg mesh axis (got {ts.shape[0]} segments "
-               f"for {segs} seg-shards)")
+        if ts.shape[0] != segs:
+            raise HoraeError(f"n_segments must equal the seg mesh axis (got {ts.shape[0]} "
+                             f"segments for {segs} seg-shards)")
         n = ts.shape[1]
-        ensure(n % rows_par == 0, f"{n} rows do not divide over rows axis={rows_par}")
+        if n % rows_par:
+            raise HoraeError(f"{n} rows do not divide over rows axis={rows_par}")
         per = n // rows_par
         t0s = [int(t) for t in (t0_seg.tolist() if hasattr(t0_seg, "tolist") else t0_seg)]
         outs = []

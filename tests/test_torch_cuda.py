@@ -1351,6 +1351,7 @@ def test_host_pin_is_refused_on_the_card(dev, var, name, monkeypatch):
 # -- the mesh slice: grid_fold, sharded_downsample, multisegment_downsample,
 # sample_sort_merge (several slots of one card) ----------------------------------
 
+from horaedb_tpu_torch.ops import _build  # noqa: E402
 from horaedb_tpu_torch.ops import mesh as mesh_ops  # noqa: E402
 from horaedb_tpu_torch.parallel import merge as pmerge  # noqa: E402
 from horaedb_tpu_torch.parallel import scan as pscan  # noqa: E402
@@ -1434,23 +1435,102 @@ def test_grid_fold_keeps_subnormals_on_the_card(dev):
     assert pmerge.device_fold_safe(mesh)
 
 
-@pytest.mark.parametrize("with_mask", [False, True])
-def test_sharded_keys_match_plain(dev, with_mask):
-    rng = np.random.default_rng(11)
-    n = 70_001
-    ts = rng.integers(-5_000, 90_000, n).astype(np.int64)
-    sid = rng.integers(-2, 40, n).astype(np.int32)
+def _slot_lanes(rng, n: int, case: str, nan: bool = False):
+    """One slot's lanes (ts, sid, vals, valid, mask or None) around the
+    slice of 13 series from sid 17 (rows of other slices before and after
+    it), sorted by (sid, ts) unless `case` says shuffled; `long` puts runs
+    of thousands of rows in the 2 x 2 cells of series 17 and 18 (fold_long);
+    -0.0 among the values, NaN too with `nan`, masked rows inside the
+    runs."""
+    if case == "long":
+        sid = rng.integers(15, 20, n).astype(np.int32)
+        ts = rng.integers(-3_000, 2 * 7_000, n).astype(np.int64)
+    else:
+        sid = rng.integers(-2, 40, n).astype(np.int32)
+        ts = rng.integers(-5_000, 90_000, n).astype(np.int64)
+    if case != "shuffled":
+        order = np.lexsort((ts, sid))
+        sid, ts = sid[order], ts[order]
     vals = rng.normal(size=n)
+    if nan:
+        vals[rng.random(n) < 0.01] = np.nan
+    vals[rng.random(n) < 0.02] = -0.0
     valid = rng.random(n) > 0.1
-    mask = (rng.random(n) > 0.3) if with_mask else None
-    host = [torch.from_numpy(a) for a in (ts, sid, vals, valid)]
-    m_host = None if mask is None else torch.from_numpy(mask)
-    got = mesh_ops.sharded_keys(*[t.to(dev) for t in host],
-                                None if m_host is None else m_host.to(dev), 1_000, 7_000, 13,
-                                17, 12)
-    want = mesh_ops.sharded_keys_plain(*host, m_host, 1_000, 7_000, 13, 17, 12)
-    for g, w in zip(got, want):
-        assert torch.equal(g.cpu(), w), (g.dtype, w.dtype)
+    mask = (rng.random(n) > 0.3).astype(np.uint8) if case == "predicate" else None
+    return [torch.from_numpy(a) for a in (ts, sid, vals, valid)] + [
+        None if mask is None else torch.from_numpy(mask)]
+
+
+def _parent_route(ts, sid, vals, valid, mask, t0, bucket_ms, lo, series, buckets,
+                  sorted_input) -> dict:
+    """The route the slot pass replaced, on the card: the cell keys, then
+    kernels B and C over them (sorted rows) or grouped_stats over the
+    clipped keys (values, weights) and over the dropping keys (min, max)."""
+    from horaedb_tpu_torch.ops.aggregate import grouped_stats
+
+    cells = series * buckets
+    safe, flat, vm, w, ok = mesh_ops.sharded_keys_plain(ts, sid, vals, valid, mask, t0,
+                                                        bucket_ms, lo, series, buckets)
+    if mesh_ops.sorted_route(sorted_input, cells):
+        s, c = blockagg.block_sum_count(safe, vm, cells, weights=w)
+        mn, mx = blockagg.block_min_max(safe, vm, cells, valid=ok)
+        return {"sum": s, "count": c, "min": mn, "max": mx}
+    kc = torch.clamp(safe, 0, cells)
+    g = grouped_stats(vm, flat, None, cells)
+    return {"sum": grouped_stats(vm, kc, None, cells)["sum"],
+            "count": grouped_stats(w, kc, None, cells)["sum"], "min": g["min"], "max": g["max"]}
+
+
+@pytest.mark.parametrize("case,sorted_input,n", [
+    ("sorted", True, 70_001), ("predicate", True, 70_001), ("long", True, 40_009),
+    ("shuffled", False, 70_001), ("predicate", False, 70_001), ("long", False, 40_009),
+    ("sorted", True, 0), ("shuffled", False, 1)])
+def test_slot_pass_matches_plain_bitwise(dev, case, sorted_input, n):
+    """The slot pass, sorted (one fold) and unsorted (one sort, one fold),
+    against its plain version on CPU copies (where index_add_ folds in row
+    order): a prime slice of 13 series x 12 buckets (or 2 x 2 with runs
+    past 256 rows), a predicate's mask, -0.0 among the values, masked and
+    foreign rows; and, with NaN among the values too, against the route it
+    replaced on the same card tensors."""
+    series, buckets = (2, 2) if case == "long" else (13, 12)
+    for nan in (False, True):
+        host = _slot_lanes(np.random.default_rng(n + len(case)), n, case, nan)
+        lanes = [t if t is None else t.to(dev) for t in host]
+        args = (1_000, 7_000, 17, series, buckets, sorted_input)
+        before = _build.launch_counts()["sharded_downsample"]
+        got = mesh_ops.slot_grids(*lanes, *args)
+        assert _build.launch_counts()["sharded_downsample"] == before + 1
+        want = _parent_route(*lanes, *args) if nan else mesh_ops.slot_grids_plain(*host, *args)
+        for key in mesh_ops.FOLD_KEYS:
+            assert got[key].shape == (series * buckets,)
+            assert np.array_equal(_u64(got[key]), _u64(want[key])), (key, nan)
+
+
+@pytest.mark.parametrize("sorted_input", [True, False])
+def test_slot_pass_on_a_side_stream_is_bitwise_the_default_streams(dev, sorted_input):
+    lanes = [t if t is None else t.to(dev)
+             for t in _slot_lanes(np.random.default_rng(3), 200_003, "predicate", nan=True)]
+    args = (*lanes, 1_000, 7_000, 17, 13, 12, sorted_input)
+    on_default = mesh_ops.slot_grids(*args)
+    on_side = _on_side_stream(dev, lambda: mesh_ops.slot_grids(*args).values())
+    for key, got in zip(mesh_ops.FOLD_KEYS, on_side):
+        assert np.array_equal(_u64(got), _u64(on_default[key])), key
+
+
+def test_slot_pass_writes_into_given_grids(dev):
+    """`out` views of one stacked buffer (the fold's) receive the grids; the
+    unsorted pass without min and max writes sum and count only."""
+    host = _slot_lanes(np.random.default_rng(4), 30_011, "shuffled")
+    lanes = [t if t is None else t.to(dev) for t in host]
+    stacked = torch.full((2, 2, 13 * 12), 7.0, dtype=torch.float64, device=dev)
+    out = {"sum": stacked[0, 1], "count": stacked[1, 1]}
+    got = mesh_ops.slot_grids(*lanes, 1_000, 7_000, 17, 13, 12, False, with_minmax=False,
+                              out=out)
+    want = mesh_ops.slot_grids_plain(*host, 1_000, 7_000, 17, 13, 12, False, with_minmax=False)
+    assert list(got) == ["sum", "count"] and got["sum"].data_ptr() == stacked[0, 1].data_ptr()
+    for key in ("sum", "count"):
+        assert np.array_equal(_u64(got[key]), _u64(want[key])), key
+    assert bool((stacked[:, 0] == 7.0).all())
 
 
 def _grids_equal(got: dict, want: dict) -> None:

@@ -179,9 +179,10 @@ def test_plain_versions_do_not_count_launches():
 
     grids = {name: torch.zeros(2, 3, dtype=torch.float64) for name in mesh_ops.FOLD_KEYS}
     mesh_ops.grid_fold(grids)
-    for library in ("sharded_downsample", "multisegment_downsample"):
-        mesh_ops.sharded_keys(key, k, v, torch.ones(3, dtype=torch.bool), None, 0, 2, 0, 1, 4,
-                              library=library)
+    for library, sorted_input in (("sharded_downsample", True),
+                                  ("multisegment_downsample", False)):
+        mesh_ops.slot_grids(key, k, v, torch.ones(3, dtype=torch.bool), None, 0, 2, 0, 1, 4,
+                            sorted_input, library=library)
     send_k, send_i = mesh_ops.ssm_local(key, 3, 1, torch.zeros(1, dtype=torch.int64), 2, 4, 0)
     mesh_ops.ssm_merge(send_k, send_i, 3, 1, True)
     assert launch_counts() == before
@@ -208,7 +209,7 @@ def test_size_copy_parses_as_reference(text):
 
 
 def test_multisegment_downsample_shares_the_sharded_library():
-    """Rows 16 and 17 are one key kernel: one library, built once, and
+    """Rows 16 and 17 are one slot pass: one library, built once, and
     every catalog name is a library or shares one."""
     assert _build._lib_path("multisegment_downsample") == _build._lib_path("sharded_downsample")
     assert set(_build.SOURCES).isdisjoint(_build.SHARED)

@@ -202,9 +202,9 @@ def _meta(n, dtype):
 
 
 MESH_STEPS = {
-    "sharded_keys": (lambda: mesh.sharded_keys(
+    "slot_grids": (lambda: mesh.slot_grids(
         _meta(4, torch.int64), _meta(4, torch.int32), _meta(4, torch.float64),
-        _meta(4, torch.bool), None, 0, 10, 0, 2, 3), "sharded_downsample"),
+        _meta(4, torch.bool), None, 0, 10, 0, 2, 3, False), "sharded_downsample"),
     "ssm_local": (lambda: mesh.ssm_local(_meta(4, torch.int64), 8, 2, _meta(1, torch.int64),
                                          2, 4, 0), "sample_sort_merge"),
     "ssm_merge": (lambda: mesh.ssm_merge(_meta(0, torch.int64), _meta(0, torch.int32), 8, 2,

@@ -125,6 +125,87 @@ def test_mesh_downsample_prime_series_matches_jax(meshes, num_series):
     assert got["sum"].shape == (num_series, 5)
 
 
+# a slot's series slice and grid: series [5, 9) x 6 buckets of 1 s from t0
+SLOT = dict(t0=1_000, bucket_ms=1_000, lo=5, local_series=4, num_buckets=6)
+
+
+def _slot_case(case: str, sorted_rows: bool):
+    """One slot's lanes (ts, sid, vals, valid, mask or None) of `case`, a
+    few hundred rows (none for `empty`), in (sid, ts) order when
+    `sorted_rows`."""
+    rng = np.random.default_rng(len(case) * 7 + sorted_rows)
+    n = 0 if case == "empty" else 311
+    sid = rng.integers(5, 9, n)
+    ts = rng.integers(1_000, 7_000, n)
+    vals = rng.normal(size=n)
+    valid = np.ones(n, bool)
+    mask = None
+    if case == "foreign_runs":  # rows of the slices before and after this one
+        sid = rng.integers(0, 14, n)
+    elif case == "outside_the_grid":  # before t0 and past the last bucket
+        ts = rng.integers(-2_500, 9_500, n)
+    elif case == "predicate":
+        mask = rng.random(n) > 0.4
+    elif case == "invalid":
+        valid = rng.random(n) > 0.3
+    elif case == "nan_and_negative_zero":
+        vals[rng.random(n) < 0.05] = np.nan
+        # cell (5, 0): -0.0 twice beside a masked row, and no other row
+        sid[:3], ts[:3], vals[:3] = 5, [1_000, 1_100, 1_200], -0.0
+        valid[2] = False
+        sid[3:] = np.where((ts[3:] < 2_000) & (sid[3:] == 5), 6, sid[3:])
+    if sorted_rows:
+        order = np.lexsort((ts, sid))
+        sid, ts, vals, valid = sid[order], ts[order], vals[order], valid[order]
+        mask = None if mask is None else mask[order]
+    lanes = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        ts.astype(np.int64), sid.astype(np.int32), vals, valid)]
+    return lanes + [None if mask is None else torch.from_numpy(mask)]
+
+
+def _composed_route(ts, sid, vals, valid, mask, sorted_rows: bool) -> dict:
+    """The slot step as the mesh composed it before the slot pass: the cell
+    keys, then kernels B and C over `safe` (sorted rows) or the scatter
+    strategy and grouped_stats over `flat` (unsorted), through their
+    wrappers (plain versions on the CPU; the fixture pins kernel B's)."""
+    from horaedb_tpu_torch.ops import blockagg
+    from horaedb_tpu_torch.ops import mesh as mesh_ops
+    from horaedb_tpu_torch.ops.aggregate import grouped_stats
+
+    cells = SLOT["local_series"] * SLOT["num_buckets"]
+    safe, flat, vm, w, ok = mesh_ops.sharded_keys_plain(ts, sid, vals, valid, mask, *SLOT.values())
+    if sorted_rows:
+        s, c = blockagg.sorted_segment_sum_count(safe, vm, cells, weights=w)
+        mn, mx = blockagg.sorted_segment_min_max(safe, vm, cells, valid=ok)
+    else:
+        s, c = blockagg.segment_sum_count(safe, vm, cells, impl="scatter", weights=w)
+        g = grouped_stats(vm, flat, None, cells)
+        mn, mx = g["min"], g["max"]
+    return {"sum": s, "count": c, "min": mn, "max": mx}
+
+
+@pytest.mark.parametrize("sorted_rows", [True, False])
+@pytest.mark.parametrize("case", ["foreign_runs", "outside_the_grid", "predicate", "invalid",
+                                  "nan_and_negative_zero", "empty"])
+def test_slot_pass_plain_equals_the_composed_route(case, sorted_rows):
+    """The slot pass's plain version (what CPU slots run and the card is
+    held to) is bitwise the keys-then-reductions route it replaces."""
+    from horaedb_tpu_torch.ops import mesh as mesh_ops
+
+    lanes = _slot_case(case, sorted_rows)
+    got = mesh_ops.slot_grids_plain(*lanes, *SLOT.values(), sorted_rows)
+    want = _composed_route(*lanes, sorted_rows)
+    for key in ("sum", "count", "min", "max"):
+        assert np.array_equal(got[key].numpy().view(np.uint64),
+                              want[key].numpy().view(np.uint64)), key
+    if case == "nan_and_negative_zero":  # -0.0 twice beside a masked row sums to +0.0
+        assert got["sum"][0].numpy().view(np.uint64) == 0 and got["count"][0] == 2
+    if case == "empty":
+        assert not got["count"].any() and bool(torch.isinf(got["min"]).all())
+    on_cpu = mesh_ops.slot_grids(*lanes, *SLOT.values(), sorted_rows)  # its plain version
+    assert np.array_equal(on_cpu["sum"].numpy().view(np.uint64), got["sum"].numpy().view(np.uint64))
+
+
 def _packed(case: str, n: int = 50_000, seq_width: int = 8) -> np.ndarray:
     rng = np.random.default_rng(21)
     grp = rng.integers(0, 9_000, n).astype(np.uint64)
