@@ -13,6 +13,7 @@
     python3 chip_ab.py burst-pair --root DIR [--seed N] [--rounds N]
     python3 chip_ab.py scan-pair --root DIR [--seed N] [--rounds N] [--no-warm-turn]
     python3 chip_ab.py mesh-step --root DIR [--seed N]
+    python3 chip_ab.py decode-pair --root DIR [--seed N]
 
 `reduce` builds and times, with chip_smoke's CUDA-event timer, the kernels
 that share `horaedb_tpu_torch/ops/csrc/segreduce.cuh`:
@@ -78,8 +79,10 @@ the host. `host_parts_us` times the pieces a launch path is made of
 call that does no work). It splits the other rows under 0.1 ms the same
 way: the four decode kernels on the lanes phase 4 times them on (3g's
 re-send SST, 1.8M rows in 440 pages: `ts` dod, `tsid` rle, `field_id`
-dict; 3h's `up` values, 30,000 rows, xor), each with its library
-yardstick where one exists, and `decode_dod_host_parts_us` (the decode
+dict; 3h's `up` values, 30,000 rows, xor; and, a kernel shape rather than
+a main-path one, the re-send's values as an f32 xor lane at widths <= 32),
+each with its library yardstick where one exists and the host ms of its
+`stage_pages` (`stage_pages_ms`), and `decode_dod_host_parts_us` (the decode
 wrapper's checks, its output's allocation, the kernel lookup, the device
 context and Stream object the decoders entered before `_build.launch`,
 the raw stream handle); the mesh key kernel (a tree that has it) or the
@@ -178,6 +181,14 @@ stacked_downsample at burst A's launch, grid_fold on a slot of 3l's fold),
 and every grid of every turn must equal the first turn's bit for bit (a
 digest on the card). The steps' library yardsticks (2 index_add_ + 2
 scatter_reduce over the same rows) are timed once.
+
+`decode-pair` runs `launch`'s decode split (the five decode rows, with
+`stage_pages_ms`) on two packages in one process: that of `--root`
+("parent") and that of this checkout ("change"), each imported apart, in
+the order parent, change, change, parent, with the card's empty launch
+(`torch.cuda._sleep(0)`: events ms, device ms and host us) in every
+turn; the library yardsticks are timed in the first turn only, and every
+turn's rows must equal the first turn's bit for bit.
 
 Each mode prints the card's name and power limit, then one JSON line.
 """
@@ -572,13 +583,18 @@ def encoded_lanes(cs, rng) -> dict:
     key as a write sorts them), whose ts lane encodes as dod, tsid as rle
     and field_id as dict; phase 3h's SSTs hold three scrapes of Prometheus
     `up` (30,000 rows), whose value lane encodes as xor at width 0. Each
-    lane through `encode_lane`, as `encode_table` picks its codec."""
+    lane through `encode_lane`, as `encode_table` picks its codec. Under
+    "xor_f32", a kernel shape and not a main-path one: the re-send's value
+    lane (the smoke's TSBS cpu field values, uniform in [0, 100)) cast to
+    f32 and encoded with `_encode_xor` directly, at widths <= 32
+    (`encode_lane` keeps such a lane raw: it saves less than 1/_MIN_WIN)."""
     from horaedb_tpu_torch.storage import encoding as enc_mod
 
-    tsids, values, resend, _new, _final = cs.make_enc_data(rng)
+    tsids, values, resend, new, _final = cs.make_enc_data(rng)
     hosts, fields, scrapes = values.shape
-    del values, _new, _final
-    flat = np.sort(resend)  # tsids ascend with the host: flat order is (tsid, field, ts)
+    del values, _final
+    order = np.argsort(resend)
+    flat = resend[order]  # tsids ascend with the host: flat order is (tsid, field, ts)
     h, rem = np.divmod(flat, fields * scrapes)
     f, sc = np.divmod(rem, scrapes)
     page_rows = enc_mod.DEFAULT_PAGE_ROWS
@@ -587,43 +603,122 @@ def encoded_lanes(cs, rng) -> dict:
              "ts": enc_mod.encode_lane("ts", cs.T0 + sc.astype(np.int64) * cs.INTERVAL_MS,
                                        page_rows, prefer_ts=True),
              "up": enc_mod.encode_lane("value", np.ones(3 * hosts), page_rows)}
-    return {lane.codec: (name, lane) for name, lane in lanes.items()}
+    out = {lane.codec: (name, lane) for name, lane in lanes.items()}
+    f32 = enc_mod._encode_xor(new[order].astype(np.float32), page_rows)
+    f32.name = "value"
+    out["xor_f32"] = ("value (f32)", f32)
+    return out
 
 
-def small_rows(torch, cs, rng, dev) -> dict:
-    """The split of the other rows under 0.1 ms: the four decode kernels
-    on the lanes phase 4 times them on (`encoded_lanes`) and the mesh key
-    kernel on one slot of 3l's mesh downsample (3.6M sorted rows, 5,000
-    series x 48 buckets). Each decode also gets its library yardstick
-    where one computes its function (chip_smoke.decode_library), and
-    `host_parts_us` the pieces of a decode wrapper's host path."""
-    from horaedb_tpu_torch.ops import _build
+# the rows `decode_rows` times: (lane key of `encoded_lanes`, codec, kernel, row)
+DECODE_ROWS = (("dict", "dict", "decode_unpack", "decode_unpack"),
+               ("dod", "dod", "decode_dod", "decode_dod"),
+               ("xor", "xor", "decode_xor", "decode_xor"),
+               ("rle", "rle", "decode_rle", "decode_rle"),
+               ("xor_f32", "xor", "decode_xor", "decode_xor_f32"))
+
+
+def decode_args(s) -> tuple:
+    """The arguments of a decode wrapper for staged pages `s`; a tree whose
+    rle pages carry a host-built cumulative lane (`s.cum`) passes it."""
+    itemsize = s.dtype.itemsize
+    if s.codec == "dict":
+        return s.words, s.table, s.dict_bits, s.rows
+    if getattr(s, "cum", None) is not None:
+        return s.words, s.table, s.cum, s.rows, itemsize
+    return s.words, s.table, s.rows, itemsize
+
+
+def stage_ms(torch, decode, codec, lane, pages, dev, calls: int = 20) -> float:
+    """Host ms of one `stage_pages` call (the page checks, the word lane,
+    the uploads; after a synchronise), the mean over `calls`."""
+    dt = np.dtype(lane.dtype)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        decode.stage_pages(codec, dt, lane.payload, pages, lane.dict_values, dev)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / calls * 1e3
+
+
+def decode_rows(torch, cs, dev, lanes: dict, library: bool = True, iters: int = 1000):
+    """Each row of DECODE_ROWS on its lane (`encoded_lanes`) through the
+    current tree's decode module: its shape, `launch_split`, the host ms of
+    its `stage_pages`, its library yardstick where one computes the
+    function; and the rows' outputs, each checked equal to its plain
+    version's."""
     from horaedb_tpu_torch.ops import decode
-    from horaedb_tpu_torch.ops import mesh as mesh_ops
 
-    out = {}
-    lanes = encoded_lanes(cs, rng)
-    for codec, name in cs.DECODE_NAMES.items():
-        cs.require(codec in lanes, f"no lane encoded as {codec}: {sorted(lanes)}")
-        lane_name, lane = lanes[codec]
+    out, rows, staged = {}, {}, {}
+    for key, codec, name, row in DECODE_ROWS:
+        cs.require(key in lanes, f"no lane encoded as {key}: {sorted(lanes)}")
+        lane_name, lane = lanes[key]
         dt = np.dtype(lane.dtype)
         pages = [p for p in lane.pages if decode.in_envelope(codec, dt, p, lane.dict_values)]
         cs.require(len(pages) == len(lane.pages), f"{lane_name}: pages outside the envelope")
         s = decode.stage_pages(codec, dt, lane.payload, pages, lane.dict_values, dev)
-        args = {"dict": (s.words, s.table, s.dict_bits, s.rows),
-                "rle": (s.words, s.table, s.cum, s.rows, dt.itemsize)}.get(
-                    codec, (s.words, s.table, s.rows, dt.itemsize))
+        args = decode_args(s)
         kern = getattr(decode, name)
         got = decode.run_pages(s)
-        cs.require(torch.equal(got, decode.run_pages_plain(s)), f"{name} != plain")
+        cs.require(torch.equal(got, decode.run_pages_plain(s)), f"{name} != plain on {key}")
         widths = sorted({p.width for p in pages})
-        out[f"{name}_shape"] = f"{s.rows} rows, {len(pages)} pages, {lane_name}, widths {widths}"
-        out[name] = launch_split(torch, cs, lambda kern=kern, args=args: kern(*args))
-        library = cs.decode_library(torch, decode, s, got)
-        if library is not None:
-            out[f"{name}_library"] = launch_split(torch, cs, library[0], iters=100)
-        if codec == "dod":
-            dod = s
+        out[f"{row}_shape"] = f"{s.rows} rows, {len(pages)} pages, {lane_name}, widths {widths}"
+        out[row] = launch_split(torch, cs, lambda kern=kern, args=args: kern(*args), iters)
+        out[row]["stage_pages_ms"] = stage_ms(torch, decode, codec, lane, pages, dev)
+        if library:
+            lib = cs.decode_library(torch, decode, s, got)
+            if lib is not None:
+                out[f"{row}_library"] = launch_split(torch, cs, lib[0], iters=100)
+        rows[row], staged[key] = got, s
+    return out, rows, staged
+
+
+DECODE_KERNELS = ("decode_unpack", "decode_dod", "decode_xor", "decode_rle")
+DECODE_MODULES = (".ops._build", ".ops.decode", ".storage.encoding")
+
+
+def decode_pair_times(torch, cs, rng, dev, roots: list[tuple[str, str]]) -> dict:
+    """The `decode-pair` mode (module docstring): `decode_rows` on the
+    trees of `roots` (tag, checkout) in the order parent, change, change,
+    parent, with the empty launch beside them in every turn; every turn's
+    rows must equal the first turn's bit for bit."""
+    trees = {tag: Tree(root, DECODE_MODULES) for tag, root in roots}
+    for tree in trees.values():
+        use_tree(tree.mods)
+        tree.mod("ops._build").build_all(DECODE_KERNELS)
+    lanes = encoded_lanes(cs, rng)
+    tags = [t for t, _ in roots]
+    order = tags + tags[::-1]
+    out = {tag: {"package": trees[tag].package, "turns": []} for tag in tags}
+    ref = None
+    for turn, tag in enumerate(order):
+        use_tree(trees[tag].mods)
+        split, rows, _staged = decode_rows(torch, cs, dev, lanes, library=turn == 0)
+        split["empty_launch"] = launch_split(torch, cs, lambda: torch.cuda._sleep(0))
+        out[tag]["turns"].append(split)
+        ref = rows if ref is None else ref
+        diff = sorted(k for k in ref if not torch.equal(ref[k], rows[k]))
+        cs.require(not diff, f"{tag}: decoded rows differ from {order[0]}'s: {diff}")
+    out["order"] = order
+    out["bitwise_equal"] = True
+    return out
+
+
+def small_rows(torch, cs, rng, dev) -> dict:
+    """The split of the other rows under 0.1 ms: the four decode kernels
+    on the lanes phase 4 times them on, and decode_xor on an f32 lane of
+    the same SST (`encoded_lanes`, `decode_rows`: each with the host ms of
+    its `stage_pages`), and the mesh key kernel or slot pass on one slot of
+    3l's mesh downsample (3.6M sorted rows, 5,000 series x 48 buckets).
+    Each decode also gets its library yardstick where one computes its
+    function (chip_smoke.decode_library), and `host_parts_us` the pieces of
+    a decode wrapper's host path."""
+    from horaedb_tpu_torch.ops import _build
+    from horaedb_tpu_torch.ops import decode
+    from horaedb_tpu_torch.ops import mesh as mesh_ops
+
+    out, _rows, staged = decode_rows(torch, cs, dev, encoded_lanes(cs, rng))
+    dod = staged["dod"]
     p = ctypes.c_void_p
     fn = _build.kernel("decode_dod", "decode_dod_launch", [p, p, ctypes.c_int64, ctypes.c_int,
                                                            p, p])
@@ -1593,7 +1688,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     ap.add_argument("mode", choices=("reduce", "reduce-split", "id-cache", "solo-fold", "launch",
                                      "merge", "sort-split", "default-device", "burst",
-                                     "burst-pair", "scan-pair", "mesh-step"))
+                                     "burst-pair", "scan-pair", "mesh-step", "decode-pair"))
     ap.add_argument("--root", default=None, help="import horaedb_tpu_torch from this checkout")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-warm-turn", action="store_true",
@@ -1648,6 +1743,9 @@ def main() -> int:
         cs.require(args.root is not None, "mesh-step: --root names the parent checkout")
         out = mesh_step_times(torch, cs, rng, dev, [("parent", args.root), ("change", HERE)],
                               args.seed)
+    elif args.mode == "decode-pair":
+        cs.require(args.root is not None, "decode-pair: --root names the parent checkout")
+        out = decode_pair_times(torch, cs, rng, dev, [("parent", args.root), ("change", HERE)])
     else:
         out = asyncio.run(id_cache_times(torch, cs, rng, dev))
     out.setdefault("package", os.path.dirname(horaedb_tpu_torch.__file__))

@@ -35,8 +35,10 @@ Phases, each of which exits non-zero on failure:
    32, a middle page of width 33 (the host fills it), pages of 1, 2, 3,
    4,095, 4,096 and 10,000 rows, i64 extremes and wraps mod 2^64, NaN payloads,
    +-0.0 and +-inf in f64 and f32, values >= 2^63, i4/u4 lanes, runs of 1
-   and a run across pages; and stacked_downsample, bitwise on every grid
-   (sums as u64 views) against its plain version on CPU copies, with
+   and a run across pages, and past the rle and xor kernels' batch and
+   chunk (page_rows 10,000: one run a page, 10,000 runs of 1, f32 and f64
+   at width 31) and rle pages of 1 row; and stacked_downsample, bitwise on
+   every grid (sums as u64 views) against its plain version on CPU copies, with
    B = 1, B = 16 with empty lanes, an all-masked lane, rows before t0 and
    past the grid, sid out of range, NaN and +-inf, a t0 per lane and runs
    straddling 8- and 2048-row boundaries, and one query stacked in lane 5
@@ -1317,7 +1319,8 @@ def decode_cases(rng):
     """(name, codec, array, page_rows, extra encoder args) of phase 2's
     decode checks: widths 0, 1, 17, 31 and 32 on every bit-packed codec, a
     middle page of width 33, pages of 1, 2, 3, 4,095, 4,096 and 10,000 rows, wraps
-    mod 2^64, NaN payloads and +-0.0 and +-inf, values >= 2^63, i4/u4 lanes."""
+    mod 2^64, NaN payloads and +-0.0 and +-inf, values >= 2^63, i4/u4 lanes;
+    rle and xor past one batch (1,024 runs) and one chunk (4,096 rows)."""
     i64 = np.iinfo(np.int64)
 
     def dod_at(width: int, n: int = 9000, g=rng) -> np.ndarray:
@@ -1383,6 +1386,23 @@ def decode_cases(rng):
     # its own draws, so the later phases' data stays as it was
     cases.append(("dod pages of 4095 rows", "dod", dod_at(17, 8191, np.random.default_rng(12)),
                   4095, ()))
+    big = np.random.default_rng(15)
+    low = big.integers(0, 1 << 31, 20_000, dtype=np.uint64)
+    low[::2] |= np.uint64(1 << 30)  # each XOR delta sets bit 30: width 31
+    low[1::2] &= np.uint64((1 << 30) - 1)
+    cases += [
+        ("rle page_rows 10000, one run a page", "rle", np.repeat(
+            np.array([2**64 - 1, 2**63], np.uint64), 10_000), 10_000, ()),
+        ("rle page_rows 10000, runs of 1", "rle", np.uint64(2**63) + np.arange(
+            20_000, dtype=np.uint64) * np.uint64(7), 10_000, ()),
+        ("rle u4 page_rows 10000, runs of 1", "rle", np.arange(20_000, dtype=np.uint32)
+         + np.uint32(2**31), 10_000, ()),
+        ("rle pages of 1 row", "rle", big.integers(-9, 9, 5).astype(np.int64), 1, ()),
+        ("xor f32 page_rows 10000", "xor", np.abs(big.normal(3, 2, 20_000)).astype(np.float32),
+         10_000, ()),
+        ("xor f64 width 31, page_rows 10000", "xor",
+         (np.uint64(0x4059_0000_0000_0000) ^ low).view(np.float64), 10_000, ()),
+    ]
     return cases
 
 
@@ -1412,6 +1432,7 @@ def check_decode_kernels(torch, rng, dev) -> None:
         require(len(on_dev) == sum(p.width <= 32 for p in lane.pages),
                 f"{name!r}: the envelope is width <= 32")
     for name, want in (("dod width 17", [17]), ("xor f64 width 31", [31]),
+                       ("xor f64 width 31, page_rows 10000", [31]),
                        ("dict width 17", [17]), ("dod middle page width 33", [0, 33]),
                        ("xor f64 width 32", [32])):
         require(widths[name] == want, f"{name!r} encoded at widths {widths[name]}")
@@ -1453,7 +1474,8 @@ def decode_library(torch, decode, s, got):
     """The library yardstick of a decode kernel on staged pages `s`, whose
     kernel output is `got`: (call, what it computes), or None where no
     PyTorch call computes the function (xor). rle: repeat_interleave of the
-    run values by their lengths, checked equal to `got`; dict: the plain
+    run values by their lengths (both read from the pages' payload words),
+    checked equal to `got`; dict: the plain
     unpack of the ids and one dictionary gather, checked equal; dod: the
     plain unpack and two cumsums (no segments, no zigzag: fewer calls than
     the function needs)."""
@@ -1461,12 +1483,13 @@ def decode_library(torch, decode, s, got):
     itemsize = s.dtype.itemsize
     dev = s.words.device
     if s.codec == "rle":
-        words, cum = s.words.cpu().numpy(), s.cum.cpu().numpy()
+        words = s.words.cpu().numpy()
         vals, lens = [], []
-        for _out_off, _rows, wo, _w, runs, at in table:
+        for _out_off, _rows, wo, _w, runs, _p1 in table:
             w = words[wo:wo + runs * itemsize // 4]
             vals.append(w.view(np.int64) if itemsize == 8 else w)
-            lens.append(np.diff(np.concatenate([[0], cum[at:at + runs]])))
+            at = wo + runs * itemsize // 4
+            lens.append(words[at:at + runs].view(np.uint32).astype(np.int64))
         vals_t = torch.from_numpy(np.concatenate(vals)).to(dev)
         lens_t = torch.from_numpy(np.concatenate(lens)).to(dev)
 
@@ -1508,9 +1531,8 @@ def decode_records(torch, cap: CaptureDecode, dev) -> list[dict]:
         require(torch.equal(got.cpu(), want.cpu()), f"{name} != plain at the main path shape")
         table = s.table.cpu().numpy()
         rows, width = table[:, 1], table[:, 3]
-        args = {"dict": (s.words, s.table, s.dict_bits, s.rows),
-                "rle": (s.words, s.table, s.cum, s.rows, itemsize)}.get(
-                    codec, (s.words, s.table, s.rows, itemsize))
+        args = ((s.words, s.table, s.dict_bits, s.rows) if codec == "dict"
+                else (s.words, s.table, s.rows, itemsize))
         kern, plain = getattr(decode, name), getattr(decode, f"{name}_plain")
         library, call = decode_library(torch, decode, s, got) or (None, None)
         if codec == "rle":

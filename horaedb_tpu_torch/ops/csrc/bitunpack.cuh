@@ -8,10 +8,17 @@
 //   block per page and writes the page's rows at out_off, so the output is
 //   the kept pages' rows in page order, with no padding.
 // - The two-word bit-window read of an LSB-first stream (width <= 32),
-//   from global memory or (decode_dod so far) from a block's copy of a run
-//   of words in shared memory (`Staged`), and the zigzag decode.
-// - A block-wide inclusive scan over 64-bit words (add or xor), which wraps
-//   mod 2^64 as the JAX package's uint64 arithmetic does.
+//   from global memory or from a block's copy of a run of words in shared
+//   memory (`Staged`), and the zigzag decode.
+// - The staged-chunk pattern of the kernels that scan (decode_dod,
+//   decode_xor) or expand (decode_rle) a page: the page is walked in chunks
+//   of kTile = 4,096 rows, thread t owning the chunk's rows [16 t, 16 t +
+//   16); `stage_chunk` copies the words a chunk's bit windows span into
+//   shared memory, coalesced, and each thread stages its 16 rows at
+//   `row_at` (one pad per 16 rows, so a warp's stores fall on distinct
+//   banks) for `write_chunk` to store 256 consecutive rows a step.
+// - A block-wide exclusive XOR scan over 64-bit words (decode_xor; dod
+//   scans its pair of sums with its own).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -103,42 +110,78 @@ __device__ __forceinline__ void store(void* __restrict__ out, int64_t i, uint64_
     }
 }
 
-struct Add {
-    __device__ static uint64_t identity() { return 0; }
-    __device__ uint64_t operator()(uint64_t a, uint64_t b) const { return a + b; }
-};
+// -- the staged chunk ----------------------------------------------------------
 
-struct Xor {
-    __device__ static uint64_t identity() { return 0; }
-    __device__ uint64_t operator()(uint64_t a, uint64_t b) const { return a ^ b; }
-};
+constexpr int kItems = 16;                // consecutive rows a thread
+constexpr int kTile = kThreads * kItems;  // rows a chunk
+constexpr int kWarps = kThreads / 32;
+// the most words a chunk's windows span: kTile windows of 32 bits, the word
+// a window straddles into and the one past the last window
+constexpr int kMaxWords = kTile + 2;
+constexpr int kRowSlots = kTile + kTile / 16;  // staged rows with their pads
+static_assert(kRowSlots * sizeof(uint64_t) >= stage_capacity(kMaxWords) * sizeof(uint32_t),
+              "a chunk's words fit its row stage");
 
-// Inclusive scan of one value per thread over the block (blockDim.x ==
-// kThreads). Every thread of the block must call it. `warp_tot` is shared
-// scratch of 32 words; the trailing barrier lets the next call reuse it.
-template <typename Op>
-__device__ uint64_t block_inclusive_scan(uint64_t x, uint64_t* warp_tot, Op op) {
+__device__ __forceinline__ int row_at(int r) { return r + (r >> 4); }
+
+// Stage the words of chunk rows [base, end) of a page whose row r >= lag
+// holds the `width`-bit value at stream bit (r - lag) * width (dod: lag 2,
+// xor: lag 1). The same for the whole block; a chunk with no stream rows
+// (or width 0) stages nothing and does not wait.
+__device__ __forceinline__ void stage_chunk(const uint32_t* __restrict__ w, int64_t base,
+                                            int64_t end, int lag, int64_t width, Staged& st) {
+    const int64_t s_lo = base >= lag ? base - lag : 0;
+    const int64_t s_hi = end - lag;
+    if (width > 0 && s_hi > s_lo) {
+        const int64_t w0 = (s_lo * width) >> 5;
+        const int64_t w1 = (((s_hi - 1) * width) >> 5) + 2;  // the last window's pair
+        st.bit0 = w0 << 5;
+        stage_words<kMaxWords>(w, w0, (int)(w1 - w0), st);
+    }
+}
+
+// Store `len` staged rows (slots row_at(0 .. len - 1)) at out[0 .. len),
+// 256 consecutive rows a step. The caller orders the row stage before it
+// and the next chunk's stage after it with barriers.
+template <class T>
+__device__ __forceinline__ void write_chunk(T* __restrict__ out, const T* staged, int len) {
+#pragma unroll
+    for (int q = 0; q < kItems; ++q) {
+        const int i = q * kThreads + (int)threadIdx.x;
+        if (i < len) out[i] = staged[row_at(i)];
+    }
+}
+
+// Exclusive XOR scan of one value per thread over the block (blockDim.x ==
+// kThreads): returns the XOR over the threads before this one and sets
+// `total` to the XOR over all. Every thread of the block must call it.
+// `warp_tot` is shared scratch of kWarps words; two barriers, none at the
+// end: the caller passes a barrier before the next call writes warp_tot.
+__device__ __forceinline__ uint64_t block_exclusive_xor(uint64_t x, uint64_t* warp_tot,
+                                                        uint64_t& total) {
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
+    uint64_t incl = x;
+#pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
-        const uint64_t y = __shfl_up_sync(0xffffffffu, x, d);
-        if (lane >= d) x = op(y, x);
+        const uint64_t y = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl ^= y;
     }
-    if (lane == 31) warp_tot[warp] = x;
+    const uint64_t excl = incl ^ x;
+    if (lane == 31) warp_tot[warp] = incl;
     __syncthreads();
     if (warp == 0) {
-        const int nw = blockDim.x >> 5;
-        uint64_t t = lane < nw ? warp_tot[lane] : Op::identity();
-        for (int d = 1; d < 32; d <<= 1) {
+        uint64_t t = lane < kWarps ? warp_tot[lane] : 0;
+#pragma unroll
+        for (int d = 1; d < kWarps; d <<= 1) {
             const uint64_t y = __shfl_up_sync(0xffffffffu, t, d);
-            if (lane >= d) t = op(y, t);
+            if (lane >= d) t ^= y;
         }
-        if (lane < nw) warp_tot[lane] = t;
+        if (lane < kWarps) warp_tot[lane] = t;  // inclusive over the warps
     }
     __syncthreads();
-    if (warp > 0) x = op(warp_tot[warp - 1], x);
-    __syncthreads();
-    return x;
+    total = warp_tot[kWarps - 1];
+    return warp > 0 ? warp_tot[warp - 1] ^ excl : excl;
 }
 
 }  // namespace dec

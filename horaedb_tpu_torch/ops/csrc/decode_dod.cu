@@ -16,31 +16,25 @@
 // (the default page_rows; a longer page carries (S0, S1) from chunk to
 // chunk). Per chunk:
 //   1. the block copies the words the chunk's bit windows span into shared
-//      memory, coalesced (bitunpack.cuh's Staged);
+//      memory, coalesced (bitunpack.cuh's stage_chunk);
 //   2. thread t owns the chunk's rows [16 t, 16 t + 16): it reads their
 //      windows, unzigzags them into dd and sums dd and k * dd in registers;
 //   3. one block exclusive scan of the threads' (S0, S1) pairs gives each
 //      thread the sums over every row before its own;
 //   4. each thread forms its 16 values and stages them in shared memory
 //      (one pad per 16 rows, so a warp's stores fall on distinct banks);
-//   5. the block writes the chunk's rows out, 256 consecutive rows a step.
+//   5. the block writes the chunk's rows out, 256 consecutive rows a step
+//      (bitunpack.cuh's write_chunk).
 // Five barriers a chunk, where a tile scan of each sum took seven barriers
 // per 256 rows. No float arithmetic touches a value.
 #include "bitunpack.cuh"
 
 namespace {
 
-constexpr int ITEMS = 16;
-constexpr int TILE = dec::kThreads * ITEMS;
-constexpr int WARPS = dec::kThreads / 32;
-// the most words a chunk's windows span: TILE windows of 32 bits, the word
-// a window straddles into and the one past the last window
-constexpr int MAX_WORDS = TILE + 2;
-constexpr int ROW_SLOTS = TILE + TILE / 16;  // staged rows with their pads
-static_assert(ROW_SLOTS * sizeof(uint64_t) >= dec::stage_capacity(MAX_WORDS) * sizeof(uint32_t),
-              "the words fit the row stage");
-
-__device__ __forceinline__ int row_at(int r) { return r + (r >> 4); }
+constexpr int ITEMS = dec::kItems;
+constexpr int TILE = dec::kTile;
+constexpr int WARPS = dec::kWarps;
+using dec::row_at;
 
 // Exclusive scan of the pair (a, b) over the block's threads, sums mod
 // 2^64: (ea, eb) the sums over the threads before, (ta, tb) the block's.
@@ -93,7 +87,7 @@ __global__ void __launch_bounds__(dec::kThreads)
 dod_kernel(const uint32_t* __restrict__ words, const int64_t* __restrict__ table,
            T* __restrict__ out) {
     // the chunk's words, then (once every window is read) its staged rows
-    __shared__ uint64_t buf[ROW_SLOTS];
+    __shared__ uint64_t buf[dec::kRowSlots];
     __shared__ uint64_t tmp[2][WARPS];
     T* staged_rows = reinterpret_cast<T*>(buf);
     const dec::Page pg = dec::load_page(table, blockIdx.x);
@@ -105,15 +99,8 @@ dod_kernel(const uint32_t* __restrict__ words, const int64_t* __restrict__ table
     uint64_t c0 = 0, c1 = 0;  // S0 and S1 over the earlier chunks
     for (int64_t base = 0; base < pg.rows; base += TILE) {
         const int64_t end = base + TILE < pg.rows ? base + TILE : pg.rows;
-        // 1. the chunk's stream rows s = row - 2 lie in [s_lo, s_hi)
-        const int64_t s_lo = base >= 2 ? base - 2 : 0;
-        const int64_t s_hi = end - 2;
-        if (width > 0 && s_hi > s_lo) {  // the same for the whole block
-            const int64_t w0 = (s_lo * width) >> 5;
-            const int64_t w1 = (((s_hi - 1) * width) >> 5) + 2;  // the last window's pair
-            st.bit0 = w0 << 5;
-            dec::stage_words<MAX_WORDS>(w, w0, (int)(w1 - w0), st);
-        }
+        // 1. the chunk's stream rows s = row - 2
+        dec::stage_chunk(w, base, end, 2, width, st);
         // 2. this thread's rows r0 .. r0 + 15
         const int64_t r0 = base + (int64_t)threadIdx.x * ITEMS;
         uint64_t dd[ITEMS];
@@ -147,12 +134,7 @@ dod_kernel(const uint32_t* __restrict__ words, const int64_t* __restrict__ table
         c1 += t1;
         __syncthreads();
         // 5.
-        const int len = (int)(end - base);
-#pragma unroll
-        for (int q = 0; q < ITEMS; ++q) {
-            const int i = q * dec::kThreads + (int)threadIdx.x;
-            if (i < len) out[pg.out_off + base + i] = staged_rows[row_at(i)];
-        }
+        dec::write_chunk(out + pg.out_off + base, staged_rows, (int)(end - base));
         __syncthreads();  // the next chunk's words overwrite the staged rows
     }
 }

@@ -11,8 +11,10 @@ JAX catalog names and compute what the XLA kernels compute, bit for bit
                  sums mod 2^64 from (first, first_delta);
   decode_xor     Gorilla XOR floats: unpack, prefix XOR from the first
                  value's bits;
-  decode_rle     run expansion: each row's run by a binary search over the
-                 page's cumulative run lengths, then the run's value.
+  decode_rle     run expansion: each page's run lengths, read from its
+                 payload and scanned on the device, give the runs' start
+                 rows; each row takes the value of the last run that
+                 starts at or before it.
 
 The JAX kernels run once per page, padded to a 1,024-row granule. Here
 `decode_pages` decodes every kept page of one lane in one launch: the
@@ -231,18 +233,23 @@ def decode_xor_plain(words, table, n: int, itemsize: int) -> torch.Tensor:
     return _narrow(g ^ _page_base(g, table, page), itemsize)
 
 
-def decode_rle_plain(words, table, cum, n: int, itemsize: int) -> torch.Tensor:
-    """Plain version of decode_rle. Each page's runs end at its rows (the
-    caller checks it), so the pages' run ends shifted by out_off are one
-    nondecreasing lane, searched once."""
+def decode_rle_plain(words, table, n: int, itemsize: int) -> torch.Tensor:
+    """Plain version of decode_rle. A page's run lengths are the u32s after
+    its run values. Each page's runs cover its rows (stage_pages checks
+    it) and out_off counts the rows before a page, so the running sum of
+    every page's lengths, in page order, is one nondecreasing lane of run
+    ends in output rows, searched once."""
     if n == 0:
         return _out(0, itemsize, words.device)
     page, _i, t = _row_pages(table, n)
     runs = table[:, 4]
+    run_first = torch.cumsum(runs, 0) - runs  # each page's first run, over the lane
     run_page = torch.repeat_interleave(torch.arange(table.shape[0], device=table.device), runs)
-    ends = cum + table[run_page, 0]
-    g = torch.searchsorted(ends, torch.arange(n, device=words.device), right=True)
-    r = torch.minimum((g - t[:, 5]).clamp(min=0), (t[:, 4] - 1).clamp(min=0))
+    k = torch.arange(run_page.numel(), device=table.device) - run_first[run_page]
+    lens = words[table[run_page, 2] + runs[run_page] * (itemsize // 4) + k].long() & _MASK32
+    g = torch.searchsorted(torch.cumsum(lens, 0), torch.arange(n, device=words.device),
+                           right=True)
+    r = torch.minimum((g - run_first[page]).clamp(min=0), (t[:, 4] - 1).clamp(min=0))
     last = words.numel() - 1
     if itemsize == 8:
         at = t[:, 2] + 2 * r
@@ -304,22 +311,19 @@ def decode_xor(words, table, n: int, itemsize: int) -> torch.Tensor:
     return out
 
 
-def decode_rle(words, table, cum, n: int, itemsize: int) -> torch.Tensor:
+def decode_rle(words, table, n: int, itemsize: int) -> torch.Tensor:
     """Rows of rle pages: kernel `decode_rle` on a CUDA tensor,
-    `decode_rle_plain` on a CPU one. `cum` (int64) holds each page's
-    inclusive cumulative run lengths, at the offset its table row names."""
+    `decode_rle_plain` on a CPU one. A page's payload holds its p0 run
+    values, then their u32 lengths, which add up to its rows."""
     _check("decode_rle", words, table, itemsize)
-    _require(cum.dtype == torch.int64 and cum.dim() == 1 and cum.is_contiguous()
-             and cum.device == words.device, "decode_rle: cum must be a contiguous int64 lane")
     if words.device.type == "cpu":
-        return decode_rle_plain(words, table, cum, n, itemsize)
+        return decode_rle_plain(words, table, n, itemsize)
     out = _out(n, itemsize, words.device)
     if n == 0:
         return out  # no rows: nothing to launch
     p = ctypes.c_void_p
-    _launch("decode_rle", [p, p, ctypes.c_int64, p, ctypes.c_int, p], words.device,
-            words.data_ptr(), table.data_ptr(), table.shape[0], cum.data_ptr(), itemsize,
-            out.data_ptr())
+    _launch("decode_rle", [p, p, ctypes.c_int64, ctypes.c_int, p], words.device,
+            words.data_ptr(), table.data_ptr(), table.shape[0], itemsize, out.data_ptr())
     return out
 
 
@@ -331,7 +335,7 @@ def decode_rle(words, table, cum, n: int, itemsize: int) -> torch.Tensor:
 class DevicePages:
     """One lane's kept pages as the kernels take them (tensors on one
     device): the word lane, the page table, and for dict the dictionary's
-    bits, for rle the cumulative run lengths."""
+    bits."""
 
     codec: str
     dtype: np.dtype
@@ -339,7 +343,6 @@ class DevicePages:
     words: torch.Tensor
     table: torch.Tensor
     dict_bits: torch.Tensor | None = None
-    cum: torch.Tensor | None = None
 
 
 def in_envelope(codec: str, dt: np.dtype, page, dict_values) -> bool:
@@ -366,16 +369,16 @@ def _page_words(codec: str, page, itemsize: int) -> int:
 def stage_pages(codec: str, dtype, payload: bytes, pages: list, dict_values,
                 device) -> DevicePages:
     """Check the pages' metadata against the payload (a sidecar whose pages
-    do not add up raises HoraeError) and put their payload, page table and
-    side lanes on `device`. Pages must be inside the envelope."""
+    do not add up raises HoraeError) and put their payload, page table and,
+    for dict, the dictionary's bits on `device`. Pages must be inside the
+    envelope."""
     dt = np.dtype(dtype)
     dev = resolve_device(device)
     itemsize = dt.itemsize
     table = np.zeros((len(pages), PAGE_FIELDS), np.int64)
     contiguous = all(b.off == a.off + a.length for a, b in zip(pages, pages[1:]))
     base = pages[0].off if pages else 0
-    cums = []
-    out_off = word_at = runs_at = 0
+    out_off = word_at = 0
     for k, p in enumerate(pages):
         ensure(p.rows >= 0 and p.off >= 0 and p.off % 4 == 0 and p.length % 4 == 0
                and p.off + p.length <= len(payload),
@@ -387,14 +390,7 @@ def stage_pages(codec: str, dtype, payload: bytes, pages: list, dict_values,
         p0, p1 = _i64(p.p0), _i64(p.p1)
         if codec == "rle":
             ensure(p.p0 >= (1 if p.rows else 0), f"rle page {k}: {p.p0} runs for {p.rows} rows")
-            lengths = np.frombuffer(payload, "<u4", count=p.p0, offset=p.off + p.p0 * itemsize)
-            cum = np.cumsum(lengths, dtype=np.int64)
-            ensure(p.rows == (int(cum[-1]) if len(cum) else 0),
-                   f"rle page {k}: runs cover {int(cum[-1]) if len(cum) else 0} rows, not "
-                   f"{p.rows}")
-            cums.append(cum)
-            p1 = runs_at
-            runs_at += p.p0
+            ensure(p.rows < 1 << 32, f"rle page {k}: {p.rows} rows, not under 2^32")
         table[k] = (out_off, p.rows, wo, p.width, p0, p1)
         out_off += p.rows
         word_at += p.length // 4
@@ -404,6 +400,8 @@ def stage_pages(codec: str, dtype, payload: bytes, pages: list, dict_values,
         body = b"".join(payload[p.off:p.off + p.length] for p in pages)
     words = np.zeros(len(body) // 4 + 1, np.uint32)  # + the guard word
     words[:-1] = np.frombuffer(body, "<u4")
+    if codec == "rle":
+        _check_runs(table, words, itemsize)
     staged = dict(codec=codec, dtype=dt, rows=out_off,
                   words=to_device(words.view(np.int32), dev), table=to_device(table, dev))
     if codec == "dict":
@@ -411,9 +409,24 @@ def stage_pages(codec: str, dtype, payload: bytes, pages: list, dict_values,
 
         bits = dict_array(dict_values, dt).view(np.int64 if itemsize == 8 else np.int32)
         staged["dict_bits"] = to_device(bits, dev)
-    if codec == "rle":
-        staged["cum"] = to_device(np.concatenate(cums) if cums else np.zeros(0, np.int64), dev)
     return DevicePages(**staged)
+
+
+def _check_runs(table: np.ndarray, words: np.ndarray, itemsize: int) -> None:
+    """Each rle page's run lengths (the u32s after its p0 values) add up to
+    its rows: one gather of every page's lengths and one reduceat."""
+    runs, rows = table[:, 4], table[:, 1]
+    run_first = np.cumsum(runs) - runs
+    at = table[:, 2] + runs * (itemsize // 4) - run_first  # + the run's index over the lane
+    lens = words[np.repeat(at, runs) + np.arange(int(runs.sum()))].astype(np.int64)
+    cover = np.zeros(len(table), np.int64)
+    held = runs > 0
+    if held.any():
+        cover[held] = np.add.reduceat(lens, run_first[held])
+    bad = np.flatnonzero(cover != rows)
+    if bad.size:
+        k = int(bad[0])
+        ensure(False, f"rle page {k}: runs cover {int(cover[k])} rows, not {int(rows[k])}")
 
 
 def run_pages(s: DevicePages) -> torch.Tensor:
@@ -427,7 +440,7 @@ def run_pages(s: DevicePages) -> torch.Tensor:
         return decode_dod(s.words, s.table, s.rows, itemsize)
     if s.codec == "xor":
         return decode_xor(s.words, s.table, s.rows, itemsize)
-    return decode_rle(s.words, s.table, s.cum, s.rows, itemsize)
+    return decode_rle(s.words, s.table, s.rows, itemsize)
 
 
 def run_pages_plain(s: DevicePages) -> torch.Tensor:
@@ -440,7 +453,7 @@ def run_pages_plain(s: DevicePages) -> torch.Tensor:
         return decode_dod_plain(s.words, s.table, s.rows, itemsize)
     if s.codec == "xor":
         return decode_xor_plain(s.words, s.table, s.rows, itemsize)
-    return decode_rle_plain(s.words, s.table, s.cum, s.rows, itemsize)
+    return decode_rle_plain(s.words, s.table, s.rows, itemsize)
 
 
 def decode_pages(codec: str, dtype, payload: bytes, pages: list, dict_values,

@@ -739,6 +739,10 @@ def _decode_lanes():
         0, 1 << 31, 9000, dtype=np.uint64)).view(np.float64)
     f32 = rng.normal(size=9000).astype(np.float32)
     f32[:4] = [np.nan, -0.0, np.inf, -np.inf]
+    big = np.random.default_rng(22)  # the shapes past a batch and a chunk
+    low = big.integers(0, 1 << 31, 20_000, dtype=np.uint64)
+    low[::2] |= np.uint64(1 << 30)  # each XOR delta sets bit 30: width 31
+    low[1::2] &= np.uint64((1 << 30) - 1)
     return [
         ("dod", 1_700_000_000_000 + np.arange(9003) * 10_000 + rng.integers(-5, 6, 9003), 4096,
          ()),
@@ -757,10 +761,17 @@ def _decode_lanes():
         ("rle", np.repeat(np.uint64(2**64 - 1) - np.arange(900, dtype=np.uint64), 11), 4096, ()),
         ("rle", rng.integers(-9, 9, 9000).astype(np.int64), 4096, ()),
         ("rle", np.repeat(np.arange(300, dtype=np.uint32) + np.uint32(2**31), 30), 4096, ()),
+        # runs and rows past one batch and one chunk of the kernels
+        ("rle", np.repeat(np.array([2**64 - 1, 2**63], np.uint64), 10_000), 10_000, ()),
+        ("rle", np.uint64(2**63) + np.arange(10_000, dtype=np.uint64) * np.uint64(7), 10_000,
+         ()),
+        ("rle", big.integers(-9, 9, 5).astype(np.int64), 1, ()),
+        ("xor", big.normal(size=20_000).astype(np.float32), 10_000, ()),
+        ("xor", (np.uint64(0x4059_0000_0000_0000) ^ low).view(np.float64), 10_000, ()),
     ]
 
 
-@pytest.mark.parametrize("case", range(15))
+@pytest.mark.parametrize("case", range(20))
 def test_decode_kernels_match_plain(dev, case):
     from horaedb_tpu_torch.ops import decode
     from horaedb_tpu_torch.storage import encoding as enc
@@ -776,9 +787,6 @@ def test_decode_kernels_match_plain(dev, case):
         got, bad = decode.decode_unpack(s.words, s.table, s.dict_bits, s.rows)
         want, pbad = decode.decode_unpack_plain(s.words, s.table, s.dict_bits, s.rows)
         assert int(bad.item()) == int(pbad.item()) == 0
-    elif codec == "rle":
-        got = decode.decode_rle(s.words, s.table, s.cum, s.rows, itemsize)
-        want = decode.decode_rle_plain(s.words, s.table, s.cum, s.rows, itemsize)
     else:
         kern = getattr(decode, f"decode_{codec}")
         got = kern(s.words, s.table, s.rows, itemsize)

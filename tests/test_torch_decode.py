@@ -77,6 +77,10 @@ def kernel_cases():
     w32[2::3] = -(2**31)  # zigzag(-2^31) = 2^32 - 1: width 32
     w33 = np.zeros(300, np.int64)
     w33[150] = 2**31  # zigzag(2^31) = 2^32: width 33, outside the envelope
+    big = np.random.default_rng(15)  # the shapes past one batch and one chunk of the kernels
+    low = big.integers(0, 1 << 31, 10_000, dtype=np.uint64)
+    low[::2] |= np.uint64(1 << 30)  # each XOR delta sets bit 30: width 31
+    low[1::2] &= np.uint64((1 << 30) - 1)
     return [
         ("dod jittered, 3 pages", "dod", ts, 4096, ()),
         ("dod width 32", "dod", w32, 128, ()),
@@ -117,6 +121,16 @@ def kernel_cases():
             [np.zeros(10, np.int64), np.full(2500, 7, np.int64), np.ones(5, np.int64)]), 1000, ()),
         ("rle u4", "rle", np.repeat(np.arange(80, dtype=np.uint32) + np.uint32(2**31), 50), 512,
          ()),
+        ("rle page_rows 10000, one run a page", "rle", np.repeat(
+            np.array([2**64 - 1, 2**63], np.uint64), 10_000), 10_000, ()),
+        ("rle page_rows 10000, runs of 1", "rle", np.uint64(2**63) + np.arange(
+            10_000, dtype=np.uint64) * np.uint64(7), 10_000, ()),
+        ("rle pages of 1 row", "rle", big.integers(-9, 9, 3).astype(np.int64), 1, ()),
+        # positive floats across 2.0 also encode at width 31: one XLA kernel for both
+        ("xor f32 page_rows 10000", "xor", np.abs(big.normal(3, 2, 10_000)).astype(np.float32),
+         10_000, ()),
+        ("xor f64 width 31, page_rows 10000", "xor",
+         (np.uint64(0x4059_0000_0000_0000) ^ low).view(np.float64), 10_000, ()),
     ]
 
 
@@ -224,6 +238,20 @@ def test_plain_cumsum_and_shifts_wrap_mod_2_64():
         assert int(got) == 2**32 - 1
     x = torch.tensor([I64.max, 1, 1], dtype=torch.int64)
     assert torch.cumsum(x, 0).tolist() == [I64.max, I64.min, I64.min + 1]
+
+
+def test_stage_pages_refuses_rle_runs_that_miss_the_rows():
+    """A page whose run lengths do not add up to its rows raises HoraeError
+    from stage_pages, naming the first such page, before anything is
+    uploaded; pages that add up stage."""
+    lane = encode(tenc, "rle", np.repeat(np.arange(6, dtype=np.int64), 500), 1000, ())
+    tdecode.stage_pages("rle", lane.dtype, lane.payload, lane.pages, None, "cpu")
+    for rows, covered in ((999, 1000), (1001, 1000)):
+        pages = [tenc.EncPage(**{**vars(p), "rows": rows}) if k == 1 else p
+                 for k, p in enumerate(lane.pages)]
+        with pytest.raises(tenc.HoraeError,
+                           match=f"^rle page 1: runs cover {covered} rows, not {rows}$"):
+            tdecode.stage_pages("rle", lane.dtype, lane.payload, pages, None, "cpu")
 
 
 def test_wrappers_take_the_plain_version_only_on_the_cpu():

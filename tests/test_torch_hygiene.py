@@ -170,7 +170,8 @@ def test_plain_versions_do_not_count_launches():
     decode.decode_unpack(words, table, torch.tensor([7, 9]), 3)
     decode.decode_dod(words, table, 3, 8)
     decode.decode_xor(words, table, 3, 4)
-    decode.decode_rle(words, torch.tensor([[0, 3, 0, 0, 1, 0]]), torch.tensor([3]), 3, 4)
+    decode.decode_rle(torch.tensor([7, 3, 0], dtype=torch.int32),
+                      torch.tensor([[0, 3, 0, 0, 1, 0]]), 3, 4)
     aggregate.stacked_downsample(key[None], k[None], v[None], torch.ones(1, 3, dtype=torch.bool),
                                  torch.zeros(1, dtype=torch.int64), 2, 1, 4)
     aggregate.lane_segment_sum_count(k, v, 2)

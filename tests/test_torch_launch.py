@@ -315,9 +315,8 @@ DECODERS = {
                    torch.int64, (2, 8, 0)),
     "decode_xor": (lambda: decode.decode_xor(_meta(3, torch.int32), _meta_table(), 5, 4),
                    torch.int32, (2, 4, 0)),
-    "decode_rle": (lambda: decode.decode_rle(_meta(3, torch.int32), _meta_table(),
-                                             _meta(2, torch.int64), 5, 8),
-                   torch.int64, (2, 0, 8, 0)),
+    "decode_rle": (lambda: decode.decode_rle(_meta(3, torch.int32), _meta_table(), 5, 8),
+                   torch.int64, (2, 8, 0)),
 }
 
 
