@@ -14,6 +14,7 @@
     python3 chip_ab.py scan-pair --root DIR [--seed N] [--rounds N] [--no-warm-turn]
     python3 chip_ab.py mesh-step --root DIR [--seed N]
     python3 chip_ab.py decode-pair --root DIR [--seed N]
+    python3 chip_ab.py agg-pair --root DIR [--seed N] [--stacked-call FILE]
 
 `reduce` builds and times, with chip_smoke's CUDA-event timer, the kernels
 that share `horaedb_tpu_torch/ops/csrc/segreduce.cuh`:
@@ -190,7 +191,32 @@ the order parent, change, change, parent, with the card's empty launch
 turn; the library yardsticks are timed in the first turn only, and every
 turn's rows must equal the first turn's bit for bit.
 
+`agg-pair` runs the rows that share grouped_stats.cu, onesweep.cuh and
+segreduce.cuh on two packages in one process: that of `--root` ("parent")
+and that of this checkout ("change"), each imported apart, in the order
+parent, change, change, parent: stacked_downsample (row 7) at burst A's
+launch shape (STACKED_SHAPE) and, with `--stacked-call FILE` (written by
+`chip_smoke.py --save-stacked-call FILE`), at 3i's captured call, and at
+EMPTY_LANE_SHAPE with its last lane empty; grouped_stats with 90 % of its
+rows masked (MASKED_SHAPE);
+segment_last_value (row 9) at 3k's shape (its row pass's u32 route), and
+at that shape with one seq of 2^33 (the u64 route) and of INT64_MAX (the
+16-byte CAS route); grouped_stats and
+downsample (rows 5, 8) at the fused shape, sorted and shuffled; kernels B
+and C (rows 1, 2) as downsample_sorted calls them at phase 4's shape; the
+sorts that share onesweep.cuh's key pass and partition: sort_perm (row 4,
+phase 2's write batch), packed_merge (row 18, one 2 h segment) and
+scan_kernel (row 21, the fused pass); and the two mesh steps whole (rows
+16, 17, as `mesh-step`). For each row: `launch_split` (events ms, device
+ms by kernel and device operations a call by torch.profiler, host us and
+wall us a call); every turn's outputs must equal the first turn's bit for
+bit (a digest on the card; the sorts: equal to their plain versions).
+
 Each mode prints the card's name and power limit, then one JSON line.
+Device ms come from torch.profiler windows in which every kernel, copy
+and memset ran a whole number of times a call (chip_smoke.profiled_events:
+a window that lost records is taken again); the JSON's
+`profiler_windows_retaken` counts those taken again.
 """
 
 from __future__ import annotations
@@ -250,6 +276,44 @@ def stacked_inputs(torch, rng, dev):
     return lanes, 60_000, series, buckets
 
 
+# the widest stacked grid of agg-pair: lanes, padded rows a lane, series
+# and buckets a lane's grid (10,000 hosts of TSBS' devops set, 30 minutes of
+# 1-minute buckets); every lane but the last holds EMPTY_LANE_REAL rows, the
+# last none
+EMPTY_LANE_SHAPE = (16, 327_680, 10_000, 30)
+EMPTY_LANE_REAL = 300_000
+# agg-pair's masked grouped_stats: rows and segments; a row is valid when
+# its segment is below a tenth of them (the kept rows bunch there)
+MASKED_SHAPE = (4_000_000, 2_000_000)
+
+
+def empty_lane_inputs(torch, rng, dev):
+    """A stacked launch (EMPTY_LANE_SHAPE) with its last lane empty: each
+    other lane's first EMPTY_LANE_REAL rows valid, in (series, ts) order."""
+    b, r, series, buckets = EMPTY_LANE_SHAPE
+    sid = np.zeros((b, r), np.int32)
+    ts = np.zeros((b, r), np.int64)
+    valid = np.zeros((b, r), bool)
+    for lane in range(b - 1):
+        s = rng.integers(0, series, EMPTY_LANE_REAL).astype(np.int32)
+        t = rng.integers(0, buckets * 60_000, EMPTY_LANE_REAL)
+        order = np.lexsort((t, s))
+        sid[lane, :EMPTY_LANE_REAL], ts[lane, :EMPTY_LANE_REAL] = s[order], t[order]
+        valid[lane, :EMPTY_LANE_REAL] = True
+    vals = rng.uniform(0, 100, (b, r))
+    lanes = [torch.from_numpy(a).to(dev) for a in (ts, sid, vals, valid, np.zeros(b, np.int64))]
+    return lanes, 60_000, series, buckets
+
+
+def masked_inputs(torch, rng, dev):
+    """grouped_stats lanes (values, ids, valid, segments) of MASKED_SHAPE:
+    shuffled ids over every segment, about 90 % of the rows masked."""
+    n, segs = MASKED_SHAPE
+    ids = rng.integers(0, segs, n).astype(np.int32)
+    host = (rng.uniform(0, 100, n), ids, ids < segs // 10)
+    return (*(torch.from_numpy(a).to(dev) for a in host), segs)
+
+
 def reduce_times(torch, cs, rng, dev) -> dict:
     from horaedb_tpu_torch.ops import _build, aggregate, blockagg
 
@@ -294,6 +358,20 @@ def reduce_times(torch, cs, rng, dev) -> dict:
     return out
 
 
+def last_write_lanes(torch, cs, rng, dev, route: str = "u32"):
+    """Phase 3k's call of segment_last_value as card lanes (values, seq,
+    index, valid, segments). 3k's seq (1..49) packs into u32 keys; route
+    "u64" sets one row's seq to 2^33, "wide" to INT64_MAX (no u64 key
+    holds it: the 16-byte CAS), so the row pass takes that route at the
+    same shape."""
+    vals, seq, index, segs, _resend, _want = cs.last_write_inputs(rng)
+    if route != "u32":
+        seq = seq.copy()
+        seq[0] = 2**63 - 1 if route == "wide" else 2**33
+    lanes = [torch.from_numpy(a).to(dev) for a in (vals, seq, index)]
+    return (*lanes, torch.ones(len(vals), dtype=torch.bool, device=dev), segs)
+
+
 def fused_lanes(torch, cs, rng, dev):
     """The fused query's shape of phase 3e (FUSED_SERIES series x
     FUSED_WINDOW_MS / FUSED_BUCKET_MS buckets, the window's rows and its
@@ -325,28 +403,22 @@ def segment_part(name: str) -> str:
     return name[:80]
 
 
-def profile_call(torch, fn, calls: int = 5) -> tuple[dict, int, int]:
+def profile_call(torch, cs, fn, calls: int = 5) -> tuple[dict, int, int]:
     """Device ms a call by segment_part (torch.profiler, the mean of
-    `calls` calls), the kernels a call launches, and the device bytes one
-    call allocates (the peak over it less what was allocated before)."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    parts, kernels = {}, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            part = segment_part(e.name)
-            parts[part] = parts.get(part, 0.0) + e.time_range.elapsed_us() / calls / 1e3
-            kernels += 1
+    `calls` calls: chip_smoke.profiled_events), the device operations a
+    call runs, and the device bytes one call allocates (the peak over it
+    less what was allocated before)."""
+    events = cs.profiled_events(torch, fn, calls)
+    parts = {}
+    for e in events:
+        part = segment_part(e.name)
+        parts[part] = parts.get(part, 0.0) + e.time_range.elapsed_us() / calls / 1e3
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     fn()
     torch.cuda.synchronize()
-    return parts, round(kernels / calls), torch.cuda.max_memory_allocated() - before
+    return parts, len(events) // calls, torch.cuda.max_memory_allocated() - before
 
 
 def reduce_split(torch, cs, rng, dev) -> dict:
@@ -368,7 +440,7 @@ def reduce_split(torch, cs, rng, dev) -> dict:
             ("main_call", lambda: blockagg.sorted_segment_sum_count(kt, vt, cells, impl="block"),
              lambda: blockagg.sorted_segment_min_max(kt, vt, cells, impl="block"))):
         for name, fn in (("block_sum_count", b_call), ("block_min_max", c_call)):
-            parts, kernels, alloc = profile_call(torch, fn)
+            parts, kernels, alloc = profile_call(torch, cs, fn)
             out[f"{name}_{form}_ms_by_part"] = parts
             out[f"{name}_{form}_kernels_a_call"] = kernels
             out[f"{name}_{form}_alloc_bytes"] = alloc
@@ -381,12 +453,17 @@ def reduce_split(torch, cs, rng, dev) -> dict:
             ("block_sum_count", lambda: blockagg.block_sum_count(kt, vt, cells, weights=w)),
             ("block_min_max", lambda: blockagg.block_min_max(kt, vt, cells, valid=ok)),
             ("grouped_stats", lambda: aggregate.grouped_stats(vt, kt, None, cells))):
-        out[f"long_runs_{name}_ms_by_part"] = profile_call(torch, fn)[0]
+        out[f"long_runs_{name}_ms_by_part"] = profile_call(torch, cs, fn)[0]
     del kt, vt, w, ok
     lanes, bucket_ms, series, buckets = stacked_inputs(torch, rng, dev)
     out["stacked_downsample_ms_by_part"] = profile_call(
-        torch, lambda: aggregate.stacked_downsample(*lanes, bucket_ms, series, buckets))[0]
+        torch, cs, lambda: aggregate.stacked_downsample(*lanes, bucket_ms, series, buckets))[0]
     del lanes
+    slv = last_write_lanes(torch, cs, rng, dev)
+    out["segment_last_value_shape"] = f"{len(slv[0])} shuffled rows, {slv[4]} segments"
+    out["segment_last_value_ms_by_part"] = profile_call(
+        torch, cs, lambda: aggregate.segment_last_value(*slv))[0]
+    del slv
     try:
         out["run_occupancy"] = cs.segreduce_occupancy()
     except AttributeError:  # a tree whose libraries do not export it
@@ -463,20 +540,18 @@ def fold_partials(torch, cs, rng, dev) -> dict:
 
 
 def launch_split(torch, cs, fn, iters: int = 1000) -> dict:
-    """Events-loop ms, device ms per call (torch.profiler) and host us per
-    call of fn() (module docstring)."""
+    """Events-loop ms, device ms per call (torch.profiler, a window with
+    every record: chip_smoke.profiled_events) and host us per call of fn()
+    (module docstring)."""
     out = {"events_ms": cs.cuda_ms(torch, fn)}
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            fn()
-        torch.cuda.synchronize()
+    events = cs.profiled_events(torch, fn, 20)
     split = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            split[e.name[:60]] = split.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 20e3
+    for e in events:
+        split[e.name[:60]] = split.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 20e3
     out["device_ms"] = sum(split.values())
     out["device_ms_by_kernel"] = split
+    out["device_ops"] = len(events) / 20
     for _ in range(10):
         fn()
     torch.cuda.synchronize()
@@ -1462,14 +1537,8 @@ def step_split(torch, cs, port, fn, steps: int = 5, host_steps: int = 20) -> dic
     and until the synchronise after it (`wall_us`), over `host_steps`."""
     out = {"events_ms": cs.cuda_ms(torch, fn, iters=steps, warmup=1)}
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
     by_kernel, by_part, events = {}, {}, 0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in cs.profiled_events(torch, fn, steps):
         ms = e.time_range.elapsed_us() / steps / 1e3
         name = cs.kernel_name(e.name)
         by_kernel[name] = by_kernel.get(name, 0.0) + ms
@@ -1632,6 +1701,147 @@ def mesh_step_times(torch, cs, rng, dev, roots: list[tuple[str, str]], seed: int
     return out
 
 
+def agg_pair_inputs(torch, cs, rng, dev, stacked_call: str | None) -> dict:
+    """The `agg-pair` mode's card lanes, made once for both trees."""
+    from horaedb_tpu_torch.backend import order_key
+    from horaedb_tpu_torch.storage.read import _pack_sort_keys
+
+    out = {"stacked_synthetic": stacked_inputs(torch, rng, dev),
+           "stacked_empty_lane": empty_lane_inputs(torch, rng, dev),
+           "masked": masked_inputs(torch, rng, dev)}
+    if stacked_call is not None:
+        call = torch.load(stacked_call)
+        out["stacked_3i"] = ([a.to(dev) for a in call["lanes"]], call["bucket_ms"],
+                             call["num_series"], call["num_buckets"])
+    slv_seed = int(rng.integers(2**31))
+    for route in ("u32", "u64", "wide"):
+        out[f"slv_{route}"] = last_write_lanes(torch, cs, np.random.default_rng(slv_seed), dev,
+                                               route)
+    k, v, cells = cs.main_path_segment_inputs(rng)
+    out["main_segment"] = (torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev), cells)
+    out["fused"] = dict(fused_lanes(torch, cs, rng, dev))
+    m = round(cs.NUM_SERIES * cs.WINDOW_MS / cs.INTERVAL_MS * (1 + cs.RESEND_FRACTION) / 50)
+    series = rng.integers(0, 2**64 - 1, cs.NUM_SERIES, dtype=np.uint64, endpoint=True)
+    host = [series[rng.integers(0, cs.NUM_SERIES, m)],
+            cs.T0 + rng.integers(0, cs.SEGMENT_MS // cs.INTERVAL_MS, m) * cs.INTERVAL_MS]
+    skeys = [torch.from_numpy(order_key(a)).to(dev) for a in host]
+    out["sort_perm"] = (skeys, [(int(x.min()), int(x.max())) for x in skeys])
+    seg = cs.segment_runs(rng, cs.make_data(rng), 0)
+    packed, width, bits = _pack_sort_keys(seg.__getitem__, ("series_id", "ts", "__seq__"),
+                                          len(seg["ts"]))
+    out["packed_merge"] = (torch.from_numpy(order_key(packed)).to(dev), bits, width)
+    out["scan_kernel"] = fused_scan_inputs(torch, cs, rng, dev)
+    return out
+
+
+def agg_rows(torch, cs, tree, dev, inputs: dict) -> tuple[dict, dict]:
+    """The `agg-pair` rows on `tree`'s package: launch_split of each (with
+    the device operations a call) and the digests of their outputs (the
+    sorts: checked equal to their plain versions instead)."""
+    use_tree(tree.mods)
+    aggregate, blockagg = tree.mod("ops.aggregate"), tree.mod("ops.blockagg")
+    sort_ops, merge, scan_ops = tree.mod("ops.sort"), tree.mod("ops.merge"), tree.mod("ops.scan")
+    F = tree.mod("ops.filter")
+    times, digests = {}, {}
+
+    def row(name, fn, iters, check=None):
+        got = fn()
+        torch.cuda.synchronize()
+        if check is None:
+            digests[name] = digest(torch, list(got.values()) if isinstance(got, dict) else got)
+        else:
+            cs.require(check(got), f"{name} differs from its plain version")
+        times[name] = launch_split(torch, cs, fn, iters)
+
+    for key, iters in (("stacked_synthetic", 1000), ("stacked_3i", 1000),
+                       ("stacked_empty_lane", 50)):
+        if key in inputs:
+            lanes, bucket_ms, ns, nb = inputs[key]
+            row(f"stacked_downsample_{key[8:]}",
+                lambda: aggregate.stacked_downsample(*lanes, bucket_ms, ns, nb), iters)
+    vals, ids, ok, segs = inputs["masked"]
+    row("grouped_stats_masked", lambda: aggregate.grouped_stats(vals, ids, ok, segs), 50)
+    for key in ("slv_u32", "slv_u64", "slv_wide"):
+        lanes = inputs[key]
+        row(f"segment_last_value_{key[4:]}", lambda: [aggregate.segment_last_value(*lanes)], 50)
+    kt, vt, cells = inputs["main_segment"]
+    row("block_sum_count_main_call",
+        lambda: blockagg.sorted_segment_sum_count(kt, vt, cells, impl="block"), 1000)
+    row("block_min_max_main_call",
+        lambda: blockagg.sorted_segment_min_max(kt, vt, cells, impl="block"), 1000)
+    series, buckets = cs.FUSED_SERIES, cs.FUSED_WINDOW_MS // cs.FUSED_BUCKET_MS
+    for order, (ts, sid, vals, flat) in inputs["fused"].items():
+        row(f"grouped_stats_{order}",
+            lambda: aggregate.grouped_stats(vals, flat, None, series * buckets), 20)
+        row(f"downsample_{order}",
+            lambda: aggregate.downsample(ts, sid, vals, None, 0, cs.FUSED_BUCKET_MS, series,
+                                         buckets), 20)
+    skeys, sbounds = inputs["sort_perm"]
+    row("sort_perm", lambda: sort_ops.sort_perm(skeys, sbounds), 200,
+        lambda got: torch.equal(got, sort_ops.sort_perm_plain(skeys)))
+    key, bits, width = inputs["packed_merge"]
+    row("packed_merge", lambda: merge.packed_merge(key, bits, width, True), 20,
+        lambda got: cs.same_survivors(torch, got, merge.packed_merge_plain(key, width, True)))
+    lanes, keys, bounds, prog, n = inputs["scan_kernel"]
+
+    def scan_same(got):
+        want = scan_ops.scan_kernel_plain(lanes, keys, 2, F.eval_program_plain(prog, lanes, n),
+                                          True, False)
+        k = int(got[4].item())
+        return (k == int(want[4].item()) and torch.equal(got[1][:k], want[1][:k])
+                and torch.equal(got[2], want[2]) and torch.equal(got[3], want[3]))
+
+    row("scan_kernel", lambda: scan_ops.scan_kernel(lanes, keys, bounds, 2, prog, n, True, False,
+                                                    dev), 5, scan_same)
+    return times, digests
+
+
+def agg_pair_times(torch, cs, rng, dev, roots: list[tuple[str, str]], seed: int,
+                   stacked_call: str | None) -> dict:
+    """The `agg-pair` mode (module docstring): the trees of `roots` (tag,
+    checkout) in the order parent, change, change, parent."""
+    trees = {tag: Tree(root, MESH_MODULES) for tag, root in roots}
+    for tree in trees.values():
+        use_tree(tree.mods)
+        tree.mod("ops._build").build_all()
+    inputs = agg_pair_inputs(torch, cs, rng, dev, stacked_call)
+    mesh_inputs = mesh_step_inputs(cs, np.random.default_rng(seed))
+    tags = [t for t, _ in roots]
+    order = tags + tags[::-1]
+    out = {tag: {"package": trees[tag].package, "turns": []} for tag in tags}
+    ref = None
+    for tag in order:
+        times, got = agg_rows(torch, cs, trees[tag], dev, inputs)
+        steps, step_digests = mesh_steps(torch, cs, trees[tag], dev, mesh_inputs)
+        out[tag]["turns"].append({"rows": times, "mesh_steps": steps})
+        got.update(step_digests)
+        if ref is None:
+            ref = got
+        diff = sorted(k for k in ref if ref[k] != got[k])
+        cs.require(not diff, f"{tag}: outputs differ from {order[0]}'s: {diff}")
+    out["shapes"] = {
+        "stacked_downsample_synthetic": f"{STACKED_SHAPE[:2]} padded lanes, "
+                                        f"{STACKED_SHAPE[2]} x {STACKED_SHAPE[3]} a lane",
+        "stacked_downsample_3i": "burst A's captured launch" if stacked_call else "not given",
+        "stacked_downsample_empty_lane": f"{EMPTY_LANE_SHAPE[:2]} padded lanes, "
+                                         f"{EMPTY_LANE_SHAPE[2]} x {EMPTY_LANE_SHAPE[3]} a lane, "
+                                         f"{EMPTY_LANE_REAL} rows in each lane but the last",
+        "grouped_stats_masked": f"{MASKED_SHAPE[0]} shuffled rows, {MASKED_SHAPE[1]} segments, "
+                                f"the rows of the first tenth valid",
+        "segment_last_value": f"{len(inputs['slv_u32'][0])} shuffled rows, "
+                              f"{inputs['slv_u32'][4]} segments (3k: u32 keys); u64: one seq "
+                              f"2^33; wide: one seq INT64_MAX",
+        "fused": f"{len(inputs['fused']['sorted'][0])} rows, {cs.FUSED_SERIES} x "
+                 f"{cs.FUSED_WINDOW_MS // cs.FUSED_BUCKET_MS}",
+        "sort_perm": f"{len(inputs['sort_perm'][0][0])} rows x 2 keys",
+        "packed_merge": (f"{len(inputs['packed_merge'][0])} rows, "
+                         f"{inputs['packed_merge'][1]}-bit key"),
+        "scan_kernel": f"{inputs['scan_kernel'][4]} rows"}
+    out["order"] = order
+    out["bitwise_equal"] = True
+    return out
+
+
 class NeverHit(dict):
     """An id cache that never hits and keeps nothing."""
 
@@ -1688,11 +1898,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     ap.add_argument("mode", choices=("reduce", "reduce-split", "id-cache", "solo-fold", "launch",
                                      "merge", "sort-split", "default-device", "burst",
-                                     "burst-pair", "scan-pair", "mesh-step", "decode-pair"))
+                                     "burst-pair", "scan-pair", "mesh-step", "decode-pair",
+                                     "agg-pair"))
     ap.add_argument("--root", default=None, help="import horaedb_tpu_torch from this checkout")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-warm-turn", action="store_true",
                     help="scan-pair: no untimed scan opening each tree's turn")
+    ap.add_argument("--stacked-call", default=None, metavar="FILE",
+                    help="agg-pair: burst A's stacked_downsample inputs, as chip_smoke.py "
+                         "--save-stacked-call writes them")
     ap.add_argument("--rounds", type=int, default=5,
                     help="burst, burst-pair, scan-pair: timed rounds after a warm-up")
     args = ap.parse_args()
@@ -1743,13 +1957,17 @@ def main() -> int:
         cs.require(args.root is not None, "mesh-step: --root names the parent checkout")
         out = mesh_step_times(torch, cs, rng, dev, [("parent", args.root), ("change", HERE)],
                               args.seed)
+    elif args.mode == "agg-pair":
+        cs.require(args.root is not None, "agg-pair: --root names the parent checkout")
+        out = agg_pair_times(torch, cs, rng, dev, [("parent", args.root), ("change", HERE)],
+                             args.seed, args.stacked_call)
     elif args.mode == "decode-pair":
         cs.require(args.root is not None, "decode-pair: --root names the parent checkout")
         out = decode_pair_times(torch, cs, rng, dev, [("parent", args.root), ("change", HERE)])
     else:
         out = asyncio.run(id_cache_times(torch, cs, rng, dev))
     out.setdefault("package", os.path.dirname(horaedb_tpu_torch.__file__))
-    out.update(mode=args.mode, card=card)
+    out.update(mode=args.mode, card=card, profiler_windows_retaken=cs.RETAKEN_WINDOWS[0])
     print(json.dumps(out), flush=True)
     return 0
 

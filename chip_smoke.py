@@ -57,7 +57,9 @@ Phases, each of which exits non-zero on failure:
    and lane_sum_count (n mod 8 != 0, ids < 0 and >= the cell count,
    weights given and not, an empty input; counts exact, sums within
    2^-20 x the cell's L1 mass), segment_last_value (ties, empty segments,
-   invalid rows, a u64 seq >= 2^63; bitwise) and kernel B's bf16 flag
+   invalid rows, a seq span of 2^33, a u64 seq >= 2^63: each route of its
+   row pass; bitwise)
+   and kernel B's bf16 flag
    (bitwise), against their plain versions;
 3. the main paths at TSBS cpu-only scale (10,000 series, one field, 10 s
    interval, 4 h = two 2 h segments = 14.4M samples), stored as parquet
@@ -174,10 +176,13 @@ Phases, each of which exits non-zero on failure:
    torch.Generator-seeded shuffle of those rows, each with its library
    call and the path its sort took), the four decode kernels on the
    largest lane each decoded on the device in 3g/3h, stacked_downsample
-   on burst A's launch inputs, lane_sum_count at the calibration's shapes
+   on burst A's launch inputs (by CUDA events and by device ms, with its
+   device operations a call; `--save-stacked-call FILE` keeps those inputs
+   for `chip_ab.py agg-pair`), lane_sum_count at the calibration's shapes
    (2^18 rows into 16,384 and 524,288 cells; sorted ids, and shuffled
    under `unsorted`) and segment_last_value on
-   3k's inputs, and the four mesh kernels at 3l's shapes (one slot of the
+   3k's inputs (both timers, and the route of its row pass), and the four
+   mesh kernels at 3l's shapes (one slot of the
    regioned fold; the mesh downsample's step and the 3-axis step whole,
    each held bitwise against the same step through the plain route and
    through the parent's route (the keys, then kernels B and C or
@@ -1603,7 +1608,8 @@ def check_agg_kernels(torch, rng, dev) -> None:
         lane_within_budget(torch, s, ps, k, v, cells)
 
     n, segs = 1_000_003, 300_000
-    for name in ("ties", "empty segments", "invalid rows", "seq >= 2^63 (u64)", "no rows"):
+    for name in ("ties", "empty segments", "invalid rows", "seq spans 2^33", "seq >= 2^63 (u64)",
+                 "no rows"):
         vals = rng.normal(size=n)
         vals[rng.choice(n, 60, replace=False)] = np.resize([np.nan, -0.0, np.inf, -np.inf], 60)
         index = rng.integers(-2, segs + 2, n).astype(np.int32)
@@ -1612,7 +1618,9 @@ def check_agg_kernels(torch, rng, dev) -> None:
         m = segs
         if name == "empty segments":
             m = 8 * segs
-        elif name.startswith("seq"):
+        elif name == "seq spans 2^33":  # the u64 keys' route
+            seq = seq + np.where(rng.random(n) > 0.5, np.uint64(2**33), np.uint64(0))
+        elif name.startswith("seq"):  # the 16-byte CAS route
             seq = seq + np.uint64(2**63) - np.where(rng.random(n) > 0.5, np.uint64(2),
                                                     np.uint64(0))
         elif name == "no rows":
@@ -1635,14 +1643,11 @@ def check_agg_kernels(torch, rng, dev) -> None:
                 "block_sum_count with round_bf16 != plain")
 
 
-def last_write_path(torch, rng, dev, counted) -> tuple[dict, tuple]:
-    """Phase 3k: the last write of each segment at a dedup shape like phase
-    3a's segment (7.2M segments, 5 % re-sent rows with a higher seq, rows
-    shuffled) through segment_last_value, held against the values written
-    last. Returns the record and the inputs phase 4 times."""
-    import horaedb_tpu_torch as port
-    from horaedb_tpu_torch.ops import aggregate as agg
-
+def last_write_inputs(rng):
+    """Phase 3k's host lanes: one row per segment of 3a's segment (7.2M)
+    with a seq from its write batch, and a 5 % re-send of them with a
+    higher seq, shuffled. (values, seq, index, segments, re-sent rows, the
+    value each segment holds last)."""
     segs = NUM_SERIES * (SEGMENT_MS // INTERVAL_MS)
     resend = int(rng.binomial(segs, RESEND_FRACTION))
     again = rng.choice(segs, resend, replace=False)
@@ -1653,7 +1658,18 @@ def last_write_path(torch, rng, dev, counted) -> tuple[dict, tuple]:
     perm = rng.permutation(len(index))
     want = vals[:segs].copy()
     want[again] = vals[segs:]
-    index, seq, vals = index[perm], seq[perm], vals[perm]
+    return vals[perm], seq[perm], index[perm], segs, resend, want
+
+
+def last_write_path(torch, rng, dev, counted) -> tuple[dict, tuple]:
+    """Phase 3k: the last write of each segment at a dedup shape like phase
+    3a's segment (7.2M segments, 5 % re-sent rows with a higher seq, rows
+    shuffled) through segment_last_value, held against the values written
+    last. Returns the record and the inputs phase 4 times."""
+    import horaedb_tpu_torch as port
+    from horaedb_tpu_torch.ops import aggregate as agg
+
+    vals, seq, index, segs, resend, want = last_write_inputs(rng)
     vt, st, it = (torch.from_numpy(a).to(dev) for a in (vals, seq, index))
     okt = torch.ones(len(index), dtype=torch.bool, device=dev)
     port.reset_launch_counts()
@@ -1730,13 +1746,17 @@ def agg_records(torch, dev, last_write: tuple) -> list[dict]:
     # each value, seq, index and mask read once (21 B/row), the value of
     # each segment written once (8 B/segment)
     nb, kind = bound(n * 21 + segs * 8, 0)
+    def kern():
+        return agg.segment_last_value(vt, st, it, okt, segs)
+
+    dms, ops = device_ms(torch, kern, calls=10, with_ops=True)
     records.append({
         "name": "segment_last_value", "route": "cuda",
         "source": "horaedb_tpu_torch/ops/csrc/segment_last_value.cu",
         "replaces": "horaedb_tpu/ops/aggregate.py:354",
         "shape": f"{n} rows ({resend} re-sent with a higher seq), {segs} segments",
         "max_abs_err": abs_err(torch, got, want),
-        "ms": cuda_ms(torch, lambda: agg.segment_last_value(vt, st, it, okt, segs)),
+        "ms": cuda_ms(torch, kern), "device_ms": dms, "device_ops": ops,
         "plain_ms": cuda_ms(torch, lambda: agg.segment_last_value_plain(vt, st, it, okt, segs)),
         "bound_ms": nb, "bound_by": kind, "library_ms": cuda_ms(torch, library),
         "library_call": "scatter_reduce amax x2 (seq, then position) + a gather"})
@@ -3097,14 +3117,19 @@ def check_stacked_kernel(torch, rng, dev) -> None:
                 f"stacked_downsample at lane {lane} != downsample_sorted (solo): {k}")
 
 
-def stacked_records(torch, cap: CaptureStacked, dev) -> list[dict]:
+def stacked_records(torch, cap: CaptureStacked, dev, save_to: str | None = None) -> list[dict]:
     """Phase 4: stacked_downsample against its plain version on burst A's
-    own launch inputs, timed."""
+    own launch inputs, timed by CUDA events and by device ms; with
+    `save_to`, those inputs go to that file (torch.save) for
+    `chip_ab.py agg-pair --stacked-call`."""
     from horaedb_tpu_torch.ops import aggregate as agg
 
     require(cap.args is not None, "burst A made no stacked launch")
     (ts, sid, values, valid, t0, bucket_ms), kw = cap.args
     ns, nbk = kw["num_series"], kw["num_buckets"]
+    if save_to is not None:
+        torch.save({"lanes": [a.cpu() for a in (ts, sid, values, valid, t0)],
+                    "bucket_ms": bucket_ms, "num_series": ns, "num_buckets": nbk}, save_to)
     got = agg.stacked_downsample(ts, sid, values, valid, t0, bucket_ms, ns, nbk)
     want = agg.stacked_downsample(*(a.cpu() for a in (ts, sid, values, valid, t0)), bucket_ms,
                                   ns, nbk)
@@ -3136,15 +3161,20 @@ def stacked_records(torch, cap: CaptureStacked, dev) -> list[dict]:
     # each padded row read once (ts 8 B, sid 4 B, value 8 B, valid 1 B), the
     # five f64 grids written once
     nb, kind = bound(b * r * (8 + 4 + 8 + 1) + cells * 40, 0)
+
+    def kern():
+        return agg.stacked_downsample(ts, sid, values, valid, t0, bucket_ms, ns, nbk)
+
+    dms, ops = device_ms(torch, kern, calls=20, with_ops=True)
     return [{
         "name": "stacked_downsample", "route": "cuda",
-        "source": "horaedb_tpu_torch/ops/csrc/stacked_downsample.cu + grouped_stats.cu",
+        "source": "horaedb_tpu_torch/ops/csrc/grouped_stats.cu + onesweep.cuh, segreduce.cuh "
+                  "(grouped_stats_stacked_launch)",
         "replaces": "horaedb_tpu/ops/aggregate.py:281",
         "shape": f"[B, R] = [{b}, {r}] padded rows ({real} real), {b} x {ns} series x {nbk} "
                  f"buckets = {cells} cells",
         "max_abs_err": err,
-        "ms": cuda_ms(torch, lambda: agg.stacked_downsample(ts, sid, values, valid, t0,
-                                                            bucket_ms, ns, nbk)),
+        "ms": cuda_ms(torch, kern), "device_ms": dms, "device_ops": ops,
         "plain_ms": cuda_ms(torch, lambda: agg.stacked_downsample_plain(
             ts, sid, values, valid, t0, bucket_ms, ns, nbk), iters=5, warmup=1),
         "bound_ms": nb, "bound_by": kind, "library_ms": cuda_ms(torch, library),
@@ -3872,22 +3902,49 @@ def parent_slot_grids(ts, sid, vals, valid, mask, t0, bucket_ms, lo, local_serie
     return out
 
 
-def device_ms(torch, fn, calls: int = 5) -> float:
-    """Device ms a call of fn(): every kernel, copy and memset it runs
-    (torch.profiler, the mean of `calls` calls)."""
+# profiler windows taken again because they had lost device records
+# (profiled_events); printed with phase 4's records, and in chip_ab.py's JSON
+RETAKEN_WINDOWS = [0]
+
+
+def profiled_events(torch, fn, calls: int, tries: int = 8) -> list:
+    """The device records (torch.profiler) of `calls` calls of fn(), after
+    one call outside the window. A window can lose records: one in which
+    some kernel, copy or memset does not come out a whole number of times a
+    call is taken again (counted in RETAKEN_WINDOWS), and the run fails
+    when none of `tries` windows is whole."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / calls / 1e3
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = {}
+        for e in events:
+            names[e.name] = names.get(e.name, 0) + 1
+        if all(c % calls == 0 for c in names.values()):
+            return events
+        RETAKEN_WINDOWS[0] += 1
+    raise SmokeFailure(f"{tries} profiler windows of {calls} calls each lost device records")
+
+
+def device_ms(torch, fn, calls: int = 5, with_ops: bool = False):
+    """Device ms a call of fn(): every kernel, copy and memset it runs
+    (`profiled_events`, the mean of `calls` calls); with_ops: (ms, the
+    device operations a call runs)."""
+    events = profiled_events(torch, fn, calls)
+    ms = sum(e.time_range.elapsed_us() for e in events) / calls / 1e3
+    return (ms, len(events) / calls) if with_ops else ms
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--save-stacked-call", default=None, metavar="FILE",
+                    help="save burst A's stacked_downsample inputs to FILE (torch.save), for "
+                         "chip_ab.py agg-pair --stacked-call")
     args = ap.parse_args()
     import torch
 
@@ -3902,12 +3959,12 @@ def main() -> int:
     calib_dir = tempfile.mkdtemp(prefix="chip_smoke_calib_")
     os.environ["HORAEDB_AGG_CACHE"] = f"{calib_dir}/torch_agg_calib.json"
     try:
-        return run_smoke(torch, args.seed)
+        return run_smoke(torch, args.seed, args.save_stacked_call)
     finally:
         shutil.rmtree(calib_dir, ignore_errors=True)
 
 
-def run_smoke(torch, seed: int) -> int:
+def run_smoke(torch, seed: int, save_stacked: str | None = None) -> int:
     """Phases 1 to 4 (module docstring) on cuda:0."""
     import asyncio
     import tempfile
@@ -3949,7 +4006,7 @@ def run_smoke(torch, seed: int) -> int:
     print(f"phase 3: {time.perf_counter() - t_all:.1f} s", flush=True)
     records += fused_records(torch, result.pop("fused_capture"), dev, seed)
     records += decode_records(torch, result.pop("decode_capture"), dev)
-    records += stacked_records(torch, result.pop("stacked_capture"), dev)
+    records += stacked_records(torch, result.pop("stacked_capture"), dev, save_stacked)
     records += agg_records(torch, dev, result.pop("last_write_capture"))
     records += mesh_records(torch, dev, result.pop("mesh_capture"), result.pop("fold_capture"))
     result["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
@@ -3959,9 +4016,13 @@ def run_smoke(torch, seed: int) -> int:
         print(f"{r['name']}: {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms,"
               f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib}, "
               f"{r['launches']} launches [{card}]", flush=True)
+        if "device_ops" in r:
+            print(f"{r['name']}: device {r['device_ms']:.4f} ms a call (torch.profiler), "
+                  f"{r['device_ops']:g} device operations a call [{card}]", flush=True)
         if "main_call_ms" in r:
             print(f"{r['name']}: as downsample_sorted calls it: {r['main_call_ms']:.4f} ms, "
                   f"bound {r['main_call_bound_ms']:.4f} ms [{card}]", flush=True)
+    print(f"profiler windows retaken (lost device records): {RETAKEN_WINDOWS[0]}", flush=True)
     profiled = result.pop("profile")
     result["smoke_s"] = time.perf_counter() - t_all
     print(json.dumps({"main_paths": result, "card": card}), flush=True)

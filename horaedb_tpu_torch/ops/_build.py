@@ -49,11 +49,10 @@ from horaedb_tpu_torch.common.error import HoraeError
 # serves sort_perm, scan_kernel and the index merges; packedsort.cuh's
 # merge by one packed key serves packed_merge and sample_sort_merge.
 # predicate.cu is kernel E, which runs inside index_merge_filter and
-# scan_kernel and is not a catalog kernel of its own. downsample computes
-# its cell ids in grouped_stats' key pass: it loads that library (SHARED),
-# and a downsample call counts once under each name. A stacked_downsample
-# call launches two libraries, stacked_downsample (the cell ids) and
-# grouped_stats (the reduction), and counts once in each.
+# scan_kernel and is not a catalog kernel of its own. downsample and
+# stacked_downsample compute their cell ids in grouped_stats' key pass:
+# each loads that library (SHARED), and a call counts once under its own
+# name and once under grouped_stats.
 # multisegment_downsample is sharded_downsample's slot pass with a
 # per-segment t0: it loads that library (SHARED) and counts its launches
 # under its own name. The slot pass folds through segreduce.cuh and sorts
@@ -77,7 +76,6 @@ SOURCES = {
     "decode_dod": ("decode_dod.cu", "bitunpack.cuh"),
     "decode_xor": ("decode_xor.cu", "bitunpack.cuh"),
     "decode_rle": ("decode_rle.cu", "bitunpack.cuh"),
-    "stacked_downsample": ("stacked_downsample.cu",),
     "lane_sum_count": ("lane_sum_count.cu",),
     "segment_last_value": ("segment_last_value.cu",),
     "sample_sort_merge": ("sample_sort_merge.cu", "packedsort.cuh", "onesweep.cuh",
@@ -86,7 +84,8 @@ SOURCES = {
     "sharded_downsample": ("sharded_downsample.cu", "predicate.cu", "onesweep.cuh",
                            "segreduce.cuh"),
 }
-SHARED = {"downsample": "grouped_stats", "multisegment_downsample": "sharded_downsample"}
+SHARED = {"downsample": "grouped_stats", "stacked_downsample": "grouped_stats",
+          "multisegment_downsample": "sharded_downsample"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

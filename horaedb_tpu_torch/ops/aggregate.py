@@ -10,8 +10,8 @@ A port of `horaedb_tpu/ops/aggregate.py`:
   `csrc/grouped_stats.cu` (with `csrc/onesweep.cuh`'s sort) on CUDA
   tensors, the plain versions beside them (`masked_segment_stats`,
   `masked_minmax`, index_add_ and scatter_reduce) on CPU ones;
-- `stacked_downsample` (kernel `stacked_downsample`, `csrc/
-  stacked_downsample.cu`, then `grouped_stats`): the grids of a stack of
+- `stacked_downsample` (kernel `stacked_downsample`, grouped_stats'
+  library computing the cell ids in its key pass): the grids of a stack of
   coalesced queries in one launch, the query batcher's device lane;
 - `lane_segment_sum_count` (kernel `lane_sum_count`, `csrc/
   lane_sum_count.cu`): the dispatcher's `lanes` lane, f32;
@@ -368,9 +368,10 @@ def stacked_downsample_plain(ts, series_idx, values, valid, t0, bucket_ms: int,
 
 
 _STACKED_ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-    ctypes.c_int32, ctypes.c_int32, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-    ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,
+    ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 ]
 
 
@@ -382,9 +383,10 @@ def stacked_downsample(ts: torch.Tensor, series_idx: torch.Tensor, values: torch
     a [B] int64 `t0` per query; [B, num_series, num_buckets] grids of sum,
     count, min, max and mean. Query b's cells take exactly its own in-grid
     rows in row order, so its grid is bitwise equal to its solo reduction.
-    Kernel `stacked_downsample` writes the flat cell ids and kernel
-    `grouped_stats` reduces them (one launch counted in each) on CUDA
-    tensors; `stacked_downsample_plain` on CPU ones."""
+    On CUDA tensors grouped_stats' library computes each row's cell id in
+    its key pass (no id lane) and reduces them: one launch counted under
+    `stacked_downsample` and under `grouped_stats`;
+    `stacked_downsample_plain` on CPU ones."""
     dev = ts.device
     ensure(ts.dim() == 2, f"stacked_downsample: ts must be [B, R], got {tuple(ts.shape)}")
     b, r = ts.shape
@@ -393,8 +395,9 @@ def stacked_downsample(ts: torch.Tensor, series_idx: torch.Tensor, values: torch
         ensure(t.shape == (b, r) and t.dtype == dt and t.is_contiguous() and t.device == dev,
                f"stacked_downsample: {name} must be a contiguous {dt} [{b}, {r}] on {dev}, "
                f"got {t.dtype}{tuple(t.shape)} on {t.device}")
-    ensure(t0.shape == (b,) and t0.dtype == torch.int64 and t0.device == dev,
-           f"stacked_downsample: t0 must be int64 [{b}] on {dev}")
+    ensure(t0.shape == (b,) and t0.dtype == torch.int64 and t0.is_contiguous()
+           and t0.device == dev,
+           f"stacked_downsample: t0 must be a contiguous int64 [{b}] on {dev}")
     ensure(bucket_ms > 0, f"stacked_downsample: bucket_ms must be positive, got {bucket_ms}")
     cells = num_series * num_buckets
     ensure(num_series > 0 and num_buckets > 0 and b * cells < 2**31,
@@ -405,13 +408,13 @@ def stacked_downsample(ts: torch.Tensor, series_idx: torch.Tensor, values: torch
     if dev.type != "cuda":
         raise HoraeError(f"stacked_downsample: unsupported device {dev}")
     ensure(r > 0, "stacked_downsample: empty row lanes")
-    cell = torch.empty(b * r, dtype=torch.int32, device=dev)
-    fn = _build.kernel("stacked_downsample", "stacked_downsample_cells_launch",
-                       _STACKED_ARGTYPES)
-    _build.launch("stacked_downsample", fn, dev, ts.data_ptr(), series_idx.data_ptr(),
-                  valid.data_ptr(), t0.data_ptr(), bucket_ms, num_series, num_buckets, b, r,
-                  cell.data_ptr())
-    flat = grouped_stats(values.reshape(-1), cell, None, b * cells)
+    ensure(b * r < 2**31, f"stacked_downsample: {b} x {r} rows exceed int32 row indices")
+    flat, _ = _stats_call("stacked_downsample", "grouped_stats_stacked_launch",
+                          _STACKED_ARGTYPES, values, False,
+                          (ts.data_ptr(), series_idx.data_ptr(), valid.data_ptr(),
+                           t0.data_ptr(), bucket_ms, num_series, num_buckets, b, r),
+                          b * r, b * cells, dev)
+    _build.LAUNCHES["grouped_stats"] += 1
     shape = (b, num_series, num_buckets)
     return {k: v.reshape(shape) for k, v in flat.items()}
 

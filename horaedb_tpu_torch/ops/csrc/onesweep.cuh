@@ -27,14 +27,18 @@
 //      written once; per tile its kept-row count, whether its kept keys are
 //      non-decreasing, and its first and largest kept key; and the
 //      histogram of every digit (shared-memory counts of runs, added to the
-//      global histograms once per tile).
+//      global histograms once per tile). A source may declare
+//      `side(block, blocks)`: every block of the pass calls it once, first
+//      (grouped_stats.cu fills its outputs there, spread over the blocks).
 //   2. decide_kernel, one block: the rows are presorted when every tile is
 //      and each tile's first kept key is at least every earlier kept key.
 //      It writes that flag, each tile's offset among the kept rows, the
 //      kept total, and the exclusive scan of every digit's histogram.
-//   3. presorted: compact_kernel, a stable partition (kept rows in input
+//   3. compact_kernel: presorted, a stable partition (kept rows in input
 //      order, then one sentinel key per dropped row). A stable sort of such
 //      keys is exactly this, so the output is the same, bit for bit.
+//      Otherwise each block zeroes its tile's look-back status words for
+//      the digit passes, and nothing else.
 //   4. otherwise: one sweep_kernel per digit. A block takes the next tile
 //      (an atomic tile counter, so every earlier tile is already running),
 //      ranks its rows per digit in shared memory (warp w owns a contiguous
@@ -47,6 +51,8 @@
 //      Each digit's rows leave the tile as one contiguous, coalesced run.
 //      Only tiles below the rows in play take part, so the look-back ends:
 //      every earlier tile is a working block that publishes.
+// A sort is one memset (the histograms, tile counters and flags), the key
+// pass, decide_kernel, the partition and one launch a digit.
 // Every kernel of the path not taken returns at once: the choice is read
 // on the device and the host never waits. No float is touched by an
 // atomic; the integer atomics (histograms, tile counter) fix no order.
@@ -173,6 +179,17 @@ struct order_of<Src, K, decltype(void(Src::ORDER))> {
     static constexpr K value = (K)Src::ORDER;
 };
 
+// the optional per-block work of the key pass (see the header)
+template <class Src, class = void>
+struct has_side {
+    static constexpr bool value = false;
+};
+
+template <class Src>
+struct has_side<Src, decltype(void(&Src::side))> {
+    static constexpr bool value = true;
+};
+
 template <class K, class Src>
 __global__ void __launch_bounds__(THREADS)
 key_kernel(Src src, Rows<K> rows, int digits, K* __restrict__ keys,
@@ -186,6 +203,7 @@ key_kernel(Src src, Rows<K> rows, int digits, K* __restrict__ keys,
     const int t = threadIdx.x;
     const int64_t m = rows.count();
     const int64_t ts = (int64_t)blockIdx.x * TILE;
+    if constexpr (has_side<Src>::value) src.side(blockIdx.x, gridDim.x);
     if (blockIdx.x > 0 && ts >= m) return;  // tile 0 always reports, empty or not
     const int len = m - ts < TILE ? (int)(m - ts) : TILE;
     for (int i = t; i < KD * RADIX; i += THREADS) sh[i] = 0;
@@ -307,15 +325,23 @@ decide_kernel(const TileInfo<K>* __restrict__ info, Rows<K> rows, int digits,
 // dropped rows to [kept, rows in play) as sentinel keys. Row j * THREADS +
 // t of the tile is thread t's j-th (loads and stores coalesce); every key,
 // then every kept payload, is loaded before the first store, and one scan
-// over the (round, warp) counts of kept rows ranks them all.
+// over the (round, warp) counts of kept rows ranks them all. Otherwise the
+// block zeroes its tile's look-back status words of every digit pass (pass
+// p's words start at p * stride) for the sweeps, and nothing else.
 template <class K, class V>
 __global__ void __launch_bounds__(THREADS)
 compact_kernel(const K* __restrict__ keys, const V* __restrict__ vals, Rows<K> rows,
                const int32_t* __restrict__ tile_off, const int32_t* __restrict__ flag,
-               K* __restrict__ k_out, V* __restrict__ v_out) {
-    if (!flag[0]) return;
+               K* __restrict__ k_out, V* __restrict__ v_out, uint64_t* __restrict__ status,
+               int digits, int64_t stride) {
     const int64_t m = rows.count();
-    if ((int64_t)blockIdx.x * TILE >= m) return;
+    if ((int64_t)blockIdx.x * TILE >= m) return;  // no sweep reads this tile's words
+    if (!flag[0]) {
+        for (int dg = 0; dg < digits; ++dg) {
+            status[dg * stride + (int64_t)blockIdx.x * RADIX + threadIdx.x] = 0;
+        }
+        return;
+    }
     __shared__ int32_t off[ITEMS * WARPS];
     __shared__ int64_t tmp[WARPS];
     const int t = threadIdx.x;
@@ -358,19 +384,6 @@ compact_kernel(const K* __restrict__ keys, const V* __restrict__ vals, Rows<K> r
         } else if (row < m) {
             k_out[kept_total + (row - at)] = rows.sentinel;  // row - at: dropped rows before it
         }
-    }
-}
-
-// zero the look-back status words of the tiles in play, unless the rows
-// are presorted; pass p's words start at p * stride
-template <class K>
-__global__ void zero_kernel(uint64_t* __restrict__ p, int digits, int64_t stride, Rows<K> rows,
-                            const int32_t* __restrict__ flag) {
-    if (flag[0]) return;
-    const int64_t per = dev_tiles(rows.count()) * RADIX;
-    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < digits * per;
-         i += (int64_t)gridDim.x * blockDim.x) {
-        p[(i / per) * stride + i % per] = 0;
     }
 }
 
@@ -625,10 +638,10 @@ inline Sorted<K, V> sort(const Src& src, const V* vals, Rows<K> rows, int digits
                                                            b.hist);
     decide_kernel<K><<<1, DECIDE_THREADS, 0, s>>>(b.info, rows, digits, b.hist, b.base,
                                                   b.tile_off, b.flag);
-    compact_kernel<K, V><<<(unsigned)tiles, THREADS, 0, s>>>(b.kc, vals, rows, b.tile_off,
-                                                             b.flag, b.k[last], out[last]);
     const int64_t stride = b.tiles * RADIX;
-    zero_kernel<K><<<132 * 8, 256, 0, s>>>(b.status, digits, stride, rows, b.flag);
+    compact_kernel<K, V><<<(unsigned)tiles, THREADS, 0, s>>>(b.kc, vals, rows, b.tile_off,
+                                                             b.flag, b.k[last], out[last],
+                                                             b.status, digits, stride);
     constexpr int SMEM = sweep_smem<K, V>();
     constexpr K ORDER = order_of<Src, K>::value;
     cudaFuncSetAttribute(sweep_kernel<K, V, ORDER>, cudaFuncAttributeMaxDynamicSharedMemorySize,

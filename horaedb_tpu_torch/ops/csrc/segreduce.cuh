@@ -472,10 +472,12 @@ __global__ void fill_kernel(Op op, int64_t m) {
 
 // Fill, then reduce: both on `stream`, nothing synchronised. The fill
 // writes every cell before the runs overwrite theirs (same stream, in
-// order), so empty cells read the identity.
+// order), so empty cells read the identity. `filled`: an earlier launch on
+// the stream wrote the identity to every cell already, so no fill.
 template <class Op, class Keys>
-int launch_keys(const Keys& k, int64_t n, int64_t num_cells, const Op& op, cudaStream_t stream) {
-    if (num_cells > 0) {
+int launch_keys(const Keys& k, int64_t n, int64_t num_cells, const Op& op, cudaStream_t stream,
+                bool filled = false) {
+    if (num_cells > 0 && !filled) {
         const int64_t blocks = (num_cells + 255) / 256;
         fill_kernel<Op><<<(unsigned)blocks, 256, 0, stream>>>(op, num_cells);
     }
@@ -492,8 +494,9 @@ int launch_keys(const Keys& k, int64_t n, int64_t num_cells, const Op& op, cudaS
 
 // launch_keys over an id lane in device memory
 template <class Op, class K>
-int launch(const K* k, int64_t n, int64_t num_cells, const Op& op, cudaStream_t stream) {
-    return launch_keys(IdLane<K>{k}, n, num_cells, op, stream);
+int launch(const K* k, int64_t n, int64_t num_cells, const Op& op, cudaStream_t stream,
+           bool filled = false) {
+    return launch_keys(IdLane<K>{k}, n, num_cells, op, stream, filled);
 }
 
 // run_kernel's occupancy for `op`'s lanes (only which are null matters)

@@ -101,15 +101,21 @@ class ManifestMerger:
         self._deltas_num -= 1
 
     async def _run(self) -> None:
-        """Merge on every interval tick or signal, when enough deltas wait."""
+        """Merge on every interval tick or signal, when enough deltas wait.
+        Each round's two waiting tasks are cancelled and awaited however the
+        round ends, `close()` cancelling it included, so a closed merger
+        leaves no task pending."""
         interval = self._config.merge_interval.seconds
         while True:
             sleep = asyncio.create_task(asyncio.sleep(interval))
             recv = asyncio.create_task(self._merge_signal.get())
-            done, pending = await asyncio.wait({sleep, recv}, return_when=asyncio.FIRST_COMPLETED)
-            for t in pending:
-                t.cancel()
-            await asyncio.gather(*pending, return_exceptions=True)
+            try:
+                done, _ = await asyncio.wait({sleep, recv},
+                                             return_when=asyncio.FIRST_COMPLETED)
+            finally:
+                for t in (sleep, recv):
+                    t.cancel()
+                await asyncio.gather(sleep, recv, return_exceptions=True)
             for t in done:
                 exc = t.exception()
                 if exc is not None:

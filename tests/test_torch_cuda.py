@@ -524,6 +524,23 @@ def test_grouped_stats_every_row_dropped(dev, how):
                      torch.from_numpy(ok), 100, path=True)
 
 
+@pytest.mark.parametrize("order", ["presorted", "shuffled"])
+@pytest.mark.parametrize("segments", [1, 4_097, 49_999, 50_000, 50_001])
+def test_grouped_stats_mostly_masked_matches_plain_bitwise(dev, segments, order):
+    """About 90 % of 50,000 rows masked, the kept ones bunched in the first
+    tenth of the segments: every other segment reads the empty value,
+    whether the key pass writes it (no more segments than rows, an equal
+    share a block) or the fill launch (more segments than rows)."""
+    rng = np.random.default_rng(segments)
+    n = 50_000
+    idx = rng.integers(0, segments, n)
+    if order == "presorted":
+        idx = np.sort(idx)
+    ok = idx < max(1, segments // 10)
+    _grouped_on_card(dev, torch.from_numpy(_f64(rng, n)), torch.from_numpy(idx.astype(np.int32)),
+                     torch.from_numpy(ok), segments, path=True if order == "presorted" else None)
+
+
 def test_grouped_stats_int64_ids_past_2_32_drop(dev):
     """int64 ids at and past 2^32 (and 2^32 + a valid id) are out of range
     and drop: none may alias into the u32 keys."""
@@ -1071,6 +1088,87 @@ def test_stacked_downsample_matches_plain(dev, case):
         assert np.array_equal(_u64(got[key]), _u64(want[key])), key
 
 
+def _interleave(cells: np.ndarray, rng) -> np.ndarray:
+    """A row order that shuffles the cells of rows sorted by cell but keeps
+    each cell's rows in their order: a stable sort by cell undoes it."""
+    slot_cells = cells[rng.permutation(len(cells))]
+    order = np.empty(len(cells), np.int64)
+    order[np.argsort(slot_cells, kind="stable")] = np.arange(len(cells))
+    return order
+
+
+def _stacked_query(case: str, rng):
+    """(ts, sid, vals, t0, S, T, bucket_ms) of one query in (series, ts)
+    order, and the row order its stacked lane takes."""
+    S, T, bucket_ms, t0 = 6, 4, 1000, 50_000
+    if case.startswith("shuffled"):
+        S, T = 40, 30
+        ts, sid, vals = _one_query(rng, S, T, bucket_ms, t0)
+    else:  # series 1's first cell holds 700 rows, with rows before t0 and past the grid
+        parts = []
+        for s_ in range(S):
+            n_in = 700 if s_ == 1 else int(rng.integers(0, 90))
+            ts = np.concatenate([rng.integers(t0 - 3000, t0, 37), rng.integers(t0, t0 + 1000, n_in),
+                                 rng.integers(t0 + 1000, t0 + T * 1000, 40),
+                                 rng.integers(t0 + T * 1000, t0 + 9000, 41)])
+            parts.append((np.full(len(ts), s_, np.int32), np.sort(ts).astype(np.int64)))
+        sid = np.concatenate([p[0] for p in parts])
+        ts = np.concatenate([p[1] for p in parts])
+        vals = rng.uniform(-1e3, 1e3, len(ts))
+    if case.endswith("-0.0"):
+        vals[sid == 2] = -0.0
+    if "shuffled" in case:
+        bucket = np.clip((ts - t0) // bucket_ms, -1, T)
+        order = _interleave(sid.astype(np.int64) * (T + 2) + bucket + 1, rng)
+    else:
+        order = np.arange(len(ts))
+    return ts, sid, vals, t0, S, T, bucket_ms, order
+
+
+@pytest.mark.parametrize("case", ["shuffled", "long cell, out-of-grid rows",
+                                  "long cell, out-of-grid rows, shuffled",
+                                  "shuffled, a cell of -0.0"])
+@pytest.mark.parametrize("lane", [0, 3])
+def test_stacked_downsample_against_plain_and_solo(dev, case, lane):
+    """One query in lane `lane` of 5 (the others random queries and
+    padding) through stacked_downsample: bitwise equal (u64 views) to its
+    solo downsample_sorted grids and, unless a cell's kept values are all
+    -0.0 (the plain version sums them to +0.0; the kernels to -0.0, as the
+    solo route does), to the plain version on CPU copies. Shuffled cases
+    interleave the lane's cells (each cell's rows in order), so the sort's
+    digit passes run instead of its presorted partition."""
+    from horaedb_tpu_torch.ops.aggregate import stacked_downsample
+
+    rng = np.random.default_rng(sum(map(ord, case)) + lane)
+    ts, sid, vals, t0, S, T, bucket_ms, order = _stacked_query(case, rng)
+    solo = downsample_sorted(ts, sid, vals, t0, bucket_ms, S, T, device=dev)
+    B, R = 5, len(ts) + 257
+    lanes = [np.zeros((B, R), np.int64), np.zeros((B, R), np.int32), np.zeros((B, R)),
+             np.zeros((B, R), bool), np.full(B, t0, np.int64)]
+    for q in range(B):
+        if q == lane:
+            rows = (ts[order], sid[order], vals[order])
+        else:
+            n = int(rng.integers(0, R))
+            rows = (t0 + rng.integers(-2000, (T + 1) * bucket_ms, n),
+                    rng.integers(-1, S + 1, n).astype(np.int32), rng.uniform(-1e3, 1e3, n))
+        n = len(rows[0])
+        for a, r in zip(lanes, rows):
+            a[q, :n] = r
+        lanes[3][q, :n] = rng.random(n) < 0.9 if q != lane else True
+    host = [torch.from_numpy(a) for a in lanes]
+    got = stacked_downsample(*(a.to(dev) for a in host), bucket_ms, S, T)
+    want = stacked_downsample(*host, bucket_ms, S, T)
+    torch.cuda.synchronize()
+    for key in ("sum", "count", "min", "max", "mean"):
+        assert np.array_equal(_u64(got[key][lane]), _u64(solo[key])), key
+        if not case.endswith("-0.0"):
+            assert np.array_equal(_u64(got[key]), _u64(want[key])), key
+    if case.endswith("-0.0"):
+        filled = solo["count"][2].cpu().numpy() > 0
+        assert np.signbit(got["sum"][lane, 2].cpu().numpy()[filled]).all()
+
+
 # -- the calibrated dispatcher, lane_sum_count and segment_last_value -----------
 
 @pytest.fixture(scope="module", autouse=True)
@@ -1274,6 +1372,68 @@ def test_segment_last_value_matches_plain_bitwise(dev, name):
     want = segment_last_value(*args, segs)
     torch.cuda.synchronize()
     assert np.array_equal(_u64(got), _u64(want))
+
+
+def _slv_edge(name: str, route: str):
+    """(values, int64 seq, index, valid, segments) of an edge of the row
+    pass, on the route `route`: "u32" keeps the kept seq range narrow, so
+    every (seq, position) packs into a u32 key; "u64" widens it by 2^33
+    (two kept rows at min + 2^33); "wide" past what packs into a u64 (one
+    kept row of seq INT64_MAX, one of INT64_MIN)."""
+    rng = np.random.default_rng(len(name) + len(route))
+    if name == "1M rows into 1,000 segments":
+        n, segs = 1_000_000, 1_000
+        index = rng.integers(0, segs, n).astype(np.int32)
+        seq = rng.integers(0, 50, n).astype(np.int64)
+    elif name == "ties at the max seq over many blocks":
+        n, segs = 600_000, 7
+        index = rng.integers(0, segs, n).astype(np.int32)
+        seq = np.where(rng.random(n) < 0.5, 9, rng.integers(0, 9, n)).astype(np.int64)
+    elif name == "a lone row of seq INT64_MIN":  # at position 0: the pair (0, 1)
+        n, segs = 1_000, 100
+        index = np.full(n, 5, np.int32)
+        index[0] = 60
+        seq = -(2**63) + rng.integers(0, 5, n).astype(np.int64)
+        seq[0] = -(2**63)
+    else:  # a segment reached only by invalid rows
+        n, segs = 20_000, 50
+        index = rng.integers(0, segs, n).astype(np.int32)
+        seq = rng.integers(0, 3, n).astype(np.int64)
+    vals = rng.normal(size=n)
+    valid = rng.random(n) > 0.05
+    if name == "a segment reached only by invalid rows":
+        index[:3] = 13
+        valid[index == 13] = False
+    valid[0] = name != "a segment reached only by invalid rows"
+    spare = np.flatnonzero(valid & (index != 60))[1:3]
+    if route == "wide":
+        seq[spare] = [2**63 - 1, -(2**63)]
+    elif route == "u64":
+        seq[spare] = seq.min() + 2**33
+    return vals, seq, index, valid, segs
+
+
+@pytest.mark.parametrize("route", ["u32", "u64", "wide"])
+@pytest.mark.parametrize("name", ["1M rows into 1,000 segments",
+                                  "ties at the max seq over many blocks",
+                                  "a lone row of seq INT64_MIN",
+                                  "a segment reached only by invalid rows"])
+def test_segment_last_value_edges_match_plain_bitwise(dev, name, route):
+    """Each route of the row pass (the atomic max of u32 or u64 keys, the
+    16-byte CAS) on the edges of its atomics, bitwise (u64 views) against
+    the plain version on CPU copies."""
+    from horaedb_tpu_torch.ops.aggregate import segment_last_value
+
+    vals, seq, index, valid, segs = _slv_edge(name, route)
+    args = [torch.from_numpy(a) for a in (vals, seq, index, valid)]
+    got = segment_last_value(*(a.to(dev) for a in args), segs)
+    want = segment_last_value(*args, segs)
+    torch.cuda.synchronize()
+    assert np.array_equal(_u64(got), _u64(want))
+    if name == "a lone row of seq INT64_MIN":
+        assert _u64(got)[60] == _u64(vals[:1])[0]
+    if name == "a segment reached only by invalid rows":
+        assert np.isnan(got[13].item())
 
 
 def test_block_bf16_flag_matches_plain_bitwise(dev):

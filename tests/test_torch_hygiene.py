@@ -226,6 +226,15 @@ def test_downsample_computes_its_cells_in_the_grouped_stats_library():
     assert not (_build.CSRC / "downsample.cu").exists()
 
 
+def test_stacked_downsample_computes_its_cells_in_the_grouped_stats_library():
+    """Row 7's cell ids come from grouped_stats' key pass too: no library of
+    its own, no source that writes an id lane."""
+    assert _build._lib_path("stacked_downsample") == _build._lib_path("grouped_stats")
+    assert "stacked_downsample" not in _build.SOURCES
+    assert not (_build.CSRC / "stacked_downsample.cu").exists()
+    assert "grouped_stats_stacked_launch" in (_build.CSRC / "grouped_stats.cu").read_text()
+
+
 @pytest.mark.parametrize("name", ["index_merge_mask", "index_merge_filter", "sample_sort_merge",
                                   "scan_kernel", "sort_perm", "packed_merge"])
 def test_merges_sort_through_the_look_back_header(name):
